@@ -1,0 +1,35 @@
+"""Device and dtype resolution for the port's entry points.
+
+Entry points run on the card unless the caller asks for the CPU: a
+``device`` of ``None`` means ``"cuda"``, and asking for CUDA where no CUDA
+device exists raises instead of carrying on on the CPU."""
+from __future__ import annotations
+
+from typing import Union
+
+import torch
+
+DeviceLike = Union[None, str, torch.device]
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def resolve_device(device: DeviceLike = None) -> torch.device:
+    """``None`` -> ``cuda``; a CUDA device must exist."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the "
+            "plain PyTorch versions on the CPU")
+    return dev
+
+
+def torch_dtype(name: Union[str, torch.dtype]) -> torch.dtype:
+    """``RunConfig.dtype`` name (``"bfloat16"``, ``"float32"``) -> dtype."""
+    if isinstance(name, torch.dtype):
+        return name
+    try:
+        return _DTYPES[name]
+    except KeyError:
+        raise ValueError(f"unsupported dtype {name!r}; expected one of "
+                         f"{sorted(_DTYPES)}") from None

@@ -23,6 +23,9 @@ def pytest_configure(config):
         "markers", "tier1: fast core test, part of the sub-second sanity set")
     config.addinivalue_line(
         "markers", "slow: expensive test, skipped unless --slow is given")
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card (the port's kernels); skips "
+                   "without one")
 
 
 def pytest_addoption(parser):
