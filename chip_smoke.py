@@ -7,24 +7,33 @@
 Phases, each of which raises on failure (the run then exits non-zero and
 prints no result):
 
-1. build   — compile both CUDA kernels from the sources in the checkout.
+1. build   — compile the four CUDA kernels from the sources in the
+   checkout, one ``nvcc`` each, all at once.
 2. kernels — each kernel against its plain PyTorch version on the card at
-   the serve path's shapes, with its time, its bound and the time of one
-   library call that computes the same function (a yardstick the port
-   never calls).  ``queue_matmul`` must be bit-identical across ring depths.
-3. parity  — phi3-mini-3.8b at full width, depth cut to 2 layers, fp32:
-   ``forward`` and 4 ``decode_step``s on the card (kernels) against the CPU
-   (plain versions) on the same seeded weights.
-4. serve   — phi3-mini-3.8b, all 32 layers, bf16: the chunked-prefill
-   engine serves 6 seeded requests, a token-prefill engine must give the
-   same tokens, and one ``forward`` over 512 tokens runs ``flash_attention``.
-   The launch counts are set to 0 before this phase and read after it.
+   the serve paths' shapes, with its time, its bound and the time of one
+   library call that computes the same function where there is one (a
+   yardstick the port never calls).  ``queue_matmul`` and ``moe_gemm``
+   must be bit-identical across ring depths.
+3. parity  — phi3-mini-3.8b, olmoe-1b-7b and falcon-mamba-7b at full
+   width, depth cut to 2 layers, fp32: ``forward`` and 4 ``decode_step``s
+   on the card (kernels) against the CPU (plain versions) on the same
+   seeded weights; for olmoe, layer 0's router top-k on both devices first.
+   The kept layers are drawn at the full-depth model's scale, olmoe's at
+   the conventional fan-in scale (see ``PARITY_SCALE``).
+4. serve   — phi3-mini-3.8b (32 layers), olmoe-1b-7b (16) and
+   falcon-mamba-7b (64) at full width, bf16, one after the other: the
+   chunked-prefill engine serves 6 seeded requests, a token-prefill engine
+   must give the same tokens, and one ``forward`` over 512 tokens runs
+   ``flash_attention`` (and ``ssm_scan`` for falcon-mamba).  Each model's
+   run is its own main path: the launch counts are set to 0 just before it
+   and read just after it, and every kernel of that path must have run.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  It imports nothing of JAX.
 """
 import argparse
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -42,6 +51,32 @@ PEAK_FLOPS = {torch.bfloat16: 989e12,     # dense tensor-core bf16
               torch.float32: 67e12}       # fp32 outside the tensor cores
 TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
 SEED = 20261016
+SERVED = ("phi3-mini-3.8b", "olmoe-1b-7b", "falcon-mamba-7b")
+#: how phase 3 draws the two kept layers.  "depth": the full-depth model's
+#: scale, as the reference's initializer gives it.  "fan_in": std
+#: 1/sqrt(fan-in) per matrix, for olmoe, where the depth scale (std 1/4)
+#: saturates attention and makes the fp32 function itself differ from its
+#: fp64 value by about the tolerance at layer 0's router
+#: (tools/parity_conditioning.py), so no two fp32 implementations could be
+#: held to 2e-3 there
+PARITY_SCALE = {"phi3-mini-3.8b": "depth", "olmoe-1b-7b": "fan_in",
+                "falcon-mamba-7b": "depth"}
+#: the kernels each family's serve path runs
+PATH_KERNELS = {"dense": ("queue_matmul", "flash_attention"),
+                "moe": ("queue_matmul", "flash_attention", "moe_gemm"),
+                "ssm": ("queue_matmul", "ssm_scan")}
+WHERE = {
+    "queue_matmul": ("src/repro_torch/kernels/queue_matmul/csrc/"
+                     "queue_matmul.cu",
+                     "src/repro/kernels/queue_matmul/kernel.py:90"),
+    "flash_attention": ("src/repro_torch/kernels/flash_attention/csrc/"
+                        "flash_attention.cu",
+                        "src/repro/kernels/flash_attention/kernel.py:63"),
+    "moe_gemm": ("src/repro_torch/kernels/moe_gemm/csrc/moe_gemm.cu",
+                 "src/repro/kernels/moe_gemm/kernel.py:59"),
+    "ssm_scan": ("src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu",
+                 "src/repro/kernels/ssm_scan/kernel.py:45"),
+}
 
 
 def log(msg: str) -> None:
@@ -240,34 +275,200 @@ def check_flash_attention(gen, report) -> dict:
     return rep
 
 
+def check_moe_gemm(gen, report) -> dict:
+    """olmoe-1b-7b's expert products: decode (C = 4 slots) and ``forward``
+    over 512 tokens (C = 512), wi/wg with the broadcast x of the dense
+    dispatch (expert stride 0) and wo with a per-expert x."""
+    from repro_torch.kernels.moe_gemm import ops
+    from repro_torch.kernels.moe_gemm.ref import moe_gemm_ref
+    depth = ops.operating_point().effective_depths()[1]
+    rep = None
+    log(f"[kernels] moe_gemm  E    C     d     f  x  dtype  max_abs_err  ms  "
+        f"plain_ms  library_ms  bound_ms  (depth {depth})")
+    for dtype in (torch.float32, torch.bfloat16):
+        for c in (4, 512):
+            for d, f, bcast in ((2048, 1024, True), (1024, 2048, False)):
+                e = 64
+                if bcast:
+                    x = torch.randn((c, d), generator=gen, device="cuda"
+                                    ).to(dtype).expand(e, c, d)
+                else:
+                    x = torch.randn((e, c, d), generator=gen, device="cuda"
+                                    ).to(dtype)
+                w = (torch.randn((e, d, f), generator=gen, device="cuda")
+                     / math.sqrt(d)).to(dtype)
+                ref = moe_gemm_ref(x, w)
+                outs = {k: ops.moe_gemm(x, w, depth=k) for k in (1, 2, 4)}
+                torch.cuda.synchronize()
+                for k, o in outs.items():
+                    if not torch.equal(o, outs[1]):
+                        raise AssertionError(
+                            f"moe_gemm depth {k} differs from depth 1 at "
+                            f"E={e} C={c} d={d} f={f} {dtype}")
+                err = within(outs[1], ref, TOL[dtype])
+                args = [(x, w.clone()) for _ in range(2)]
+                make = cycling(args)
+                ms = cuda_ms(make(lambda a, b: ops.moe_gemm(a, b,
+                                                            depth=depth)))
+                plain = cuda_ms(make(moe_gemm_ref), iters=5)
+                lib = cuda_ms(make(torch.bmm))
+                x_bytes = (c if bcast else e * c) * d * x.element_size()
+                b_ms, b_by = bound(2.0 * e * c * d * f,
+                                   x_bytes + w.numel() * w.element_size()
+                                   + e * c * f * 4, dtype)
+                del args, outs, ref
+                log(f"[kernels] moe_gemm {e:3d} {c:4d} {d:5d} {f:5d} "
+                    f"{'b' if bcast else 'e'} {str(dtype)[6:]:>8s} "
+                    f"{err:10.3e} {ms:8.4f} {plain:8.4f} {lib:8.4f} "
+                    f"{b_ms:8.4f} ({b_by})")
+                row = {"E": e, "C": c, "d": d, "f": f, "broadcast_x": bcast,
+                       "dtype": str(dtype)[6:], "depth": depth,
+                       "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                       "library_ms": lib, "bound_ms": b_ms, "bound_by": b_by}
+                report.append({"kernel": "moe_gemm", **row})
+                if (c, d, dtype) == (4, 2048, torch.bfloat16):
+                    rep = row
+    return rep
+
+
+def check_ssm_scan(gen, report) -> dict:
+    """falcon-mamba-7b's scan: d_inner 8192, state 16, over the 512 tokens
+    of phase 4's ``forward`` and the 128 of phase 3's.  No single PyTorch
+    call computes it, so there is no library time."""
+    from repro_torch.kernels.ssm_scan import ops
+    from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
+    rep = None
+    log("[kernels] ssm_scan  B    T     d   N  dtype  max_abs_err  ms  "
+        "plain_ms  bound_ms")
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, t, d, n in ((1, 512, 8192, 16), (1, 128, 8192, 16)):
+            def rnd(*shape):
+                return torch.randn(shape, generator=gen, device="cuda")
+            x = (rnd(b, t, d) * 0.5).to(dtype)
+            dt = (torch.nn.functional.softplus(rnd(b, t, d) - 1.0)
+                  ).to(dtype)
+            A = -torch.exp(rnd(d, n) * 0.5)
+            Bm, C = rnd(b, t, n).to(dtype), rnd(b, t, n).to(dtype)
+            out = ops.ssm_scan(x, dt, A, Bm, C)
+            ref = ssm_scan_ref(x, dt, A, Bm, C)
+            torch.cuda.synchronize()
+            err = within(out, ref, TOL[dtype])
+            ms = cuda_ms(lambda: ops.ssm_scan(x, dt, A, Bm, C))
+            plain = cuda_ms(lambda: ssm_scan_ref(x, dt, A, Bm, C), iters=2,
+                            warmup=1)
+            es = x.element_size()
+            # per (b, t, channel, n): dt*A, exp, the update's mul and add,
+            # (dt x)*B, h*C and the reduction's add; dt*x per channel
+            flops = 7.0 * b * t * d * n + b * t * d
+            nbytes = (2 * b * t * d * es + 2 * b * t * n * es + d * n * 4
+                      + b * t * d * 4)
+            b_ms, b_by = bound(flops, nbytes, torch.float32)
+            log(f"[kernels] ssm_scan {b:2d} {t:4d} {d:5d} {n:3d} "
+                f"{str(dtype)[6:]:>8s} {err:10.3e} {ms:8.4f} {plain:8.4f} "
+                f"{b_ms:8.4f} ({b_by})")
+            row = {"B": b, "T": t, "d": d, "N": n, "dtype": str(dtype)[6:],
+                   "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                   "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+            report.append({"kernel": "ssm_scan", **row})
+            if (t, dtype) == (512, torch.bfloat16):
+                rep = row
+    return rep
+
+
 # ---------------------------------------------------------------------------
 # phase 3: full width, cut depth, card against CPU
 # ---------------------------------------------------------------------------
 
-def phase_parity() -> None:
+def fan_in(spec) -> int:
+    """The contracted width of a stacked dense or MoE block matrix: its
+    "embed" axis, or, for a matrix whose output is "embed", its other
+    axes but the layer and expert axes."""
+    axes = dict(zip(spec.axes, spec.shape))
+    if spec.axes[-1] != "embed":
+        return axes["embed"]
+    return math.prod(n for a, n in axes.items()
+                     if a not in ("layers", "experts", "embed"))
+
+
+def redraw_scale(params, cfg, full, rule: str) -> None:
+    """Rescale the kept layers' normal-drawn leaves in place.  The
+    reference's initializer takes a stacked leaf's fan-in from its layer
+    axis (std 1/sqrt(n_layers)): "depth" scales them to the full-depth
+    model's std, 1/sqrt(full.n_layers); "fan_in" to 1/sqrt(fan-in) of each
+    matrix."""
+    from repro_torch.models import param_specs
+    specs = param_specs(cfg)["blocks"]
+
+    def walk(p, s):
+        for k, v in p.items():
+            if isinstance(v, dict):
+                walk(v, s[k])
+            elif s[k].init == "normal":
+                std = (1 / math.sqrt(full.n_layers) if rule == "depth"
+                       else 1 / math.sqrt(fan_in(s[k])))
+                v.mul_(std * math.sqrt(cfg.n_layers))
+    walk(params["blocks"], specs)
+
+
+def router_top_k(params, toks, cfg, rc):
+    """Layer 0's router logits (fp32) and top-k experts for ``toks``."""
+    from repro_torch.models import attention as attn
+    from repro_torch.models.layers import matmul, rms_norm
+    from repro_torch.models.model import _layer, embed_inputs
+    dtype = torch.float32
+    x = embed_inputs(params, {"tokens": toks}, cfg, dtype)
+    bp = _layer(params["blocks"], 0, dtype)
+    x = x + attn.gqa_apply(bp["attn"], rms_norm(x, bp["ln1"], cfg.norm_eps),
+                           cfg, policy=rc.policy)
+    h = rms_norm(x, bp["ln2"], cfg.norm_eps)
+    logits = matmul(h.float(), bp["ffn"]["router"].float(), rc.policy)
+    vals, idx = torch.sort(logits, dim=-1, descending=True, stable=True)
+    return vals, idx[..., :cfg.moe.top_k]
+
+
+def check_router(p_gpu, p_cpu, toks, cfg, rc, name) -> None:
+    """A flipped expert between the devices is reported as such, before
+    the logits are compared."""
+    vg, ig = router_top_k(p_gpu, toks.cuda(), cfg, rc)
+    vc, ic = router_top_k(p_cpu, toks, cfg, rc)
+    k = cfg.moe.top_k
+    gap = (vc[..., k - 1] - vc[..., k]).min().item()
+    same = torch.equal(ig.cpu().sort(-1).values, ic.sort(-1).values)
+    log(f"[parity] {name} layer 0 router: top-{k} sets "
+        f"{'equal' if same else 'DIFFER'} on card and CPU for "
+        f"{toks.numel()} tokens; logits max abs diff "
+        f"{(vg.cpu() - vc).abs().max().item():.3e}, smallest gap between "
+        f"expert {k} and {k + 1}: {gap:.3e}")
+    if not same:
+        bad = (ig.cpu().sort(-1).values != ic.sort(-1).values).any(-1)
+        t = int(bad.reshape(-1).nonzero()[0])
+        raise AssertionError(
+            f"{name}: layer 0's router flips an expert between card and CPU "
+            f"at token {t}: {ig.reshape(-1, k)[t].tolist()} vs "
+            f"{ic.reshape(-1, k)[t].tolist()}")
+
+def phase_parity(arch: str) -> None:
     from repro_torch.config import RunConfig
     from repro_torch.configs import get_config
     from repro_torch.models import (decode_step, forward, init_cache,
                                     init_model_params)
     from repro_torch.models.layers import tree_map
-    full = get_config("phi3-mini-3.8b")
+    full = get_config(arch)
     cfg = dataclasses.replace(full, n_layers=2)
     rc = RunConfig(dtype="float32", remat=False)
     t0 = time.time()
     p_cpu = init_model_params(SEED, cfg, device="cpu")
-    # the reference's initializer takes a stacked leaf's fan-in from its
-    # layer axis (std 1/sqrt(n_layers)); draw the 2 kept layers at the
-    # full-depth model's scale, 1/sqrt(32), not at 1/sqrt(2)
-    f = math.sqrt(cfg.n_layers / full.n_layers)
-    p_cpu["blocks"] = tree_map(lambda a: a * f if a.ndim > 2 else a,
-                               p_cpu["blocks"])
+    redraw_scale(p_cpu, cfg, full, PARITY_SCALE[arch])
     p_gpu = tree_map(lambda a: a.to("cuda"), p_cpu)
     rng = np.random.default_rng(SEED)
     toks = torch.from_numpy(rng.integers(0, cfg.vocab, (1, 128)))
+    if cfg.moe:
+        check_router(p_gpu, p_cpu, toks, cfg, rc, arch)
     out_gpu = forward(p_gpu, {"tokens": toks.cuda()}, cfg, rc).cpu()
     out_cpu = forward(p_cpu, {"tokens": toks}, cfg, rc)
     err = within(out_gpu, out_cpu, 2e-3)
-    log(f"[parity] phi3-mini-3.8b width 3072, 2 layers, fp32: forward "
+    log(f"[parity] {arch} width {cfg.d_model}, 2 layers drawn at the "
+        f"{PARITY_SCALE[arch]} scale, fp32: forward "
         f"B=1 S=128 logits max abs err {err:.3e} (tol 2e-3, "
         f"{used(out_gpu, out_cpu, 2e-3):.3f} of it used)")
     c_gpu = init_cache(cfg, 4, 16, torch.float32, device="cuda")
@@ -278,37 +479,55 @@ def phase_parity() -> None:
         lg, c_gpu = decode_step(p_gpu, c_gpu, {"tokens": tok.cuda()}, cfg, rc)
         lc, c_cpu = decode_step(p_cpu, c_cpu, {"tokens": tok}, cfg, rc)
         err = within(lg.cpu(), lc, 2e-3)
-        log(f"[parity] decode_step {t}: logits max abs err {err:.3e} "
+        log(f"[parity] {arch} decode_step {t}: logits max abs err {err:.3e} "
             f"(tol 2e-3, {used(lg.cpu(), lc, 2e-3):.3f} of it used)")
-    log(f"[parity] done in {time.time() - t0:.1f} s")
+    del p_gpu, c_gpu
+    free_card()
+    log(f"[parity] {arch} done in {time.time() - t0:.1f} s")
+
+
+def free_card() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
 # phase 4: serve at full width
 # ---------------------------------------------------------------------------
 
-def phase_serve() -> dict:
+def launch_counters():
+    from repro_torch.kernels import (flash_attention, moe_gemm, queue_matmul,
+                                     ssm_scan)
+    return {"queue_matmul": queue_matmul, "flash_attention": flash_attention,
+            "moe_gemm": moe_gemm, "ssm_scan": ssm_scan}
+
+
+def phase_serve(arch: str) -> dict:
+    """Serve ``arch`` at full width in bf16 and return the launches of its
+    main path, by kernel.  The weights are freed before returning."""
     from repro_torch.config import RunConfig
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.queue_matmul import queue_matmul
     from repro_torch.models import forward, init_model_params
     from repro_torch.serve import ServeEngine
-    cfg = get_config("phi3-mini-3.8b")
+    cfg = get_config(arch)
     rc = RunConfig(dtype="bfloat16")
+    counters = launch_counters()
     t0 = time.time()
     params = init_model_params(SEED, cfg, dtype=torch.bfloat16, device="cuda")
     torch.cuda.synchronize()
-    log(f"[serve] phi3-mini-3.8b full width ({cfg.n_layers} layers), bf16 "
-        f"weights drawn in {time.time() - t0:.1f} s")
+    # the peak counts serving from here on, not the fp32 temporaries of
+    # the random draw
+    torch.cuda.reset_peak_memory_stats()
+    log(f"[serve] {arch} full width ({cfg.n_layers} layers), bf16 weights "
+        f"drawn in {time.time() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     rng = np.random.default_rng(SEED + 1)
     prompts = [[int(t) for t in rng.integers(0, cfg.vocab,
                                              int(rng.integers(16, 65)))]
                for _ in range(6)]
 
-    torch.cuda.reset_peak_memory_stats()
-    queue_matmul.launches = 0
-    flash_attention.launches = 0
+    for c in counters.values():
+        c.launches = 0
     eng = ServeEngine(params, cfg, rc, batch_slots=4, max_len=256,
                       prefill_chunk=8)
     del params
@@ -322,10 +541,10 @@ def phase_serve() -> dict:
     n_tok = sum(len(r.generated) for r in done.values())
     if n_tok != 16 * len(rids):
         raise AssertionError(f"{n_tok} tokens generated, want {16 * len(rids)}")
-    qm_serve = queue_matmul.launches
-    log(f"[serve] chunked prefill: {len(done)} requests, {n_tok} tokens in "
-        f"{wall:.2f} s wall = {n_tok / wall:.2f} tok/s; {eng._n_steps} steps; "
-        f"{qm_serve} queue_matmul launches; prefill widths "
+    log(f"[serve] {arch} chunked prefill: {len(done)} requests, {n_tok} "
+        f"tokens in {wall:.2f} s wall = {n_tok / wall:.2f} tok/s; "
+        f"{eng._n_steps} steps; launches "
+        f"{ {k: c.launches for k, c in counters.items()} }; prefill widths "
         f"{sorted(eng._prefill_fns)}")
 
     tok_eng = ServeEngine(eng.params, cfg, rc, batch_slots=4, max_len=256,
@@ -337,50 +556,59 @@ def phase_serve() -> dict:
     wall_t = time.time() - t0
     for a, b in zip(rids, rids_t):
         if done[a].generated != done_t[b].generated:
-            raise AssertionError(f"chunked and token prefill differ on "
-                                 f"request {a}: {done[a].generated} vs "
+            raise AssertionError(f"{arch}: chunked and token prefill differ "
+                                 f"on request {a}: {done[a].generated} vs "
                                  f"{done_t[b].generated}")
-    log(f"[serve] token prefill: same tokens for all {len(rids)} requests; "
-        f"{n_tok / wall_t:.2f} tok/s wall; {tok_eng._n_steps} steps")
+    log(f"[serve] {arch} token prefill: same tokens for all {len(rids)} "
+        f"requests; {n_tok / wall_t:.2f} tok/s wall; {tok_eng._n_steps} "
+        f"steps")
+    del tok_eng
 
     toks = torch.from_numpy(rng.integers(0, cfg.vocab, (1, 512))).cuda()
-    fa0, qm0 = flash_attention.launches, queue_matmul.launches
+    before = {k: c.launches for k, c in counters.items()}
     t0 = time.time()
     logits = forward(eng.params, {"tokens": toks}, cfg, eng.rc)
     torch.cuda.synchronize()
     fwd_s = time.time() - t0
     if logits.shape != (1, 512, cfg.vocab) or \
             not bool(torch.isfinite(logits).all()):
-        raise AssertionError(f"forward logits {tuple(logits.shape)} not "
-                             f"finite")
-    log(f"[serve] forward B=1 S=512: {fwd_s:.3f} s wall, "
-        f"{flash_attention.launches - fa0} flash_attention and "
-        f"{queue_matmul.launches - qm0} queue_matmul launches")
-    counts = {"queue_matmul": queue_matmul.launches,
-              "flash_attention": flash_attention.launches}
-    for name, n in counts.items():
-        if n <= 0:
-            raise AssertionError(f"{name} never launched on the main path")
+        raise AssertionError(f"{arch}: forward logits {tuple(logits.shape)} "
+                             f"not finite")
+    del logits
+    log(f"[serve] {arch} forward B=1 S=512: {fwd_s:.3f} s wall; launches "
+        f"{ {k: c.launches - before[k] for k, c in counters.items()} }")
+    counts = {k: c.launches for k, c in counters.items()}
+    for name in PATH_KERNELS[cfg.family]:
+        if counts[name] <= 0:
+            raise AssertionError(f"{name} never launched on {arch}'s main "
+                                 f"path")
     peak = torch.cuda.max_memory_allocated() / 2**30
-    log(f"[serve] launches on the main path: {counts}; peak memory "
+    log(f"[serve] {arch} launches on the main path: {counts}; peak memory "
         f"{peak:.2f} GiB")
-    log(f"[serve] first tokens: {done[rids[0]].generated}")
-    profile_decode(eng.params, eng.cache, cfg, eng.rc)
+    log(f"[serve] {arch} first tokens: {done[rids[0]].generated}")
+    profile_decode(eng.params, eng.cache, cfg, eng.rc, arch)
+    del eng
+    free_card()
     return counts
 
 
-def profile_decode(params, cache, cfg, rc, n: int = 5) -> None:
-    """Wall time of one decode body over the engine's slots (host clock,
-    no profiler), and the kernel time inside it (torch.profiler, CUDA
-    activity only), by kernel: the device's idle share is one minus their
-    ratio.  Runs after the launch counts are read."""
+def profile_decode(params, cache, cfg, rc, arch: str, n: int = 5) -> None:
+    """Launches per decode body over the engine's slots, its wall time
+    (host clock, no profiler), and the kernel time inside it
+    (torch.profiler, CUDA activity only), by kernel: the device's idle
+    share is one minus their ratio.  Runs after the launch counts are
+    read."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.models import decode_step
     tok = torch.zeros((cache["len"].shape[0], 1), dtype=torch.long,
                       device="cuda")
     step = lambda: decode_step(params, cache, {"tokens": tok}, cfg, rc)
+    counters = launch_counters()
+    before = {k: c.launches for k, c in counters.items()}
     step()
     torch.cuda.synchronize()
+    per_body = {k: c.launches - before[k] for k, c in counters.items()
+                if c.launches > before[k]}
     t0 = time.time()
     for _ in range(n):
         step()
@@ -394,14 +622,17 @@ def profile_decode(params, cache, cfg, rc, n: int = 5) -> None:
            for e in prof.key_averages() if e.self_device_time_total > 0}
     busy = sum(dev.values())
     if busy == 0:
-        log("[profile] idle share: not measured (the profiler saw no "
-            "device time)")
+        log(f"[profile] {arch} idle share: not measured (the profiler saw "
+            f"no device time)")
         return
-    qm = sum(v for k, v in dev.items() if "queue_matmul" in k)
-    log(f"[profile] decode body ({tok.shape[0]} slots, {cfg.n_layers} "
-        f"layers): {wall_ms:.2f} ms wall, {busy:.2f} ms in kernels "
-        f"({qm:.2f} queue_matmul, {busy - qm:.2f} other); device idle "
-        f"share {1 - busy / wall_ms:.3f}")
+    ours = {k: sum(v for key, v in dev.items() if k in key)
+            for k in per_body}
+    log(f"[profile] {arch} decode body ({tok.shape[0]} slots, "
+        f"{cfg.n_layers} layers): launches {per_body}; {wall_ms:.2f} ms "
+        f"wall, {busy:.2f} ms in kernels ("
+        + ", ".join(f"{v:.2f} {k}" for k, v in ours.items())
+        + f", {busy - sum(ours.values()):.2f} other); device idle share "
+        f"{1 - busy / wall_ms:.3f}")
     for k, v in sorted(dev.items(), key=lambda kv: -kv[1])[:8]:
         log(f"[profile]   {v:8.3f} ms  {k[:90]}")
 
@@ -437,27 +668,29 @@ def main() -> int:
         gen = torch.Generator(device="cuda").manual_seed(SEED)
         report = []
         kernels = [("queue_matmul", check_queue_matmul(gen, report)),
-                   ("flash_attention", check_flash_attention(gen, report))]
+                   ("flash_attention", check_flash_attention(gen, report)),
+                   ("moe_gemm", check_moe_gemm(gen, report)),
+                   ("ssm_scan", check_ssm_scan(gen, report))]
+        free_card()
         if args.cases_out:
             os.makedirs(os.path.dirname(os.path.abspath(args.cases_out)),
                         exist_ok=True)
             with open(args.cases_out, "w") as f:
                 json.dump({"card": smi, "cases": report}, f, indent=1)
     if "parity" in phases:
-        phase_parity()
-    launches = phase_serve() if "serve" in phases else {}
+        for arch in SERVED:
+            phase_parity(arch)
+    launches = {}
+    if "serve" in phases:
+        for arch in SERVED:
+            for name, n in phase_serve(arch).items():
+                launches[name] = launches.get(name, 0) + n
+        log(f"[serve] launches over the three main paths: {launches}")
     log(f"[done] {time.time() - t_start:.1f} s")
 
-    where = {"queue_matmul": ("src/repro_torch/kernels/queue_matmul/csrc/"
-                              "queue_matmul.cu",
-                              "src/repro/kernels/queue_matmul/kernel.py:90"),
-             "flash_attention": ("src/repro_torch/kernels/flash_attention/"
-                                 "csrc/flash_attention.cu",
-                                 "src/repro/kernels/flash_attention/"
-                                 "kernel.py:63")}
     line = []
     for name, row in kernels:
-        src, replaces = where[name]
+        src, replaces = WHERE[name]
         line.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces, "launches": launches.get(name, 0),
                      "max_abs_err": row["max_abs_err"], "ms": row["ms"],

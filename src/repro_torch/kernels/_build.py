@@ -1,11 +1,13 @@
 """Build and load the hand-written CUDA kernels.
 
 Each kernel's source is one ``.cu`` file with a plain C interface
-(``kernels/<name>/csrc/<name>.cu``).  It is compiled with ``nvcc`` for
-``sm_90a`` into a shared library under ``build/kernels/`` at the root of
-the checkout, at first use, and loaded with :mod:`ctypes`.  The library's
-name carries a hash of the source and the flags, so an edited source is
-rebuilt and a stale library is never loaded.  :func:`build_all` starts one
+(``kernels/<name>/csrc/<name>.cu``), which may include the shared headers
+under ``kernels/_csrc/``.  It is compiled with ``nvcc`` for ``sm_90a`` into
+a shared library under ``build/kernels/`` at the root of the checkout, at
+first use, and loaded with :mod:`ctypes`.  The library's name carries a
+hash of the source, of every ``.cuh`` header of the package and of the
+flags, so an edited source or header is rebuilt and a stale library is
+never loaded.  :func:`build_all` starts one
 ``nvcc`` per source at once, which is how ``chip_smoke.py`` builds.
 """
 from __future__ import annotations
@@ -44,8 +46,11 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256(source_path(name).read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    h = hashlib.sha256(source_path(name).read_bytes())
+    for header in sorted(KERNELS_DIR.rglob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

@@ -4,6 +4,9 @@ the card unless ``--device cpu`` is given.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch phi3-mini-3.8b
   PYTHONPATH=src python -m repro_torch.launch.serve --arch glm4-9b \\
       --reduced --device cpu --requests 6 --max-new 12 --traffic high
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b \\
+      --reduced --device cpu
 
 Weights are random, drawn from ``--seed``; prompts come from a numpy
 generator seeded with ``--seed + 1``.

@@ -1,13 +1,14 @@
-"""Model assembly for the dense GQA family: parameter trees, forward pass,
-KV caches, decode step and chunked prefill.
+"""Model assembly for the dense GQA, MoE and SSM families: parameter trees,
+forward pass, KV and state caches, decode step and chunked prefill.
 
 Parameters and caches keep the JAX package's pytree layout — nested dicts,
 per-layer leaves stacked on axis 0, batch on axis 1 of every stacked cache
 leaf and axis 0 of ``len`` — so :mod:`repro_torch.bridge` carries them
 across as a plain tree map.  A Python loop over the layer index takes the
-place of ``lax.scan``.  Every matrix product runs through ``queue_matmul``
-and the full-sequence attention through ``flash_attention``, each under the
-run's execution policy.
+place of ``lax.scan``.  Every matrix product runs through ``queue_matmul``,
+the full-sequence attention through ``flash_attention``, every expert
+product of an MoE layer through ``moe_gemm`` and the full-sequence SSM scan
+through ``ssm_scan``, each under the run's execution policy.
 
 Two departures from the functional JAX code, both invisible in the
 numbers:
@@ -19,7 +20,7 @@ numbers:
 * :func:`decode_step` and :func:`prefill_step` update the cache in place
   and return the same dict.
 
-MoE, SSM, hybrid, MLA and the frontends raise ``NotImplementedError``:
+The hybrid family, MLA and the frontends raise ``NotImplementedError``:
 they come with their families in later slices.
 """
 from __future__ import annotations
@@ -32,6 +33,8 @@ import torch
 from ..config import ModelConfig, RunConfig
 from ..device import DeviceLike, resolve_device, torch_dtype
 from . import attention as attn
+from . import moe as moe_mod
+from . import ssm as ssm_mod
 from .layers import (ParamSpec, ffn_apply, ffn_specs, init_params, matmul,
                      rms_norm, tree_map)
 
@@ -39,11 +42,13 @@ Pytree = Any
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family != "dense" or cfg.moe or cfg.mla or cfg.ssm or \
-            cfg.rglru or cfg.frontend:
+    ported = ((cfg.family == "dense" and not cfg.moe)
+              or (cfg.family == "moe" and cfg.moe is not None)
+              or (cfg.family == "ssm" and cfg.ssm is not None))
+    if not ported or cfg.mla or cfg.rglru or cfg.frontend:
         raise NotImplementedError(
-            f"{cfg.name}: the port serves the dense GQA family so far; "
-            f"family={cfg.family!r} comes in a later slice")
+            f"{cfg.name}: the port serves the dense GQA, MoE and SSM "
+            f"families so far; family={cfg.family!r} comes in a later slice")
 
 
 # ---------------------------------------------------------------------------
@@ -62,7 +67,8 @@ def _dense_block_specs(cfg: ModelConfig) -> Dict[str, Pytree]:
     return {"ln1": ParamSpec((d,), ("embed",), init="zeros"),
             "ln2": ParamSpec((d,), ("embed",), init="zeros"),
             "attn": attn.gqa_specs(cfg),
-            "ffn": ffn_specs(d, cfg.d_ff, cfg.ffn_act)}
+            "ffn": (moe_mod.moe_specs(cfg) if cfg.moe
+                    else ffn_specs(d, cfg.d_ff, cfg.ffn_act))}
 
 
 def param_specs(cfg: ModelConfig) -> Pytree:
@@ -76,7 +82,12 @@ def param_specs(cfg: ModelConfig) -> Pytree:
     if not cfg.tie_embeddings:
         tree["head"] = ParamSpec((cfg.vocab, d), ("vocab", "embed"),
                                  init="embed", scale=0.02)
-    tree["blocks"] = _stack_specs(_dense_block_specs(cfg), cfg.n_layers)
+    if cfg.family == "ssm":
+        block = {"ln1": ParamSpec((d,), ("embed",), init="zeros"),
+                 "mamba": ssm_mod.mamba_specs(cfg)}
+    else:
+        block = _dense_block_specs(cfg)
+    tree["blocks"] = _stack_specs(block, cfg.n_layers)
     return tree
 
 
@@ -140,18 +151,35 @@ def _dense_block_apply(p, x, cfg: ModelConfig, rc: RunConfig,
                        policy=rc.policy)
     x = x + h
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + ffn_apply(p["ffn"], h, cfg.ffn_act, rc.policy)
+    return x + _ffn(p["ffn"], h, cfg, rc)
+
+
+def _ffn(p, h, cfg: ModelConfig, rc: RunConfig) -> torch.Tensor:
+    """The block's FFN: dense, or MoE with the run's dispatch (the decode
+    step always takes the dense dispatch, as the reference's does)."""
+    if not cfg.moe:
+        return ffn_apply(p, h, cfg.ffn_act, rc.policy)
+    if rc.moe_dispatch == "grouped":
+        return moe_mod.moe_apply_grouped(p, h, cfg, policy=rc.policy)
+    return moe_mod.moe_apply(p, h, cfg, policy=rc.policy)
+
+
+def _ssm_block_apply(p, x, cfg: ModelConfig, rc: RunConfig):
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    return x + ssm_mod.mamba_apply(p["mamba"], h, cfg, rc.policy)
 
 
 def forward(params: Pytree, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
             rc: RunConfig) -> torch.Tensor:
     """Full-sequence forward -> logits (B, S, vocab) in the compute dtype.
-    Attention runs through ``flash_attention``."""
+    Attention runs through ``flash_attention``, the SSM scan through
+    ``ssm_scan``."""
     _check_family(cfg)
     dtype = torch_dtype(rc.dtype)
     x = embed_inputs(params, batch, cfg, dtype)
+    block = _ssm_block_apply if cfg.family == "ssm" else _dense_block_apply
     for i in range(cfg.n_layers):
-        x = _dense_block_apply(_layer(params["blocks"], i, dtype), x, cfg, rc)
+        x = block(_layer(params["blocks"], i, dtype), x, cfg, rc)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return matmul(x, _head_t(params, cfg, dtype), rc.policy)
 
@@ -164,11 +192,19 @@ def cache_spec(cfg: ModelConfig, batch: int, max_len: int,
                dtype: torch.dtype) -> Dict[str, Tuple[Tuple[int, ...],
                                                        torch.dtype]]:
     """Shape and dtype of every cache leaf.  ``len`` is per-sequence: each
-    slot of a continuously batched engine carries its own position."""
+    slot of a continuously batched engine carries its own position.  The
+    SSM family keeps an fp32 state (L, B, d_in, N) and the last K-1 conv
+    inputs (L, B, K-1, d_in) in the compute dtype instead of K/V."""
     _check_family(cfg)
     L, hd = cfg.n_layers, cfg.resolved_head_dim
+    out = {"len": ((batch,), torch.int32)}
+    if cfg.family == "ssm":
+        d_in, _, d_state = ssm_mod.ssm_dims(cfg)
+        out["ssm"] = ((L, batch, d_in, d_state), torch.float32)
+        out["conv"] = ((L, batch, cfg.ssm.d_conv - 1, d_in), dtype)
+        return out
     kv = ((L, batch, cfg.n_kv_heads, max_len, hd), dtype)
-    return {"len": ((batch,), torch.int32), "k": kv, "v": kv}
+    return {**out, "k": kv, "v": kv}
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
@@ -182,21 +218,35 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
 def _decode_body(params: Pytree, cache: Pytree, tokens: torch.Tensor,
                  cfg: ModelConfig, rc: RunConfig,
                  rows: Optional[torch.Tensor]) -> torch.Tensor:
-    """One token for every slot; writes K/V rows of ``rows`` (all slots
-    when None) in place and returns fp32 logits (B, vocab).  ``len`` is
-    left to the caller."""
+    """One token for every slot; writes the K/V rows or SSM states of
+    ``rows`` (all slots when None) in place and returns fp32 logits
+    (B, vocab).  ``len`` is left to the caller."""
     dtype = torch_dtype(rc.dtype)
     x = params["embed"][tokens].to(dtype)
     length = cache["len"]
     for i in range(cfg.n_layers):
         bp = _layer(params["blocks"], i, dtype)
         hn = rms_norm(x, bp["ln1"], cfg.norm_eps)
+        if cfg.family == "ssm":
+            y, ssm_s, conv_s = ssm_mod.mamba_decode(
+                bp["mamba"], hn, cfg, cache["ssm"][i], cache["conv"][i],
+                rc.policy)
+            if rows is None:
+                cache["ssm"][i] = ssm_s
+                cache["conv"][i] = conv_s
+            else:
+                cache["ssm"][i, rows] = ssm_s[rows]
+                cache["conv"][i, rows] = conv_s[rows].to(cache["conv"].dtype)
+            x = x + y
+            continue
         y, _, _ = attn.gqa_decode(bp["attn"], hn, cfg, cache["k"][i],
                                   cache["v"][i], length, rows=rows,
                                   policy=rc.policy)
         x = x + y
         hn = rms_norm(x, bp["ln2"], cfg.norm_eps)
-        x = x + ffn_apply(bp["ffn"], hn, cfg.ffn_act, rc.policy)
+        y = (moe_mod.moe_apply(bp["ffn"], hn, cfg, rc.policy) if cfg.moe
+             else ffn_apply(bp["ffn"], hn, cfg.ffn_act, rc.policy))
+        x = x + y
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return matmul(x[:, 0], _head_t(params, cfg, dtype), rc.policy).float()
 
@@ -243,10 +293,10 @@ def prefill_step(params: Pytree, cache: Pytree,
 
     Each column runs the same body as :func:`decode_step` over the whole
     batch, so the chunked path is bit-exact with token-by-token prefill.
-    The per-slot merge of the JAX step is done without copies: the K/V
-    writes of a column go to its active slots only (a masked scatter), an
-    inactive slot's ``len`` stays put (:func:`_merge_masked`), and its
-    logits keep their previous value.
+    The per-slot merge of the JAX step is done without copies: the K/V and
+    SSM state writes of a column go to its active slots only (a masked
+    scatter), an inactive slot's ``len`` stays put (:func:`_merge_masked`),
+    and its logits keep their previous value.
     """
     _check_family(cfg)
     tokens, n_tokens = batch["tokens"], batch["n_tokens"]

@@ -22,7 +22,8 @@ from repro_torch.configs import get_reduced
 from repro_torch.models import init_cache, init_model_params, param_specs
 from repro_torch.models.layers import ParamSpec
 
-ARCHS = ["phi3-mini-3.8b", "glm4-9b"]
+ARCHS = ["phi3-mini-3.8b", "glm4-9b", "olmoe-1b-7b", "granite-moe-3b-a800m",
+         "falcon-mamba-7b"]
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 
@@ -55,7 +56,7 @@ def test_param_tree_round_trip_is_exact(arch, dtype):
 def test_cache_tree_round_trip_is_exact(arch, dtype):
     cfg = jax_reduced(arch)
     cache = jax_init_cache(cfg, 3, 16, dtype)
-    cache = {**cache, "k": cache["k"] + 0.5,
+    cache = {**{k: v + 0.5 for k, v in cache.items()},
              "len": jnp.asarray([0, 4, 9], jnp.int32)}
     tree = _np(cache)
     ported = bridge.from_numpy_tree(tree, "cpu")

@@ -16,12 +16,16 @@ import numpy as np
 
 from repro.core.policy import ExecutionPolicy as JEP
 from repro.kernels import flash_attention as jax_flash_attention
+from repro.kernels import moe_gemm as jax_moe_gemm
 from repro.kernels import queue_matmul as jax_queue_matmul
+from repro.kernels import ssm_scan as jax_ssm_scan
 from repro.models.attention import flash_attention_ref as jax_flash_ref
 from repro_torch.core.policy import ExecutionPolicy as EP
 from repro_torch.core.policy import OperatingPoint
-from repro_torch.kernels import flash_attention, queue_matmul
+from repro_torch.kernels import (flash_attention, moe_gemm, queue_matmul,
+                                 ssm_scan)
 from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.moe_gemm import ops as mg_ops
 from repro_torch.kernels.queue_matmul import ops as qm_ops
 from repro_torch.models.attention import flash_attention_ref
 
@@ -164,3 +168,103 @@ def test_attention_ref_keeps_dtype_and_op_checks_shapes():
         flash_attention(torch.ones(1, 3, 4, 8), torch.ones(1, 2, 4, 8),
                         torch.ones(1, 2, 4, 8))
     assert flash_attention.launches == before
+
+
+# --- moe_gemm ---------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("e,c,d,f,depth", [(3, 5, 33, 17, 1),
+                                           (2, 70, 130, 65, 2),
+                                           (4, 4, 64, 96, 3)])
+def test_moe_gemm_matches_pallas_on_ragged_shapes(e, c, d, f, depth, dtype):
+    jx, jw, tx, tw = _pair((e, c, d), (e, d, f), dtype, seed=3)
+    ref = jax_moe_gemm(jx, jw, bc=64, bf=64, bk=64, depth=depth)
+    out = moe_gemm(tx, tw, bc=64, bf=64, bk=64, depth=depth)
+    assert out.dtype == torch.float32 and out.shape == (e, c, f)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL[dtype])
+
+
+def test_moe_gemm_takes_a_broadcast_x():
+    """The dense dispatch's x: one (C, d) matrix seen by every expert
+    (expert stride 0) gives what the copied (E, C, d) tensor gives."""
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.standard_normal((6, 40)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((5, 40, 24)).astype(np.float32))
+    xe = x.expand(5, 6, 40)
+    assert xe.stride(0) == 0
+    ref = jax_moe_gemm(jnp.asarray(xe.numpy()), jnp.asarray(w.numpy()),
+                       bc=64, bf=64, bk=64)
+    out = moe_gemm(xe, w)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL["float32"])
+    assert torch.equal(out, moe_gemm(xe.contiguous(), w))
+
+
+@pytest.mark.parametrize("policy", list(EP))
+def test_moe_gemm_policies_and_cpu_path_launch_nothing(policy):
+    x = torch.ones((2, 3, 8))
+    w = torch.ones((2, 8, 5))
+    before = moe_gemm.launches
+    out = moe_gemm(x, w, depth=4, policy=policy)
+    assert moe_gemm.launches == before
+    assert torch.equal(out, torch.full((2, 3, 5), 8.0))
+    with pytest.raises(ValueError, match=r"x \(E, C, d\)"):
+        moe_gemm(x, torch.ones((3, 8, 5)), policy=policy)
+
+
+def test_moe_gemm_point_comes_from_the_table():
+    assert mg_ops.operating_point() == OperatingPoint()
+
+
+# --- ssm_scan ---------------------------------------------------------------
+
+def _scan_inputs(b, t, d, n, seed=0):
+    """The distribution of tests/test_kernels.py's ssm_scan sweep."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, t, d)).astype(np.float32) * 0.5
+    dt = np.log1p(np.exp(rng.standard_normal((b, t, d)))).astype(
+        np.float32) * 0.1
+    A = -np.abs(rng.standard_normal((d, n))).astype(np.float32)
+    Bm = rng.standard_normal((b, t, n)).astype(np.float32)
+    C = rng.standard_normal((b, t, n)).astype(np.float32)
+    return x, dt, A, Bm, C
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,t,d,n", [(2, 37, 20, 4), (1, 150, 70, 16),
+                                     (2, 9, 3, 8)])
+def test_ssm_scan_matches_pallas_on_ragged_shapes(b, t, d, n, dtype):
+    """Ragged T and d (the Pallas wrapper pads them to its 64 tiles); x,
+    dt, B and C in ``dtype``, A in fp32, y in fp32."""
+    x, dt, A, Bm, C = _scan_inputs(b, t, d, n)
+    jd = getattr(jnp, dtype)
+    ref = jax_ssm_scan(jnp.asarray(x, jd), jnp.asarray(dt, jd),
+                       jnp.asarray(A), jnp.asarray(Bm, jd),
+                       jnp.asarray(C, jd), bt=64, bd=64)
+    td = getattr(torch, dtype)
+    out = ssm_scan(*(torch.from_numpy(a).to(td) for a in (x, dt)),
+                   torch.from_numpy(A),
+                   *(torch.from_numpy(a).to(td) for a in (Bm, C)))
+    assert out.dtype == torch.float32 and out.shape == (b, t, d)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL[dtype])
+
+
+def test_ssm_scan_state_carries_across_time_blocks():
+    """Analogue of tests/test_kernels.py:101: T over several Pallas time
+    blocks."""
+    t, d, n = 200, 8, 4
+    args = (np.ones((1, t, d), np.float32) * 0.1,
+            np.ones((1, t, d), np.float32) * 0.05, -np.ones((d, n), np.float32),
+            np.ones((1, t, n), np.float32), np.ones((1, t, n), np.float32))
+    ref = jax_ssm_scan(*(jnp.asarray(a) for a in args), bt=32, bd=8)
+    out = ssm_scan(*(torch.from_numpy(a) for a in args))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_ssm_scan_checks_shapes_and_cpu_path_launches_nothing():
+    x, dt, A, Bm, C = (torch.from_numpy(a) for a in _scan_inputs(1, 4, 6, 4))
+    before = ssm_scan.launches
+    ssm_scan(x, dt, A, Bm, C)
+    assert ssm_scan.launches == before
+    with pytest.raises(ValueError, match="ssm_scan takes"):
+        ssm_scan(x, dt, A[:, :3], Bm, C)

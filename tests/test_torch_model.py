@@ -1,9 +1,11 @@
-"""The PyTorch port's dense model against the JAX package's, on bridged
-weights for phi3-mini-smoke and glm4-smoke (GQA 8 over 2) in fp32:
-``forward``, ``decode_step`` over several steps at mixed per-slot lengths,
-and ``prefill_step`` on a mixed-phase batch.  Tolerance 2e-3, the
-reference's own for logits (tests/test_models.py:90); cache leaves are
-held to the same bound.  Within the port, chunked prefill is bit-exact
+"""The PyTorch port's model against the JAX package's, on bridged weights
+in fp32, for the dense family (phi3-mini-smoke, glm4-smoke with GQA 8 over
+2), the MoE family (olmoe-smoke, granite-moe-smoke with GQA 4 over 2) and
+the SSM family (falcon-mamba-smoke): ``forward``, ``decode_step`` over
+several steps at mixed per-slot lengths, and ``prefill_step`` on a
+mixed-phase batch.  Tolerance 2e-3, the reference's own for logits
+(tests/test_models.py:90); cache leaves (K/V, or the SSM and conv states)
+are held to the same bound.  Within the port, chunked prefill is bit-exact
 with token-by-token prefill."""
 import pytest
 
@@ -27,7 +29,9 @@ from repro_torch.models import (decode_step, forward, init_cache,
                                 init_model_params, prefill_step,
                                 prepare_params)
 
-ARCHS = ["phi3-mini-3.8b", "glm4-9b"]
+ARCHS = ["phi3-mini-3.8b", "glm4-9b", "olmoe-1b-7b", "granite-moe-3b-a800m",
+         "falcon-mamba-7b"]
+MOE_ARCHS = ["olmoe-1b-7b", "granite-moe-3b-a800m"]
 JRC_ = JRC(dtype="float32", remat=False)
 RC = RunConfig(dtype="float32", remat=False)
 TOL = dict(rtol=2e-3, atol=2e-3)
@@ -64,6 +68,21 @@ def test_forward_matches_reference(arch):
     again = forward(prepare_params(pt, cfg_t, RC),
                     {"tokens": torch.from_numpy(toks)}, cfg_t, RC)
     assert torch.equal(again, out)
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_forward_with_grouped_dispatch_matches_reference(arch):
+    """``rc.moe_dispatch = "grouped"``: the capacity-bounded dispatch of
+    every MoE layer, tokens dropped as the reference drops them."""
+    cfg_j, cfg_t, pj, pt = _setup(arch)
+    toks = np.random.default_rng(6).integers(0, cfg_j.vocab, (2, 24))
+    ref = jax_forward(pj, {"tokens": jnp.asarray(toks, jnp.int32)}, cfg_j,
+                      JRC(dtype="float32", remat=False,
+                          moe_dispatch="grouped"))
+    out = forward(pt, {"tokens": torch.from_numpy(toks)}, cfg_t,
+                  RunConfig(dtype="float32", remat=False,
+                            moe_dispatch="grouped"))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
 
 
 def _mixed_cache(cfg_j, pj):
@@ -135,7 +154,10 @@ def test_chunked_prefill_is_bit_exact_with_token_prefill(arch):
 
 
 def test_other_families_are_not_ported_yet():
+    """The hybrid family (recurrentgemma) comes in a later slice."""
     import dataclasses
-    cfg = dataclasses.replace(get_reduced("phi3-mini-3.8b"), family="ssm")
+    from repro_torch.config import RGLRUConfig
+    cfg = dataclasses.replace(get_reduced("phi3-mini-3.8b"), family="hybrid",
+                              rglru=RGLRUConfig())
     with pytest.raises(NotImplementedError, match="later slice"):
         init_model_params(0, cfg, device="cpu")

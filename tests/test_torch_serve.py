@@ -52,11 +52,10 @@ def _engine(params, **kw):
 
 # --- against the JAX engine -------------------------------------------------
 
-@pytest.mark.parametrize("prefill", ["chunked", "token"])
-def test_port_engine_matches_jax_engine(prefill):
+def _engine_parity(arch, prefill):
     """Same bridged weights, same prompts: the same generated tokens, the
     same serving report and the same measured-traffic retargets."""
-    cfg = jax_reduced(ARCH)
+    cfg = jax_reduced(arch)
     pj = jax_init_params(jax.random.PRNGKey(0), cfg)
     pt = bridge.from_numpy_tree(jax.tree_util.tree_map(np.asarray, pj), "cpu")
     rng = np.random.default_rng(9)
@@ -65,7 +64,7 @@ def test_port_engine_matches_jax_engine(prefill):
     jeng = JaxEngine(pj, cfg, JRC_, batch_slots=2, max_len=64,
                      prefill=prefill, prefill_chunk=4,
                      policy_table=JPolicyTable())
-    teng = ServeEngine(pt, get_reduced(ARCH), RC, batch_slots=2, max_len=64,
+    teng = ServeEngine(pt, get_reduced(arch), RC, batch_slots=2, max_len=64,
                        prefill=prefill, prefill_chunk=4, device="cpu")
     for p in prompts[:3]:
         jeng.submit(p, max_new=4)
@@ -85,6 +84,17 @@ def test_port_engine_matches_jax_engine(prefill):
     assert teng.traffic_history == jeng.traffic_history
     assert teng.traffic_history                  # the retarget did happen
     assert teng.prefill_compiles == jeng.prefill_compiles
+
+
+@pytest.mark.parametrize("prefill", ["chunked", "token"])
+def test_port_engine_matches_jax_engine(prefill):
+    _engine_parity(ARCH, prefill)
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "falcon-mamba-7b"])
+def test_port_engine_matches_jax_engine_on_moe_and_ssm(arch):
+    """The MoE and SSM families through the chunked-prefill engine."""
+    _engine_parity(arch, "chunked")
 
 
 def test_scheduler_simulation_matches_reference():
@@ -269,3 +279,15 @@ def test_launcher_serves_on_the_cpu_when_asked(monkeypatch, capsys):
     assert "policy=copiftv2 (source=default" in out
     assert "served 3 requests, 9 tokens" in out
     assert "on cpu" in out
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "granite-moe-3b-a800m",
+                                  "falcon-mamba-7b"])
+def test_launcher_serves_moe_and_ssm_on_the_cpu(monkeypatch, capsys, arch):
+    from repro_torch.launch import serve as launch
+    monkeypatch.setattr(sys, "argv", [
+        "serve", "--arch", arch, "--reduced", "--device", "cpu",
+        "--requests", "3", "--max-new", "2", "--prefill", "token"])
+    launch.main()
+    out = capsys.readouterr().out
+    assert "served 3 requests, 6 tokens" in out and "on cpu" in out
