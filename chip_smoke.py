@@ -15,11 +15,14 @@ prints no result):
    yardstick the port never calls).  ``queue_matmul`` and ``moe_gemm``
    must be bit-identical across ring depths.
 3. parity  — phi3-mini-3.8b, olmoe-1b-7b and falcon-mamba-7b at full
-   width, depth cut to 2 layers, fp32: ``forward`` and 4 ``decode_step``s
-   on the card (kernels) against the CPU (plain versions) on the same
-   seeded weights; for olmoe, layer 0's router top-k on both devices first.
-   The kept layers are drawn at the full-depth model's scale, olmoe's at
-   the conventional fan-in scale (see ``PARITY_SCALE``).
+   width, depth cut to 2 layers: ``forward`` and 4 ``decode_step``s in
+   fp32 on the card (kernels) and on the CPU (plain versions), and in fp64
+   on the CPU, on the same seeded weights.  The card must be no farther
+   from fp64 than the CPU's fp32 run (within ``FP64_RATIO``) and within
+   2e-3 of the fp64 run; for olmoe every layer's top-k experts are
+   compared first.  The
+   kept layers are drawn at the full-depth model's scale, and olmoe's also
+   at the fan-in scale (see ``PARITY``).
 4. serve   — phi3-mini-3.8b (32 layers), olmoe-1b-7b (16) and
    falcon-mamba-7b (64) at full width, bf16, one after the other: the
    chunked-prefill engine serves 6 seeded requests, a token-prefill engine
@@ -32,6 +35,7 @@ The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  It imports nothing of JAX.
 """
 import argparse
+import contextlib
 import dataclasses
 import gc
 import json
@@ -52,15 +56,23 @@ PEAK_FLOPS = {torch.bfloat16: 989e12,     # dense tensor-core bf16
 TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
 SEED = 20261016
 SERVED = ("phi3-mini-3.8b", "olmoe-1b-7b", "falcon-mamba-7b")
-#: how phase 3 draws the two kept layers.  "depth": the full-depth model's
-#: scale, as the reference's initializer gives it.  "fan_in": std
-#: 1/sqrt(fan-in) per matrix, for olmoe, where the depth scale (std 1/4)
-#: saturates attention and makes the fp32 function itself differ from its
-#: fp64 value by about the tolerance at layer 0's router
-#: (tools/parity_conditioning.py), so no two fp32 implementations could be
-#: held to 2e-3 there
-PARITY_SCALE = {"phi3-mini-3.8b": "depth", "olmoe-1b-7b": "fan_in",
-                "falcon-mamba-7b": "depth"}
+#: phase 3's draws of the 2 kept layers: (arch, scale, whether the card is
+#: held to 2e-3 of the CPU's fp64 run).  "depth" is the full-depth model's
+#: scale, as the reference's initializer gives it (std 1/sqrt(n_layers));
+#: "fan_in" is std 1/sqrt(fan-in) of each matrix.  The 2e-3 check is made
+#: against fp64, not the CPU's fp32 run: where attention saturates, a
+#: rounding difference in one fp32 run can move its logits by more than
+#: the tolerance.  At olmoe's depth scale (std 1/4) fp32 itself misses
+#: fp64 by several times the tolerance, so there the card is held to the
+#: ratio below only, and the fan-in draw carries the 2e-3 check.
+PARITY = (("phi3-mini-3.8b", "depth", True),
+          ("olmoe-1b-7b", "depth", False),
+          ("olmoe-1b-7b", "fan_in", True),
+          ("falcon-mamba-7b", "depth", True))
+#: the card's RMS distance from the fp64 witness may be at most this many
+#: times the CPU's: both run fp32 with other summation orders, where a
+#: product in TF32 or bf16 would be 10^3-10^4 times farther
+FP64_RATIO = 2.0
 #: the kernels each family's serve path runs
 PATH_KERNELS = {"dense": ("queue_matmul", "flash_attention"),
                 "moe": ("queue_matmul", "flash_attention", "moe_gemm"),
@@ -81,6 +93,18 @@ WHERE = {
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def host_cpu() -> str:
+    """The host CPU's model name (phase 3's CPU runs depend on it)."""
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if line.startswith("model name"):
+                    return line.split(":", 1)[1].strip()
+    except OSError:
+        pass
+    return "unknown"
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -155,49 +179,85 @@ def phase_build() -> None:
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
+def matmul_shapes(arch: str):
+    """(product, K, N, dtypes) of every ``queue_matmul`` product on
+    ``arch``'s serve path, at full width; the router runs in fp32 only."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.ssm import ssm_dims
+    cfg = get_config(arch)
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    both = (torch.float32, torch.bfloat16)
+    if cfg.family == "ssm":
+        d_in, rank, n = ssm_dims(cfg)
+        out = [("in_proj", d, 2 * d_in, both),
+               ("x_proj", d_in, rank + 2 * n, both),
+               ("dt_proj", rank, d_in, both), ("out_proj", d_in, d, both)]
+    else:
+        out = [("q", d, cfg.n_heads * hd, both),
+               ("k/v", d, cfg.n_kv_heads * hd, both),
+               ("o", cfg.n_heads * hd, d, both)]
+        if cfg.moe:
+            out.append(("router", d, cfg.moe.num_experts, (torch.float32,)))
+        else:
+            out += [("wi/wg", d, cfg.d_ff, both), ("ffn wo", cfg.d_ff, d, both)]
+    out.append(("head", d, cfg.vocab, both))
+    merged = {}                       # products of one shape, named once
+    for name, k, n, dtypes in out:
+        names = merged.get((k, n), ((), dtypes))[0]
+        merged[(k, n)] = (names + (name,), dtypes)
+    return [("/".join(names), k, n, dtypes)
+            for (k, n), (names, dtypes) in merged.items()]
+
+
 def check_queue_matmul(gen, report) -> dict:
+    """Every product of the three serve paths at M = 4 (decode over 4
+    slots) and M = 512 (``forward``), bit-identical across ring depths."""
     from repro_torch.kernels.queue_matmul import ops
     from repro_torch.kernels.queue_matmul.ref import matmul_ref
     rep = None
-    log("[kernels] queue_matmul  M     K     N    dtype  max_abs_err  "
-        "ms  plain_ms  library_ms  bound_ms")
-    for dtype in (torch.float32, torch.bfloat16):
+    log("[kernels] queue_matmul  model product  M     K     N    dtype  "
+        "max_abs_err  ms  plain_ms  library_ms  bound_ms")
+    cases = [(arch, name, k, n, dtype) for arch in SERVED
+             for name, k, n, dtypes in matmul_shapes(arch)
+             for dtype in dtypes]
+    for arch, name, k, n, dtype in cases:
         for m in (4, 512):
-            for k, n in ((3072, 3072), (3072, 8192), (3072, 32064),
-                         (8192, 3072)):
-                x = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
-                w = (torch.randn((k, n), generator=gen, device="cuda")
-                     / math.sqrt(k)).to(dtype)
-                ref = matmul_ref(x, w).to(dtype)
-                outs = {d: ops.queue_matmul(x, w, depth_x=d[0], depth_w=d[1])
-                        for d in ((1, 1), (2, 2), (4, 4), (2, 4))}
-                torch.cuda.synchronize()
-                base = outs[(1, 1)]
-                for d, o in outs.items():
-                    if not torch.equal(o, base):
-                        raise AssertionError(
-                            f"queue_matmul depths {d} differ from depth 1 at "
-                            f"M={m} K={k} N={n} {dtype}")
-                err = within(base, ref, TOL[dtype])
-                copies = max(2, math.ceil(100e6 / (w.numel() * w.element_size())))
-                args = [(x.clone(), w.clone()) for _ in range(copies)]
-                make = cycling(args)
-                ms = cuda_ms(make(lambda a, b: ops.queue_matmul(a, b)))
-                plain = cuda_ms(make(lambda a, b: matmul_ref(a, b).to(a.dtype)))
-                lib = cuda_ms(make(torch.matmul))
-                b_ms, b_by = bound(2.0 * m * n * k,
-                                   (m * k + k * n + m * n) * x.element_size(),
-                                   dtype)
-                del args
-                log(f"[kernels] queue_matmul {m:4d} {k:5d} {n:5d} "
-                    f"{str(dtype)[6:]:>8s} {err:10.3e} {ms:8.4f} {plain:8.4f} "
-                    f"{lib:8.4f} {b_ms:8.4f} ({b_by})")
-                row = {"M": m, "K": k, "N": n, "dtype": str(dtype)[6:],
-                       "max_abs_err": err, "ms": ms, "plain_ms": plain,
-                       "library_ms": lib, "bound_ms": b_ms, "bound_by": b_by}
-                report.append({"kernel": "queue_matmul", **row})
-                if (m, k, n, dtype) == (4, 3072, 8192, torch.bfloat16):
-                    rep = row
+            x = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
+            w = (torch.randn((k, n), generator=gen, device="cuda")
+                 / math.sqrt(k)).to(dtype)
+            ref = matmul_ref(x, w).to(dtype)
+            outs = {d: ops.queue_matmul(x, w, depth_x=d[0], depth_w=d[1])
+                    for d in ((1, 1), (2, 2), (4, 4), (2, 4))}
+            torch.cuda.synchronize()
+            base = outs[(1, 1)]
+            for d, o in outs.items():
+                if not torch.equal(o, base):
+                    raise AssertionError(
+                        f"queue_matmul depths {d} differ from depth 1 at "
+                        f"{arch} {name} M={m} K={k} N={n} {dtype}")
+            err = within(base, ref, TOL[dtype])
+            copies = max(2, math.ceil(100e6 / (w.numel() * w.element_size())))
+            args = [(x.clone(), w.clone()) for _ in range(copies)]
+            make = cycling(args)
+            ms = cuda_ms(make(lambda a, b: ops.queue_matmul(a, b)))
+            plain = cuda_ms(make(lambda a, b: matmul_ref(a, b).to(a.dtype)))
+            lib = cuda_ms(make(torch.matmul))
+            b_ms, b_by = bound(2.0 * m * n * k,
+                               (m * k + k * n + m * n) * x.element_size(),
+                               dtype)
+            del args, outs, ref
+            log(f"[kernels] queue_matmul {arch.split('-')[0]:>6s} "
+                f"{name:>8s} {m:4d} {k:5d} {n:5d} {str(dtype)[6:]:>8s} "
+                f"{err:10.3e} {ms:8.4f} {plain:8.4f} {lib:8.4f} {b_ms:8.4f} "
+                f"({b_by})")
+            row = {"model": arch, "product": name, "M": m, "K": k, "N": n,
+                   "dtype": str(dtype)[6:], "max_abs_err": err, "ms": ms,
+                   "plain_ms": plain, "library_ms": lib, "bound_ms": b_ms,
+                   "bound_by": b_by}
+            report.append({"kernel": "queue_matmul", **row})
+            if (m, k, n, dtype) == (4, 3072, 8192, torch.bfloat16):
+                rep = row
+        free_card()
     return rep
 
 
@@ -235,14 +295,17 @@ def check_flash_attention(gen, report) -> dict:
     rep = None
     log("[kernels] flash_attention  B  Hq Hkv    S   D  causal window  dtype  "
         "max_abs_err  ms  plain_ms  library_ms  bound_ms")
-    cases = [(32, 32, 512, True, None), (32, 32, 512, True, 256),
-             (32, 32, 512, False, None), (32, 8, 512, True, None),
-             (32, 32, 1024, True, None), (32, 32, 1024, True, 256),
-             (32, 32, 1024, False, None), (32, 8, 1024, True, None),
-             (32, 32, 300, True, None)]
-    d = 96
+    # phi3's heads (32 of 96) and olmoe's (16 of 128), at the 512 tokens of
+    # phase 4's ``forward`` and the 128 of phase 3's; windows, GQA, longer
+    # and ragged sequences at phi3's width
+    cases = [(32, 32, 512, 96, True, None), (32, 32, 512, 96, True, 256),
+             (32, 32, 512, 96, False, None), (32, 8, 512, 96, True, None),
+             (32, 32, 1024, 96, True, None), (32, 32, 1024, 96, True, 256),
+             (32, 32, 1024, 96, False, None), (32, 8, 1024, 96, True, None),
+             (32, 32, 300, 96, True, None), (32, 32, 128, 96, True, None),
+             (16, 16, 512, 128, True, None), (16, 16, 128, 128, True, None)]
     for dtype in (torch.float32, torch.bfloat16):
-        for hq, hkv, s, causal, window in cases:
+        for hq, hkv, s, d, causal, window in cases:
             q = torch.randn((1, hq, s, d), generator=gen, device="cuda").to(dtype)
             k = torch.randn((1, hkv, s, d), generator=gen, device="cuda").to(dtype)
             v = torch.randn((1, hkv, s, d), generator=gen, device="cuda").to(dtype)
@@ -380,14 +443,13 @@ def check_ssm_scan(gen, report) -> dict:
 # ---------------------------------------------------------------------------
 
 def fan_in(spec) -> int:
-    """The contracted width of a stacked dense or MoE block matrix: its
-    "embed" axis, or, for a matrix whose output is "embed", its other
-    axes but the layer and expert axes."""
-    axes = dict(zip(spec.axes, spec.shape))
-    if spec.axes[-1] != "embed":
-        return axes["embed"]
-    return math.prod(n for a, n in axes.items()
-                     if a not in ("layers", "experts", "embed"))
+    """The contracted width of a stacked block matrix (layer axis first,
+    then an expert axis if any): the product of its axes but the last when
+    the last is "embed" (an output projection), else its first axis."""
+    axes, shape = list(spec.axes[1:]), list(spec.shape[1:])
+    if axes[0] == "experts" and len(axes) > 2:
+        axes, shape = axes[1:], shape[1:]
+    return math.prod(shape[:-1]) if axes[-1] == "embed" else shape[0]
 
 
 def redraw_scale(params, cfg, full, rule: str) -> None:
@@ -410,44 +472,65 @@ def redraw_scale(params, cfg, full, rule: str) -> None:
     walk(params["blocks"], specs)
 
 
-def router_top_k(params, toks, cfg, rc):
-    """Layer 0's router logits (fp32) and top-k experts for ``toks``."""
-    from repro_torch.models import attention as attn
-    from repro_torch.models.layers import matmul, rms_norm
-    from repro_torch.models.model import _layer, embed_inputs
-    dtype = torch.float32
-    x = embed_inputs(params, {"tokens": toks}, cfg, dtype)
-    bp = _layer(params["blocks"], 0, dtype)
-    x = x + attn.gqa_apply(bp["attn"], rms_norm(x, bp["ln1"], cfg.norm_eps),
-                           cfg, policy=rc.policy)
-    h = rms_norm(x, bp["ln2"], cfg.norm_eps)
-    logits = matmul(h.float(), bp["ffn"]["router"].float(), rc.policy)
-    vals, idx = torch.sort(logits, dim=-1, descending=True, stable=True)
-    return vals, idx[..., :cfg.moe.top_k]
+@contextlib.contextmanager
+def routing(store: list):
+    """Append the top-k experts of every ``router_probs`` call (every MoE
+    layer of a ``forward``, in order) to ``store``, on the CPU."""
+    from repro_torch.models import moe
+    real = moe.router_probs
+
+    def spy(*args, **kwargs):
+        w, idx = real(*args, **kwargs)
+        store.append(idx.sort(-1).values.cpu())
+        return w, idx
+    moe.router_probs = spy
+    try:
+        yield store
+    finally:
+        moe.router_probs = real
 
 
-def check_router(p_gpu, p_cpu, toks, cfg, rc, name) -> None:
-    """A flipped expert between the devices is reported as such, before
-    the logits are compared."""
-    vg, ig = router_top_k(p_gpu, toks.cuda(), cfg, rc)
-    vc, ic = router_top_k(p_cpu, toks, cfg, rc)
-    k = cfg.moe.top_k
-    gap = (vc[..., k - 1] - vc[..., k]).min().item()
-    same = torch.equal(ig.cpu().sort(-1).values, ic.sort(-1).values)
-    log(f"[parity] {name} layer 0 router: top-{k} sets "
-        f"{'equal' if same else 'DIFFER'} on card and CPU for "
-        f"{toks.numel()} tokens; logits max abs diff "
-        f"{(vg.cpu() - vc).abs().max().item():.3e}, smallest gap between "
-        f"expert {k} and {k + 1}: {gap:.3e}")
-    if not same:
-        bad = (ig.cpu().sort(-1).values != ic.sort(-1).values).any(-1)
-        t = int(bad.reshape(-1).nonzero()[0])
-        raise AssertionError(
-            f"{name}: layer 0's router flips an expert between card and CPU "
-            f"at token {t}: {ig.reshape(-1, k)[t].tolist()} vs "
-            f"{ic.reshape(-1, k)[t].tolist()}")
+def flips(a: list, b: list) -> list:
+    """Per MoE layer, the tokens whose top-k sets differ between a and b."""
+    return [int((x != y).any(-1).sum()) for x, y in zip(a, b)]
 
-def phase_parity(arch: str) -> None:
+
+def rms(a: torch.Tensor, b: torch.Tensor) -> float:
+    return (a.double() - b.double()).pow(2).mean().sqrt().item()
+
+
+def against_witness(what, card, cpu, exact, hold: bool,
+                    failures: list) -> None:
+    """Log the card's and the CPU's fp32 distance from the fp64 witness
+    and from each other; add to ``failures`` if the card is more than
+    ``FP64_RATIO`` times farther from fp64 than the CPU's fp32 run is, or,
+    when ``hold``, beyond 2e-3 of the fp64 run."""
+    card, cpu = card.cpu(), cpu.cpu()
+    r_card, r_cpu = rms(card, exact), rms(cpu, exact)
+    m_card = (card.double() - exact).abs().max().item()
+    m_cpu = (cpu.double() - exact).abs().max().item()
+    m_both = (card - cpu).abs().max().item()
+    log(f"[parity] {what}: from fp64, card rms {r_card:.3e} max "
+        f"{m_card:.3e} ({used(card, exact, 2e-3):.3f} of 2e-3"
+        f"{'' if hold else ', not held at this scale'}), CPU fp32 rms "
+        f"{r_cpu:.3e} max {m_cpu:.3e} (card/CPU rms {r_card / r_cpu:.3f}); "
+        f"card from CPU fp32 max {m_both:.3e} "
+        f"({used(card, cpu, 2e-3):.3f} of 2e-3)")
+    if r_card > FP64_RATIO * r_cpu:
+        failures.append(f"{what}: the card is {r_card / r_cpu:.2f} times "
+                        f"farther from fp64 than the CPU")
+    if hold and used(card, exact, 2e-3) > 1:
+        failures.append(f"{what}: card {m_card:.3e} from fp64, beyond "
+                        f"rtol = atol = 2e-3")
+
+
+def phase_parity(arch: str, scale: str, hold: bool, failures: list) -> None:
+    """2 layers at full width: ``forward`` and 4 ``decode_step``s on the
+    card (fp32, kernels), on the CPU (fp32, plain versions) and on the CPU
+    in fp64 (the witness), on the same seeded weights.  An MoE model's
+    routing is compared first, every layer, so that a flipped expert is
+    reported as a flip.  Failures go to ``failures``, so that one run
+    reports every model."""
     from repro_torch.config import RunConfig
     from repro_torch.configs import get_config
     from repro_torch.models import (decode_step, forward, init_cache,
@@ -456,34 +539,49 @@ def phase_parity(arch: str) -> None:
     full = get_config(arch)
     cfg = dataclasses.replace(full, n_layers=2)
     rc = RunConfig(dtype="float32", remat=False)
+    rc64 = RunConfig(dtype="float64", remat=False)
     t0 = time.time()
     p_cpu = init_model_params(SEED, cfg, device="cpu")
-    redraw_scale(p_cpu, cfg, full, PARITY_SCALE[arch])
+    redraw_scale(p_cpu, cfg, full, scale)
     p_gpu = tree_map(lambda a: a.to("cuda"), p_cpu)
     rng = np.random.default_rng(SEED)
     toks = torch.from_numpy(rng.integers(0, cfg.vocab, (1, 128)))
+    name = f"{arch} ({scale} scale)"
+    routes = {"card": [], "cpu": [], "fp64": []}
+    with routing(routes["card"]):
+        out_gpu = forward(p_gpu, {"tokens": toks.cuda()}, cfg, rc)
+    with routing(routes["cpu"]):
+        out_cpu = forward(p_cpu, {"tokens": toks}, cfg, rc)
+    with routing(routes["fp64"]):
+        exact = forward(p_cpu, {"tokens": toks}, cfg, rc64)
     if cfg.moe:
-        check_router(p_gpu, p_cpu, toks, cfg, rc, arch)
-    out_gpu = forward(p_gpu, {"tokens": toks.cuda()}, cfg, rc).cpu()
-    out_cpu = forward(p_cpu, {"tokens": toks}, cfg, rc)
-    err = within(out_gpu, out_cpu, 2e-3)
-    log(f"[parity] {arch} width {cfg.d_model}, 2 layers drawn at the "
-        f"{PARITY_SCALE[arch]} scale, fp32: forward "
-        f"B=1 S=128 logits max abs err {err:.3e} (tol 2e-3, "
-        f"{used(out_gpu, out_cpu, 2e-3):.3f} of it used)")
-    c_gpu = init_cache(cfg, 4, 16, torch.float32, device="cuda")
-    c_cpu = init_cache(cfg, 4, 16, torch.float32, device="cpu")
+        both = flips(routes["card"], routes["cpu"])
+        log(f"[parity] {name} top-{cfg.moe.top_k} experts of "
+            f"{toks.numel()} tokens, tokens flipped per layer: card vs CPU "
+            f"{both}, card vs fp64 {flips(routes['card'], routes['fp64'])}, "
+            f"CPU vs fp64 {flips(routes['cpu'], routes['fp64'])}")
+        if hold and any(both):
+            failures.append(f"{name}: the router flips an expert between "
+                            f"card and CPU ({both} tokens)")
+    against_witness(f"{name} forward B=1 S=128", out_gpu, out_cpu, exact,
+                    hold, failures)
+    caches = {"card": init_cache(cfg, 4, 16, torch.float32, device="cuda"),
+              "cpu": init_cache(cfg, 4, 16, torch.float32, device="cpu"),
+              "fp64": init_cache(cfg, 4, 16, torch.float64, device="cpu")}
     steps = torch.from_numpy(rng.integers(0, cfg.vocab, (4, 4)))
     for t in range(4):
         tok = steps[:, t:t + 1]
-        lg, c_gpu = decode_step(p_gpu, c_gpu, {"tokens": tok.cuda()}, cfg, rc)
-        lc, c_cpu = decode_step(p_cpu, c_cpu, {"tokens": tok}, cfg, rc)
-        err = within(lg.cpu(), lc, 2e-3)
-        log(f"[parity] {arch} decode_step {t}: logits max abs err {err:.3e} "
-            f"(tol 2e-3, {used(lg.cpu(), lc, 2e-3):.3f} of it used)")
-    del p_gpu, c_gpu
+        lg, caches["card"] = decode_step(p_gpu, caches["card"],
+                                         {"tokens": tok.cuda()}, cfg, rc)
+        lc, caches["cpu"] = decode_step(p_cpu, caches["cpu"],
+                                        {"tokens": tok}, cfg, rc)
+        le, caches["fp64"] = decode_step(p_cpu, caches["fp64"],
+                                         {"tokens": tok}, cfg, rc64)
+        against_witness(f"{name} decode_step {t}", lg, lc, le, hold,
+                        failures)
+    del p_gpu, caches
     free_card()
-    log(f"[parity] {arch} done in {time.time() - t0:.1f} s")
+    log(f"[parity] {name} done in {time.time() - t0:.1f} s")
 
 
 def free_card() -> None:
@@ -659,7 +757,8 @@ def main() -> int:
                          text=True, check=True).stdout.strip()
     log(smi)
     log(f"[card] torch {torch.__version__}, CUDA {torch.version.cuda}, "
-        f"python {sys.version.split()[0]}")
+        f"python {sys.version.split()[0]}; host CPU {host_cpu()}, "
+        f"{torch.get_num_threads()} threads")
     t_start = time.time()
     kernels = []
     if "build" in phases:
@@ -678,8 +777,11 @@ def main() -> int:
             with open(args.cases_out, "w") as f:
                 json.dump({"card": smi, "cases": report}, f, indent=1)
     if "parity" in phases:
-        for arch in SERVED:
-            phase_parity(arch)
+        failures = []
+        for arch, scale, hold in PARITY:
+            phase_parity(arch, scale, hold, failures)
+        if failures:
+            raise AssertionError("phase 3 failed:\n" + "\n".join(failures))
     launches = {}
     if "serve" in phases:
         for arch in SERVED:

@@ -11,7 +11,8 @@ import torch
 
 DeviceLike = Union[None, str, torch.device]
 
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float64": torch.float64}
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
@@ -25,7 +26,9 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
 
 
 def torch_dtype(name: Union[str, torch.dtype]) -> torch.dtype:
-    """``RunConfig.dtype`` name (``"bfloat16"``, ``"float32"``) -> dtype."""
+    """``RunConfig.dtype`` name (``"bfloat16"``, ``"float32"``,
+    ``"float64"``) -> dtype.  The kernels take fp32 and bf16; fp64 runs
+    only on the CPU's plain versions, as an exact witness for fp32."""
     if isinstance(name, torch.dtype):
         return name
     try:
@@ -33,3 +36,16 @@ def torch_dtype(name: Union[str, torch.dtype]) -> torch.dtype:
     except KeyError:
         raise ValueError(f"unsupported dtype {name!r}; expected one of "
                          f"{sorted(_DTYPES)}") from None
+
+
+def wide_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The dtype the plain versions and the model's fp32 islands (norms,
+    RoPE, scores, router, SSM state) compute in for ``dtype``: fp32, or
+    fp64 for fp64, so that an fp64 run stays fp64 throughout."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
+def upcast(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in :func:`wide_dtype` of its dtype (``x.float()`` but for
+    fp64)."""
+    return x.to(wide_dtype(x.dtype))

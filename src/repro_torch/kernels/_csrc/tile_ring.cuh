@@ -13,6 +13,10 @@
 // give every output element the same sequence of operations whatever the
 // block's row count (16 or 64) and the element's place in it, so a result
 // never depends on the ring depth, on M, or on which row a token sits in.
+// The fp32 multiplier sums each kBK tile on its own and adds that partial
+// sum to the running one: a chain of kBK + K/kBK additions in place of K,
+// which keeps its rounding error below a blocked CPU sgemm's (one long
+// chain of FMAs was twice as far from an fp64 product).
 
 #pragma once
 
@@ -111,6 +115,11 @@ struct FmaTile {
   }
   __device__ void mma(const float* xs, const float* ws) {
     const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+    float part[TM][TN];  // this kBK tile's sum, added to acc at the end
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) part[i][j] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < kBK; ++kk) {
       float a[TM], b[TN];
@@ -121,8 +130,12 @@ struct FmaTile {
 #pragma unroll
       for (int i = 0; i < TM; ++i)
 #pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+        for (int j = 0; j < TN; ++j) part[i][j] = fmaf(a[i], b[j], part[i][j]);
     }
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) acc[i][j] += part[i][j];
   }
   template <typename O>
   __device__ void store(O* out, int M, int N, int m0, int n0) const {

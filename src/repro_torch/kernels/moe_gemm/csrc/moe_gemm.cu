@@ -26,9 +26,10 @@
 //    (C, d) matrix seen by every expert, is passed with stride 0 and read
 //    from its one copy;
 //  * bf16 multiplies on the tensor cores (mma.sync m16n8k16) and fp32 on
-//    plain FMAs (no TF32), both into fp32 sums in K order, which never
-//    depends on the depth, on C, or on a row's place in the block: depths
-//    give bit-identical outputs, and so do chunked and token prefill.
+//    plain FMAs (no TF32, each 32-deep K tile summed apart and then added),
+//    both into fp32 sums in K order, which never depends on the depth, on
+//    C, or on a row's place in the block: depths give bit-identical
+//    outputs, and so do chunked and token prefill.
 // No wgmma, TMA or warp specialisation yet: this is the simple, right
 // version.
 //

@@ -25,7 +25,8 @@
 //  * the block's M is 16 when M <= 16 (decode) and 64 otherwise, so decode
 //    does not pay for 128 rows of padding;
 //  * bf16 multiplies on the tensor cores with mma.sync m16n8k16 and an fp32
-//    accumulator; fp32 multiplies with plain FMAs (no TF32), in K order.
+//    accumulator; fp32 multiplies with plain FMAs (no TF32), in K order,
+//    each 32-deep K tile summed apart and then added to the running sum.
 // The order of the sums over K never depends on the ring depths, so every
 // depth gives bit-identical output.  No wgmma, TMA or warp specialisation
 // yet: this is the simple, right version.

@@ -18,6 +18,7 @@ import torch
 
 from ..config import ModelConfig
 from ..core.policy import ExecutionPolicy
+from ..device import upcast, wide_dtype
 from ..kernels.flash_attention import flash_attention
 from .layers import ParamSpec, apply_rope, matmul, rope_angles
 
@@ -101,7 +102,7 @@ def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
     G = Hq // Hkv
     scale = 1.0 / math.sqrt(D)
     qg = q.reshape(B, Hkv, G, D)
-    s = torch.einsum("bhgd,bhtd->bhgt", qg.float(), k_cache.float()) * scale
+    s = torch.einsum("bhgd,bhtd->bhgt", upcast(qg), upcast(k_cache)) * scale
     pos = torch.arange(T, device=q.device)
     lv = torch.as_tensor(length, device=q.device).reshape(-1, 1)
     mask = pos[None] < lv
@@ -110,7 +111,7 @@ def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
     s = torch.where(mask[:, None, None], s,
                     torch.tensor(NEG_INF, device=q.device))
     p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bhgt,bhtd->bhgd", p, v_cache.float())
+    out = torch.einsum("bhgt,bhtd->bhgd", p, upcast(v_cache))
     return out.reshape(B, Hq, 1, Dv).to(v_cache.dtype)
 
 
@@ -156,7 +157,8 @@ def gqa_apply(p, x: torch.Tensor, cfg: ModelConfig, *,
     v = _project(x, p["wv"], policy)
     if cfg.rope:
         pos = q_offset + torch.arange(S, device=x.device)
-        cos, sin = rope_angles(pos, cfg.resolved_head_dim, cfg.rope_theta)
+        cos, sin = rope_angles(pos, cfg.resolved_head_dim, cfg.rope_theta,
+                               wide_dtype(x.dtype))
         q = apply_rope(q, cos[None, None], sin[None, None])
         k = apply_rope(k, cos[None, None], sin[None, None])
     o = flash_attention(q, k, v, causal=cfg.causal, window=window,
@@ -186,7 +188,8 @@ def gqa_decode(p, x: torch.Tensor, cfg: ModelConfig, k_cache: torch.Tensor,
     k = _project(x, p["wk"], policy)
     v = _project(x, p["wv"], policy)
     if cfg.rope:
-        cos, sin = rope_angles(length, cfg.resolved_head_dim, cfg.rope_theta)
+        cos, sin = rope_angles(length, cfg.resolved_head_dim, cfg.rope_theta,
+                               wide_dtype(x.dtype))
         q = apply_rope(q, cos[:, None, None], sin[:, None, None])
         k = apply_rope(k, cos[:, None, None], sin[:, None, None])
     T = k_cache.shape[2]

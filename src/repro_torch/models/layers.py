@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core.policy import ExecutionPolicy
+from ..device import upcast
 from ..kernels.queue_matmul import queue_matmul
 
 Pytree = Any
@@ -83,17 +84,19 @@ def matmul(x: torch.Tensor, w: torch.Tensor,
 def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
              eps: float = 1e-5) -> torch.Tensor:
     dt = x.dtype
-    x32 = x.float()
+    x32 = upcast(x)
     x32 = x32 * torch.rsqrt((x32 * x32).mean(dim=-1, keepdim=True) + eps)
-    return (x32 * (1.0 + gamma.float())).to(dt)
+    return (x32 * (1.0 + gamma.to(x32.dtype))).to(dt)
 
 
-def rope_angles(positions: torch.Tensor, dim: int,
-                theta: float) -> Tuple[torch.Tensor, torch.Tensor]:
-    """positions: (...,) int -> cos/sin of shape (..., dim//2), fp32."""
-    inv = 1.0 / (theta ** (torch.arange(0, dim, 2, dtype=torch.float32,
+def rope_angles(positions: torch.Tensor, dim: int, theta: float,
+                dtype: torch.dtype = torch.float32
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """positions: (...,) int -> cos/sin of shape (..., dim//2), in
+    ``dtype`` (fp32, or fp64 for an fp64 run)."""
+    inv = 1.0 / (theta ** (torch.arange(0, dim, 2, dtype=dtype,
                                         device=positions.device) / dim))
-    ang = positions.float()[..., None] * inv
+    ang = positions.to(dtype)[..., None] * inv
     return torch.cos(ang), torch.sin(ang)
 
 
@@ -101,7 +104,7 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
                sin: torch.Tensor) -> torch.Tensor:
     """x: (..., dim); cos/sin broadcastable to (..., dim//2)."""
     dt = x.dtype
-    x1, x2 = x.float().chunk(2, dim=-1)
+    x1, x2 = upcast(x).chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(dt)
 

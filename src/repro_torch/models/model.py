@@ -31,7 +31,8 @@ import numpy as np
 import torch
 
 from ..config import ModelConfig, RunConfig
-from ..device import DeviceLike, resolve_device, torch_dtype
+from ..device import (DeviceLike, resolve_device, torch_dtype, upcast,
+                      wide_dtype)
 from . import attention as attn
 from . import moe as moe_mod
 from . import ssm as ssm_mod
@@ -200,7 +201,7 @@ def cache_spec(cfg: ModelConfig, batch: int, max_len: int,
     out = {"len": ((batch,), torch.int32)}
     if cfg.family == "ssm":
         d_in, _, d_state = ssm_mod.ssm_dims(cfg)
-        out["ssm"] = ((L, batch, d_in, d_state), torch.float32)
+        out["ssm"] = ((L, batch, d_in, d_state), wide_dtype(dtype))
         out["conv"] = ((L, batch, cfg.ssm.d_conv - 1, d_in), dtype)
         return out
     kv = ((L, batch, cfg.n_kv_heads, max_len, hd), dtype)
@@ -248,7 +249,7 @@ def _decode_body(params: Pytree, cache: Pytree, tokens: torch.Tensor,
              else ffn_apply(bp["ffn"], hn, cfg.ffn_act, rc.policy))
         x = x + y
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return matmul(x[:, 0], _head_t(params, cfg, dtype), rc.policy).float()
+    return upcast(matmul(x[:, 0], _head_t(params, cfg, dtype), rc.policy))
 
 
 def decode_step(params: Pytree, cache: Pytree,

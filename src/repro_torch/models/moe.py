@@ -29,6 +29,7 @@ import torch.nn.functional as F
 
 from ..config import ModelConfig
 from ..core.policy import ExecutionPolicy
+from ..device import upcast
 from ..kernels.moe_gemm import moe_gemm
 from ..kernels.moe_gemm.ops import operating_point
 from .layers import ParamSpec, matmul
@@ -52,11 +53,11 @@ def moe_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
 def router_probs(p, x: torch.Tensor, cfg: ModelConfig,
                  policy: Optional[ExecutionPolicy] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Top-k routing.  x: (B, S, d) -> (weights (B, S, k) fp32, idx
-    (B, S, k)).  Ties go to the lower expert index, as ``jax.lax.top_k``
+    """Top-k routing.  x: (B, S, d) -> (weights (B, S, k) fp32 (fp64 for
+    fp64), idx (B, S, k)).  Ties go to the lower expert index, as ``jax.lax.top_k``
     breaks them: a stable descending sort keeps equal logits in index
     order."""
-    logits = matmul(x.float(), p["router"].float(), policy)
+    logits = matmul(upcast(x), upcast(p["router"]), policy)
     vals, idx = torch.sort(logits, dim=-1, descending=True, stable=True)
     k = cfg.moe.top_k
     return torch.softmax(vals[..., :k], dim=-1), idx[..., :k]

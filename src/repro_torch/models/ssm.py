@@ -19,6 +19,7 @@ import torch.nn.functional as F
 
 from ..config import ModelConfig
 from ..core.policy import ExecutionPolicy
+from ..device import upcast
 from ..kernels.ssm_scan import ssm_scan
 from .layers import ParamSpec, matmul
 
@@ -56,7 +57,7 @@ def _scan_inputs(p, x_in: torch.Tensor, cfg: ModelConfig,
     proj = matmul(x_in, p["x_proj"], policy)
     dt, Bc, C = torch.split(proj, [dt_rank, d_state, d_state], dim=-1)
     dt = F.softplus(matmul(dt, p["dt_proj"], policy) + p["dt_bias"])
-    A = -torch.exp(p["A_log"].float())
+    A = -torch.exp(upcast(p["A_log"]))
     return dt, A, Bc, C
 
 
@@ -66,8 +67,8 @@ def _ssm_coeffs(p, x_in: torch.Tensor, cfg: ModelConfig,
     (B, T, d_in, N) fp32, C (B, T, N).  Built for the one-token decode
     step only; the full sequence goes to ``ssm_scan`` instead."""
     dt, A, Bc, C = _scan_inputs(p, x_in, cfg, policy)
-    dA = torch.exp(dt.float()[..., None] * A)
-    dBx = (dt * x_in).float()[..., None] * Bc.float()[:, :, None, :]
+    dA = torch.exp(upcast(dt)[..., None] * A)
+    dBx = upcast(dt * x_in)[..., None] * upcast(Bc)[:, :, None, :]
     return dA, dBx, C
 
 
@@ -119,7 +120,7 @@ def mamba_decode(p, x: torch.Tensor, cfg: ModelConfig,
     xi = F.silu(xi)
     dA, dBx, C = _ssm_coeffs(p, xi, cfg, policy)
     ssm_state = dA[:, 0] * ssm_state + dBx[:, 0]
-    y = torch.einsum("bdn,bn->bd", ssm_state, C[:, 0].float())
+    y = torch.einsum("bdn,bn->bd", ssm_state, upcast(C[:, 0]))
     y = y[:, None].to(x.dtype) + xi * p["D"]
     y = y * F.silu(z)
     return matmul(y, p["out_proj"], policy), ssm_state, conv_state

@@ -151,6 +151,22 @@ def test_ssm_scan_kernel_against_plain(card, b, t, d, n, dtype):
     _close(out, ssm_scan_ref(x, dt, A, Bm, C), TOL[dtype])
 
 
+def test_float64_on_the_card_raises_instead_of_falling_back(card):
+    """fp64 is the CPU's witness only: the kernels refuse it on the card
+    rather than hand it to a plain version."""
+    x = torch.randn((4, 64), generator=card, device="cuda").double()
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        queue_matmul(x, x.t().contiguous())
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        moe_gemm(x[None], x.t().contiguous()[None])
+    q = x.reshape(1, 1, 4, 64)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        flash_attention(q, q, q)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        ssm_scan(x[None], x[None], -x.t()[:, :4].abs(), x[None, :, :4],
+                 x[None, :, :4])
+
+
 @pytest.mark.parametrize("arch", ["phi3-mini-3.8b", "glm4-9b", "olmoe-1b-7b",
                                   "granite-moe-3b-a800m", "falcon-mamba-7b"])
 def test_model_and_engine_on_the_card_match_the_cpu(card, arch):

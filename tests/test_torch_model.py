@@ -70,6 +70,31 @@ def test_forward_matches_reference(arch):
     assert torch.equal(again, out)
 
 
+@pytest.mark.parametrize("arch", ARCHS)
+def test_float64_run_stays_float64_and_matches_reference(arch):
+    """``dtype="float64"`` (the CPU witness ``chip_smoke.py`` holds fp32
+    against): forward logits, decode logits and every cache leaf stay
+    fp64, and agree with the reference's fp32 numbers."""
+    cfg_j, cfg_t, pj, pt = _setup(arch)
+    rc64 = RunConfig(dtype="float64", remat=False)
+    toks = np.random.default_rng(0).integers(0, cfg_j.vocab, (2, 24))
+    ref = jax_forward(pj, {"tokens": jnp.asarray(toks, jnp.int32)}, cfg_j,
+                      JRC_)
+    out = forward(pt, {"tokens": torch.from_numpy(toks)}, cfg_t, rc64)
+    assert out.dtype == torch.float64
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
+    cache = init_cache(cfg_t, 2, 8, torch.float64, device="cpu")
+    for j in range(3):
+        lt, cache = decode_step(pt, cache, {
+            "tokens": torch.from_numpy(toks[:, j:j + 1])}, cfg_t, rc64)
+        assert lt.dtype == torch.float64
+    assert all(v.dtype == torch.float64 for k, v in cache.items()
+               if k != "len")
+    # the same tokens through forward: decode's last logits agree
+    np.testing.assert_allclose(lt.numpy(), out[:, 2].numpy(), rtol=1e-9,
+                               atol=1e-9)
+
+
 @pytest.mark.parametrize("arch", MOE_ARCHS)
 def test_forward_with_grouped_dispatch_matches_reference(arch):
     """``rc.moe_dispatch = "grouped"``: the capacity-bounded dispatch of
