@@ -7,7 +7,7 @@
 Phases, each of which raises on failure (the run then exits non-zero and
 prints no result):
 
-1. build   — compile the four CUDA kernels from the sources in the
+1. build   — compile the five CUDA kernels from the sources in the
    checkout, one ``nvcc`` each, all at once.
 2. kernels — each kernel against its plain PyTorch version on the card at
    the serve paths' shapes, with its time, its bound and the time of one
@@ -15,21 +15,25 @@ prints no result):
    yardstick the port never calls).  ``queue_matmul`` and ``moe_gemm``
    must be bit-identical across ring depths.
 3. parity  — phi3-mini-3.8b, olmoe-1b-7b and falcon-mamba-7b at full
-   width, depth cut to 2 layers: ``forward`` and 4 ``decode_step``s in
-   fp32 on the card (kernels) and on the CPU (plain versions), and in fp64
-   on the CPU, on the same seeded weights.  The card must be no farther
-   from fp64 than the CPU's fp32 run (within ``FP64_RATIO``) and within
-   2e-3 of the fp64 run; for olmoe every layer's top-k experts are
-   compared first.  The
-   kept layers are drawn at the full-depth model's scale, and olmoe's also
-   at the fan-in scale (see ``PARITY``).
-4. serve   — phi3-mini-3.8b (32 layers), olmoe-1b-7b (16) and
-   falcon-mamba-7b (64) at full width, bf16, one after the other: the
-   chunked-prefill engine serves 6 seeded requests, a token-prefill engine
-   must give the same tokens, and one ``forward`` over 512 tokens runs
-   ``flash_attention`` (and ``ssm_scan`` for falcon-mamba).  Each model's
-   run is its own main path: the launch counts are set to 0 just before it
-   and read just after it, and every kernel of that path must have run.
+   width, depth cut to 2 layers, and recurrentgemma-2b cut to 5 (one
+   (rec, rec, attn) macro block and the full model's (rec, rec) tail):
+   ``forward`` and 4 ``decode_step``s in fp32 on the card (kernels) and on
+   the CPU (plain versions), and in fp64 on the CPU, on the same seeded
+   weights.  The card must be no farther from fp64 than the CPU's fp32 run
+   (within ``FP64_RATIO``) and, where ``PARITY`` holds it, within 2e-3 of
+   the fp64 run; for olmoe every layer's top-k experts are compared first.
+   recurrentgemma also prefills and decodes with its window cut to
+   ``RING_WINDOW``, so that its K/V ring wraps.  The kept layers are drawn
+   at the full-depth model's scale, and olmoe's also at the fan-in scale
+   (see ``PARITY``).
+4. serve   — phi3-mini-3.8b (32 layers), olmoe-1b-7b (16),
+   falcon-mamba-7b (64) and recurrentgemma-2b (26) at full width, bf16, one
+   after the other: the chunked-prefill engine serves 6 seeded requests, a
+   token-prefill engine must give the same tokens, and one ``forward`` over
+   512 tokens runs ``flash_attention`` (and ``ssm_scan`` for falcon-mamba,
+   ``rglru_scan`` for recurrentgemma).  Each model's run is its own main
+   path: the launch counts are set to 0 just before it and read just after
+   it, and every kernel of that path must have run.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  It imports nothing of JAX.
@@ -55,8 +59,9 @@ PEAK_FLOPS = {torch.bfloat16: 989e12,     # dense tensor-core bf16
               torch.float32: 67e12}       # fp32 outside the tensor cores
 TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
 SEED = 20261016
-SERVED = ("phi3-mini-3.8b", "olmoe-1b-7b", "falcon-mamba-7b")
-#: phase 3's draws of the 2 kept layers: (arch, scale, whether the card is
+SERVED = ("phi3-mini-3.8b", "olmoe-1b-7b", "falcon-mamba-7b",
+          "recurrentgemma-2b")
+#: phase 3's draws of the kept layers: (arch, scale, whether the card is
 #: held to 2e-3 of the CPU's fp64 run).  "depth" is the full-depth model's
 #: scale, as the reference's initializer gives it (std 1/sqrt(n_layers));
 #: "fan_in" is std 1/sqrt(fan-in) of each matrix.  The 2e-3 check is made
@@ -65,10 +70,20 @@ SERVED = ("phi3-mini-3.8b", "olmoe-1b-7b", "falcon-mamba-7b")
 #: the tolerance.  At olmoe's depth scale (std 1/4) fp32 itself misses
 #: fp64 by several times the tolerance, so there the card is held to the
 #: ratio below only, and the fan-in draw carries the 2e-3 check.
+#: recurrentgemma's depth scale (macro blocks at std 1/sqrt(8)) saturates
+#: its gates and attention, but a saturated sigmoid or softmax is flat, so
+#: rounding does not grow through it: the card measured 0.12 of 2e-3 from
+#: fp64 there (and 0.004 at the fan-in scale), so its depth draw carries
+#: the 2e-3 check alone.
 PARITY = (("phi3-mini-3.8b", "depth", True),
           ("olmoe-1b-7b", "depth", False),
           ("olmoe-1b-7b", "fan_in", True),
-          ("falcon-mamba-7b", "depth", True))
+          ("falcon-mamba-7b", "depth", True),
+          ("recurrentgemma-2b", "depth", True))
+#: recurrentgemma's ring check: window, cache length and prompt length
+#: (the prompt passes the window, so the ring has wrapped before the 4
+#: decode steps)
+RING_WINDOW, RING_MAX_LEN, RING_PROMPT = 16, 32, 24
 #: the card's RMS distance from the fp64 witness may be at most this many
 #: times the CPU's: both run fp32 with other summation orders, where a
 #: product in TF32 or bf16 would be 10^3-10^4 times farther
@@ -76,7 +91,8 @@ FP64_RATIO = 2.0
 #: the kernels each family's serve path runs
 PATH_KERNELS = {"dense": ("queue_matmul", "flash_attention"),
                 "moe": ("queue_matmul", "flash_attention", "moe_gemm"),
-                "ssm": ("queue_matmul", "ssm_scan")}
+                "ssm": ("queue_matmul", "ssm_scan"),
+                "hybrid": ("queue_matmul", "flash_attention", "rglru_scan")}
 WHERE = {
     "queue_matmul": ("src/repro_torch/kernels/queue_matmul/csrc/"
                      "queue_matmul.cu",
@@ -88,6 +104,8 @@ WHERE = {
                  "src/repro/kernels/moe_gemm/kernel.py:59"),
     "ssm_scan": ("src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu",
                  "src/repro/kernels/ssm_scan/kernel.py:45"),
+    "rglru_scan": ("src/repro_torch/kernels/rglru_scan/csrc/rglru_scan.cu",
+                   "src/repro/kernels/rglru_scan/kernel.py:33"),
 }
 
 
@@ -192,6 +210,13 @@ def matmul_shapes(arch: str):
         out = [("in_proj", d, 2 * d_in, both),
                ("x_proj", d_in, rank + 2 * n, both),
                ("dt_proj", rank, d_in, both), ("out_proj", d_in, d, both)]
+    elif cfg.family == "hybrid":
+        w = cfg.rglru.lru_width or d
+        out = [("in/gate_proj", d, w, both), ("rg/ig", w, w, both),
+               ("out_proj", w, d, both), ("q", d, cfg.n_heads * hd, both),
+               ("k/v", d, cfg.n_kv_heads * hd, both),
+               ("o", cfg.n_heads * hd, d, both),
+               ("wi/wg", d, cfg.d_ff, both), ("ffn wo", cfg.d_ff, d, both)]
     else:
         out = [("q", d, cfg.n_heads * hd, both),
                ("k/v", d, cfg.n_kv_heads * hd, both),
@@ -210,8 +235,8 @@ def matmul_shapes(arch: str):
 
 
 def check_queue_matmul(gen, report) -> dict:
-    """Every product of the three serve paths at M = 4 (decode over 4
-    slots) and M = 512 (``forward``), bit-identical across ring depths."""
+    """Every product of the served models at M = 4 (decode over 4 slots)
+    and M = 512 (``forward``), bit-identical across ring depths."""
     from repro_torch.kernels.queue_matmul import ops
     from repro_torch.kernels.queue_matmul.ref import matmul_ref
     rep = None
@@ -295,15 +320,19 @@ def check_flash_attention(gen, report) -> dict:
     rep = None
     log("[kernels] flash_attention  B  Hq Hkv    S   D  causal window  dtype  "
         "max_abs_err  ms  plain_ms  library_ms  bound_ms")
-    # phi3's heads (32 of 96) and olmoe's (16 of 128), at the 512 tokens of
-    # phase 4's ``forward`` and the 128 of phase 3's; windows, GQA, longer
-    # and ragged sequences at phi3's width
+    # phi3's heads (32 of 96), olmoe's (16 of 128) and recurrentgemma's (10
+    # of 256 over one KV head, window 2048), at the 512 tokens of phase 4's
+    # ``forward`` and the 128 of phase 3's; windows, GQA, longer and ragged
+    # sequences at phi3's width, and recurrentgemma's at 4096 tokens, where
+    # its window bites
     cases = [(32, 32, 512, 96, True, None), (32, 32, 512, 96, True, 256),
              (32, 32, 512, 96, False, None), (32, 8, 512, 96, True, None),
              (32, 32, 1024, 96, True, None), (32, 32, 1024, 96, True, 256),
              (32, 32, 1024, 96, False, None), (32, 8, 1024, 96, True, None),
              (32, 32, 300, 96, True, None), (32, 32, 128, 96, True, None),
-             (16, 16, 512, 128, True, None), (16, 16, 128, 128, True, None)]
+             (16, 16, 512, 128, True, None), (16, 16, 128, 128, True, None),
+             (10, 1, 512, 256, True, 2048), (10, 1, 128, 256, True, 2048),
+             (10, 1, 4096, 256, True, 2048)]
     for dtype in (torch.float32, torch.bfloat16):
         for hq, hkv, s, d, causal, window in cases:
             q = torch.randn((1, hq, s, d), generator=gen, device="cuda").to(dtype)
@@ -438,15 +467,70 @@ def check_ssm_scan(gen, report) -> dict:
     return rep
 
 
+def check_rglru_scan(gen, report) -> dict:
+    """recurrentgemma-2b's scan: width 2560, over the 512 tokens of phase
+    4's ``forward`` and the 128 of phase 3's, with a and bx drawn as the
+    model's gates make them.  No single PyTorch call computes it, so there
+    is no library time."""
+    from repro_torch.kernels.rglru_scan import ops
+    from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
+    rep = None
+    log("[kernels] rglru_scan  B    T     w  dtype  max_abs_err  ms  "
+        "plain_ms  bound_ms")
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, t, w in ((1, 512, 2560), (1, 128, 2560)):
+            def rnd(*shape):
+                return torch.randn(shape, generator=gen, device="cuda")
+            # a = exp(-8 softplus(1) r), r a sigmoid; bx = sqrt(1 - a^2) x
+            a = torch.exp(-8.0 * math.log1p(math.e)
+                          * torch.sigmoid(rnd(b, t, w)))
+            bx = torch.sqrt(1.0 - a * a) * rnd(b, t, w)
+            a, bx = a.to(dtype), bx.to(dtype)
+            out = ops.rglru_scan(a, bx)
+            ref = rglru_scan_ref(a, bx)
+            torch.cuda.synchronize()
+            err = within(out, ref, TOL[dtype])
+            ms = cuda_ms(lambda: ops.rglru_scan(a, bx))
+            plain = cuda_ms(lambda: rglru_scan_ref(a, bx), iters=5)
+            # a multiply and an add per element; a and bx read, h written
+            b_ms, b_by = bound(2.0 * b * t * w,
+                               b * t * w * (2 * a.element_size() + 4),
+                               torch.float32)
+            log(f"[kernels] rglru_scan {b:2d} {t:4d} {w:5d} "
+                f"{str(dtype)[6:]:>8s} {err:10.3e} {ms:8.4f} {plain:8.4f} "
+                f"{b_ms:8.4f} ({b_by}); bit-equal to plain: "
+                f"{bool(torch.equal(out, ref))}")
+            row = {"B": b, "T": t, "w": w, "dtype": str(dtype)[6:],
+                   "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                   "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+            report.append({"kernel": "rglru_scan", **row})
+            if (t, dtype) == (512, torch.float32):   # the model's inputs
+                rep = row
+    return rep
+
+
 # ---------------------------------------------------------------------------
 # phase 3: full width, cut depth, card against CPU
 # ---------------------------------------------------------------------------
 
+def cut_depth(full):
+    """Phase 3's cut: 2 layers, or for the hybrid family one macro block
+    and the full model's tail, which keeps an attention layer, the stacked
+    ``macros`` and the unstacked ``tail_*`` leaves."""
+    if full.family != "hybrid":
+        return dataclasses.replace(full, n_layers=2)
+    pat = len(full.rglru.pattern)
+    return dataclasses.replace(full, n_layers=pat + full.n_layers % pat)
+
+
 def fan_in(spec) -> int:
-    """The contracted width of a stacked block matrix (layer axis first,
-    then an expert axis if any): the product of its axes but the last when
-    the last is "embed" (an output projection), else its first axis."""
-    axes, shape = list(spec.axes[1:]), list(spec.shape[1:])
+    """The contracted width of a block matrix (after its layer axis, if it
+    is stacked, and its expert axis, if any): the product of its axes but
+    the last when the last is "embed" (an output projection), else its
+    first axis."""
+    axes, shape = list(spec.axes), list(spec.shape)
+    if axes[0] == "layers":
+        axes, shape = axes[1:], shape[1:]
     if axes[0] == "experts" and len(axes) > 2:
         axes, shape = axes[1:], shape[1:]
     return math.prod(shape[:-1]) if axes[-1] == "embed" else shape[0]
@@ -454,22 +538,25 @@ def fan_in(spec) -> int:
 
 def redraw_scale(params, cfg, full, rule: str) -> None:
     """Rescale the kept layers' normal-drawn leaves in place.  The
-    reference's initializer takes a stacked leaf's fan-in from its layer
-    axis (std 1/sqrt(n_layers)): "depth" scales them to the full-depth
-    model's std, 1/sqrt(full.n_layers); "fan_in" to 1/sqrt(fan-in) of each
-    matrix."""
+    reference's initializer draws every such leaf at std 1/sqrt(its first
+    axis), which for a stacked leaf is the layer axis (``n_layers``, or the
+    hybrid family's ``n_full`` macro blocks) and for a hybrid tail leaf its
+    input width.  "depth" gives each leaf the full-depth model's std for
+    it; "fan_in" gives it 1/sqrt(fan-in) of its matrix."""
     from repro_torch.models import param_specs
-    specs = param_specs(cfg)["blocks"]
+    specs, full_specs = param_specs(cfg), param_specs(full)
 
-    def walk(p, s):
+    def walk(p, s, f):
         for k, v in p.items():
             if isinstance(v, dict):
-                walk(v, s[k])
+                walk(v, s[k], f[k])
             elif s[k].init == "normal":
-                std = (1 / math.sqrt(full.n_layers) if rule == "depth"
+                std = (1 / math.sqrt(f[k].shape[0]) if rule == "depth"
                        else 1 / math.sqrt(fan_in(s[k])))
-                v.mul_(std * math.sqrt(cfg.n_layers))
-    walk(params["blocks"], specs)
+                v.mul_(std * math.sqrt(s[k].shape[0]))
+    walk({k: v for k, v in params.items()
+          if k == "blocks" or k == "macros" or k.startswith("tail_")},
+         specs, full_specs)
 
 
 @contextlib.contextmanager
@@ -525,11 +612,12 @@ def against_witness(what, card, cpu, exact, hold: bool,
 
 
 def phase_parity(arch: str, scale: str, hold: bool, failures: list) -> None:
-    """2 layers at full width: ``forward`` and 4 ``decode_step``s on the
-    card (fp32, kernels), on the CPU (fp32, plain versions) and on the CPU
-    in fp64 (the witness), on the same seeded weights.  An MoE model's
-    routing is compared first, every layer, so that a flipped expert is
-    reported as a flip.  Failures go to ``failures``, so that one run
+    """The cut depth (:func:`cut_depth`) at full width: ``forward`` and 4
+    ``decode_step``s on the card (fp32, kernels), on the CPU (fp32, plain
+    versions) and on the CPU in fp64 (the witness), on the same seeded
+    weights.  An MoE model's routing is compared first, every layer, so
+    that a flipped expert is reported as a flip; a hybrid model also runs
+    :func:`ring_parity`.  Failures go to ``failures``, so that one run
     reports every model."""
     from repro_torch.config import RunConfig
     from repro_torch.configs import get_config
@@ -537,7 +625,7 @@ def phase_parity(arch: str, scale: str, hold: bool, failures: list) -> None:
                                     init_model_params)
     from repro_torch.models.layers import tree_map
     full = get_config(arch)
-    cfg = dataclasses.replace(full, n_layers=2)
+    cfg = cut_depth(full)
     rc = RunConfig(dtype="float32", remat=False)
     rc64 = RunConfig(dtype="float64", remat=False)
     t0 = time.time()
@@ -546,7 +634,7 @@ def phase_parity(arch: str, scale: str, hold: bool, failures: list) -> None:
     p_gpu = tree_map(lambda a: a.to("cuda"), p_cpu)
     rng = np.random.default_rng(SEED)
     toks = torch.from_numpy(rng.integers(0, cfg.vocab, (1, 128)))
-    name = f"{arch} ({scale} scale)"
+    name = f"{arch} ({cfg.n_layers} layers, {scale} scale)"
     routes = {"card": [], "cpu": [], "fp64": []}
     with routing(routes["card"]):
         out_gpu = forward(p_gpu, {"tokens": toks.cuda()}, cfg, rc)
@@ -579,9 +667,55 @@ def phase_parity(arch: str, scale: str, hold: bool, failures: list) -> None:
                                          {"tokens": tok}, cfg, rc64)
         against_witness(f"{name} decode_step {t}", lg, lc, le, hold,
                         failures)
-    del p_gpu, caches
+    del caches
+    if cfg.family == "hybrid":
+        ring_parity(p_gpu, p_cpu, cfg, rng, name, hold, failures)
+    del p_gpu
     free_card()
     log(f"[parity] {name} done in {time.time() - t0:.1f} s")
+
+
+def ring_parity(p_gpu, p_cpu, cfg, rng, name: str, hold: bool,
+                failures: list) -> None:
+    """The hybrid model with its window cut to ``RING_WINDOW``: a
+    ``prefill_step`` of ``RING_PROMPT`` tokens into caches of
+    ``RING_MAX_LEN``, whose K/V ring of ``RING_WINDOW`` slots wraps, then 4
+    ``decode_step``s, on the card, on the CPU and in fp64, each held as in
+    :func:`phase_parity`.  The weights are prepared once for each run
+    (the head transposed, as the engine holds it), not at every body."""
+    from repro_torch.config import RunConfig
+    from repro_torch.models import (decode_step, init_cache, prefill_step,
+                                    prepare_params)
+    wcfg = dataclasses.replace(
+        cfg, rglru=dataclasses.replace(cfg.rglru, window=RING_WINDOW))
+    runs = {}
+    for k, p, dev, dtype in (("card", p_gpu, "cuda", "float32"),
+                             ("cpu", p_cpu, "cpu", "float32"),
+                             ("fp64", p_cpu, "cpu", "float64")):
+        rc = RunConfig(dtype=dtype, remat=False)
+        runs[k] = (prepare_params(p, wcfg, rc), dev, rc)
+    caches = {k: init_cache(wcfg, 2, RING_MAX_LEN, rc.dtype, device=dev)
+              for k, (_, dev, rc) in runs.items()}
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (2, RING_PROMPT)))
+    steps = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 4)))
+    what = f"{name} window {RING_WINDOW}"
+    for t in range(5):
+        logits = {}
+        for k, (p, dev, rc) in runs.items():
+            if t == 0:
+                batch = {"tokens": prompt.to(dev),
+                         "n_tokens": torch.full((2,), RING_PROMPT,
+                                                dtype=torch.int32).to(dev)}
+                logits[k], caches[k] = prefill_step(p, caches[k], batch,
+                                                    wcfg, rc)
+            else:
+                logits[k], caches[k] = decode_step(
+                    p, caches[k], {"tokens": steps[:, t - 1:t].to(dev)},
+                    wcfg, rc)
+        against_witness(f"{what} prefill {RING_PROMPT} tokens" if t == 0
+                        else f"{what} decode_step {t - 1} (ring wrapped)",
+                        logits["card"], logits["cpu"], logits["fp64"], hold,
+                        failures)
 
 
 def free_card() -> None:
@@ -595,9 +729,10 @@ def free_card() -> None:
 
 def launch_counters():
     from repro_torch.kernels import (flash_attention, moe_gemm, queue_matmul,
-                                     ssm_scan)
+                                     rglru_scan, ssm_scan)
     return {"queue_matmul": queue_matmul, "flash_attention": flash_attention,
-            "moe_gemm": moe_gemm, "ssm_scan": ssm_scan}
+            "moe_gemm": moe_gemm, "ssm_scan": ssm_scan,
+            "rglru_scan": rglru_scan}
 
 
 def phase_serve(arch: str) -> dict:
@@ -769,7 +904,8 @@ def main() -> int:
         kernels = [("queue_matmul", check_queue_matmul(gen, report)),
                    ("flash_attention", check_flash_attention(gen, report)),
                    ("moe_gemm", check_moe_gemm(gen, report)),
-                   ("ssm_scan", check_ssm_scan(gen, report))]
+                   ("ssm_scan", check_ssm_scan(gen, report)),
+                   ("rglru_scan", check_rglru_scan(gen, report))]
         free_card()
         if args.cases_out:
             os.makedirs(os.path.dirname(os.path.abspath(args.cases_out)),
@@ -787,7 +923,8 @@ def main() -> int:
         for arch in SERVED:
             for name, n in phase_serve(arch).items():
                 launches[name] = launches.get(name, 0) + n
-        log(f"[serve] launches over the three main paths: {launches}")
+        log(f"[serve] launches over the {len(SERVED)} main paths: "
+            f"{launches}")
     log(f"[done] {time.time() - t_start:.1f} s")
 
     line = []

@@ -1,9 +1,9 @@
 """Architecture registry: --arch <id> -> ModelConfig (+ reduced smoke).
 
 The port serves the dense GQA family (phi3-mini-3.8b, glm4-9b), the MoE
-family (olmoe-1b-7b, granite-moe-3b-a800m) and the SSM family
-(falcon-mamba-7b); the other architectures of the JAX package's registry
-come with their families."""
+family (olmoe-1b-7b, granite-moe-3b-a800m), the SSM family
+(falcon-mamba-7b) and the hybrid family (recurrentgemma-2b); the other
+architectures of the JAX package's registry come with their families."""
 from importlib import import_module
 from typing import List
 
@@ -13,6 +13,7 @@ _MODULES = {
     "glm4-9b": "glm4_9b",
     "granite-moe-3b-a800m": "granite_moe_3b",
     "olmoe-1b-7b": "olmoe_1b_7b",
+    "recurrentgemma-2b": "recurrentgemma_2b",
 }
 
 ARCHS: List[str] = list(_MODULES)

@@ -15,8 +15,8 @@
 // head h reads KV head h / (Hq / Hkv), with no copy of K or V.
 //
 // What bounds it on an H100: at the serve path's shapes (S of a few hundred
-// to a few thousand, D = 96) attention does 4 S^2 D operations per head
-// against 4 S D elements moved, so it is bound by operations.  This first
+// to a few thousand, D = 96 to 256) attention does 4 S^2 D operations per
+// head against 4 S D elements moved, so it is bound by operations.  This first
 // version computes in fp32 with FMAs (scores and the P V product), not on
 // the tensor cores, so it runs far from the bf16 bound; making it fast
 // (mma for both products, K/V tiles streamed with cp.async) is later work.
@@ -27,7 +27,13 @@
 //    lanes of a warp, one key each, read it without bank conflicts;
 //  * each warp owns 8 query rows: lane j scores key j of the tile, the row
 //    max and sum are warp shuffles, and lane j keeps output columns
-//    j, j + 32, j + 64, j + 96, so any D up to 128 works;
+//    j, j + 32, ..., j + 32 (kCols - 1) in registers.  The kernel is a
+//    template on kCols, chosen at launch: 4 for D <= 128 and 8 for
+//    D <= 256 (recurrentgemma's 256), so the smaller head dims keep the
+//    registers, and the bits, of the 4-column instantiation;
+//  * shared memory is (64 D + 32 (D + 1) + 32 D) floats, 129 KB at
+//    D = 256, so one block fits an SM there, above the 48 KB that needs
+//    the opt-in attribute, and below the 227 KB a block may use;
 //  * k tiles that the causal or window mask covers entirely for every row of
 //    the block are skipped; for every row that has a key in range this
 //    leaves the output unchanged.
@@ -46,8 +52,7 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kBQ = 64;
 constexpr int kBK = 32;
 constexpr int kRowsPerWarp = kBQ / kWarps;
-constexpr int kMaxD = 128;
-constexpr int kCols = kMaxD / 32;
+constexpr int kMaxD = 256;
 constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
@@ -77,7 +82,7 @@ size_t smem_bytes(int D) {
                           static_cast<size_t>(kBK) * D);
 }
 
-template <typename T>
+template <typename T, int kCols>
 __global__ void __launch_bounds__(kThreads)
     flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            const T* __restrict__ v, T* __restrict__ out,
@@ -185,13 +190,13 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T>
+template <typename T, int kCols>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    int B, int Hq, int Hkv, int Sq, int Sk, int D, int causal,
                    int has_window, int window, int q_offset,
                    cudaStream_t stream) {
   const size_t smem = smem_bytes(D);
-  auto kernel = flash_attention_kernel<T>;
+  auto kernel = flash_attention_kernel<T, kCols>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -217,12 +222,15 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
       D < 1 || D > kMaxD || B * Hq > 65535)
     return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool wide = D > 128;  // 8 output columns a lane, else 4
   if (dtype == 0)
-    return launch<float>(q, k, v, out, B, Hq, Hkv, Sq, Sk, D, causal,
-                         has_window, window, q_offset, s);
+    return (wide ? launch<float, 8> : launch<float, 4>)(
+        q, k, v, out, B, Hq, Hkv, Sq, Sk, D, causal, has_window, window,
+        q_offset, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, out, B, Hq, Hkv, Sq, Sk, D, causal,
-                                 has_window, window, q_offset, s);
+    return (wide ? launch<__nv_bfloat16, 8> : launch<__nv_bfloat16, 4>)(
+        q, k, v, out, B, Hq, Hkv, Sq, Sk, D, causal, has_window, window,
+        q_offset, s);
   return cudaErrorInvalidValue;
 }
 

@@ -18,7 +18,7 @@ from .. import _build
 from .ref import attention_ref
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 256
 
 
 @functools.cache

@@ -7,6 +7,7 @@ the card unless ``--device cpu`` is given.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b
   PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b \\
       --reduced --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-2b
 
 Weights are random, drawn from ``--seed``; prompts come from a numpy
 generator seeded with ``--seed + 1``.

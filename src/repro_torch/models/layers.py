@@ -1,4 +1,5 @@
-"""Shared layers: param-spec trees, norms, RoPE, FFN variants.
+"""Shared layers: param-spec trees, norms, RoPE, the causal conv, FFN
+variants.
 
 Parameters are declared as :class:`ParamSpec` trees (shape + logical axis
 names + initializer), as in the JAX package; :func:`init_params`
@@ -107,6 +108,29 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
     x1, x2 = upcast(x).chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(dt)
+
+
+def causal_conv1d(p: Dict[str, torch.Tensor], x: torch.Tensor,
+                  conv_state: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Causal depthwise conv of the Mamba and RG-LRU blocks (the
+    reference's ``ssm._conv1d`` and ``rglru._conv1d``, which are the same).
+    x: (B, T, C); conv_state: (B, K-1, C).  The reference's K shifted
+    multiply-adds in x's dtype (not a cuDNN convolution, which takes fp32
+    to TF32 on the card).  Returns the output and the new state (the last
+    K-1 inputs)."""
+    w = p["conv_w"]
+    K, T = w.shape[0], x.shape[1]
+    if conv_state is None:
+        pad = torch.zeros((x.shape[0], K - 1, x.shape[2]), dtype=x.dtype,
+                          device=x.device)
+    else:
+        pad = conv_state.to(x.dtype)
+    xp = torch.cat([pad, x], dim=1)
+    out = xp[:, 0:T] * w[0]
+    for k in range(1, K):
+        out = out + xp[:, k:k + T] * w[k]
+    return out + p["conv_b"], xp[:, -(K - 1):]
 
 
 def ffn_specs(d_model: int, d_ff: int, act: str) -> Dict[str, ParamSpec]:

@@ -1,5 +1,6 @@
-"""Model assembly for the dense GQA, MoE and SSM families: parameter trees,
-forward pass, KV and state caches, decode step and chunked prefill.
+"""Model assembly for the dense GQA, MoE, SSM and hybrid families:
+parameter trees, forward pass, KV and state caches, decode step and chunked
+prefill.
 
 Parameters and caches keep the JAX package's pytree layout — nested dicts,
 per-layer leaves stacked on axis 0, batch on axis 1 of every stacked cache
@@ -7,8 +8,12 @@ leaf and axis 0 of ``len`` — so :mod:`repro_torch.bridge` carries them
 across as a plain tree map.  A Python loop over the layer index takes the
 place of ``lax.scan``.  Every matrix product runs through ``queue_matmul``,
 the full-sequence attention through ``flash_attention``, every expert
-product of an MoE layer through ``moe_gemm`` and the full-sequence SSM scan
-through ``ssm_scan``, each under the run's execution policy.
+product of an MoE layer through ``moe_gemm``, the full-sequence SSM scan
+through ``ssm_scan`` and the full-sequence RG-LRU recurrence through
+``rglru_scan``, each under the run's execution policy.  The hybrid family
+(recurrentgemma) keeps the reference's tree: its repeating (rec, rec, attn)
+macro block stacked over ``n_full`` under ``"macros"`` and the unstacked
+tail layers as ``tail_{j}_{kind}``.
 
 Two departures from the functional JAX code, both invisible in the
 numbers:
@@ -20,12 +25,12 @@ numbers:
 * :func:`decode_step` and :func:`prefill_step` update the cache in place
   and return the same dict.
 
-The hybrid family, MLA and the frontends raise ``NotImplementedError``:
-they come with their families in later slices.
+MLA and the frontends raise ``NotImplementedError``: they come with their
+families in later slices.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -35,6 +40,7 @@ from ..device import (DeviceLike, resolve_device, torch_dtype, upcast,
                       wide_dtype)
 from . import attention as attn
 from . import moe as moe_mod
+from . import rglru as rglru_mod
 from . import ssm as ssm_mod
 from .layers import (ParamSpec, ffn_apply, ffn_specs, init_params, matmul,
                      rms_norm, tree_map)
@@ -45,10 +51,11 @@ Pytree = Any
 def _check_family(cfg: ModelConfig) -> None:
     ported = ((cfg.family == "dense" and not cfg.moe)
               or (cfg.family == "moe" and cfg.moe is not None)
-              or (cfg.family == "ssm" and cfg.ssm is not None))
-    if not ported or cfg.mla or cfg.rglru or cfg.frontend:
+              or (cfg.family == "ssm" and cfg.ssm is not None)
+              or (cfg.family == "hybrid" and cfg.rglru is not None))
+    if not ported or cfg.mla or cfg.frontend:
         raise NotImplementedError(
-            f"{cfg.name}: the port serves the dense GQA, MoE and SSM "
+            f"{cfg.name}: the port serves the dense GQA, MoE, SSM and hybrid "
             f"families so far; family={cfg.family!r} comes in a later slice")
 
 
@@ -72,6 +79,27 @@ def _dense_block_specs(cfg: ModelConfig) -> Dict[str, Pytree]:
                     else ffn_specs(d, cfg.d_ff, cfg.ffn_act))}
 
 
+def _rec_block_specs(cfg: ModelConfig) -> Dict[str, Pytree]:
+    d = cfg.d_model
+    return {"ln1": ParamSpec((d,), ("embed",), init="zeros"),
+            "ln2": ParamSpec((d,), ("embed",), init="zeros"),
+            "rglru": rglru_mod.rglru_specs(cfg),
+            "ffn": ffn_specs(d, cfg.d_ff, cfg.ffn_act)}
+
+
+def _hybrid_layout(cfg: ModelConfig) -> Tuple[int, Tuple[str, ...]]:
+    """(number of whole macro blocks, kinds of the tail layers)."""
+    pat = cfg.rglru.pattern
+    n_full = cfg.n_layers // len(pat)
+    tail = tuple(pat[:cfg.n_layers % len(pat)])
+    return n_full, tail
+
+
+def _is_blocks(key: str) -> bool:
+    """Whether a top-level key of the parameter tree holds layer weights."""
+    return key in ("blocks", "macros") or key.startswith("tail_")
+
+
 def param_specs(cfg: ModelConfig) -> Pytree:
     _check_family(cfg)
     d = cfg.d_model
@@ -83,6 +111,15 @@ def param_specs(cfg: ModelConfig) -> Pytree:
     if not cfg.tie_embeddings:
         tree["head"] = ParamSpec((cfg.vocab, d), ("vocab", "embed"),
                                  init="embed", scale=0.02)
+    if cfg.family == "hybrid":
+        kind_specs = {"rec": _rec_block_specs, "attn": _dense_block_specs}
+        n_full, tail = _hybrid_layout(cfg)
+        tree["macros"] = _stack_specs(
+            {f"{j}_{kind}": kind_specs[kind](cfg)
+             for j, kind in enumerate(cfg.rglru.pattern)}, n_full)
+        for j, kind in enumerate(tail):
+            tree[f"tail_{j}_{kind}"] = kind_specs[kind](cfg)
+        return tree
     if cfg.family == "ssm":
         block = {"ln1": ParamSpec((d,), ("embed",), init="zeros"),
                  "mamba": ssm_mod.mamba_specs(cfg)}
@@ -106,14 +143,14 @@ def init_model_params(gen: "torch.Generator | int", cfg: ModelConfig,
 
 def prepare_params(params: Pytree, cfg: ModelConfig, rc: RunConfig) -> Pytree:
     """The weights as the step functions want them, made once at load:
-    fp32 block leaves, ``embed`` and the head cast to ``rc.dtype`` (the cast
-    the JAX step applies inside every call; ``final_norm`` stays as given,
-    as there), and the head held transposed and contiguous as ``head_t``
-    (d, vocab) in place of ``head``."""
+    fp32 layer leaves (``blocks``, or the hybrid ``macros`` and ``tail_*``),
+    ``embed`` and the head cast to ``rc.dtype`` (the cast the JAX step
+    applies inside every call; ``final_norm`` stays as given, as there),
+    and the head held transposed and contiguous as ``head_t`` (d, vocab) in
+    place of ``head``."""
     dtype = torch_dtype(rc.dtype)
-    cast = lambda a: a.to(dtype) if a.dtype == torch.float32 else a
-    out = {k: v for k, v in params.items() if k != "head"}
-    out["blocks"] = tree_map(cast, params["blocks"])
+    out = {k: (_cast(v, dtype) if _is_blocks(k) else v)
+           for k, v in params.items() if k != "head"}
     out["embed"] = params["embed"].to(dtype)
     out["head_t"] = _head_t(params, cfg, dtype)
     return out
@@ -127,11 +164,41 @@ def _head_t(params: Pytree, cfg: ModelConfig,
     return head.to(dtype).t().contiguous()
 
 
+def _cast(tree: Pytree, dtype: torch.dtype) -> Pytree:
+    """fp32 leaves cast to the compute dtype (a no-op on prepared
+    weights)."""
+    return tree_map(lambda a: a.to(dtype) if a.dtype == torch.float32
+                    else a, tree)
+
+
 def _layer(blocks: Pytree, i: int, dtype: torch.dtype) -> Pytree:
-    """Layer ``i``'s leaves, fp32 leaves cast to the compute dtype (a no-op
-    on prepared weights)."""
-    return tree_map(lambda a: a[i].to(dtype) if a.dtype == torch.float32
-                    else a[i], blocks)
+    """Layer ``i``'s leaves of a stacked tree, cast as by :func:`_cast`."""
+    return _cast(tree_map(lambda a: a[i], blocks), dtype)
+
+
+def _layers(params: Pytree, cfg: ModelConfig,
+            dtype: torch.dtype) -> Iterator[Tuple[str, Pytree]]:
+    """``(kind, leaves)`` of every layer in the order the model runs them:
+    kind ``"attn"`` (a GQA block with its FFN), ``"ssm"`` (a Mamba block)
+    or ``"rec"`` (an RG-LRU block with its FFN).  The hybrid family runs its
+    macro blocks, ``pattern * n_full``, then its tail."""
+    if cfg.family != "hybrid":
+        kind = "ssm" if cfg.family == "ssm" else "attn"
+        for i in range(cfg.n_layers):
+            yield kind, _layer(params["blocks"], i, dtype)
+        return
+    n_full, tail = _hybrid_layout(cfg)
+    for i in range(n_full):
+        for j, kind in enumerate(cfg.rglru.pattern):
+            yield kind, _layer(params["macros"][f"{j}_{kind}"], i, dtype)
+    for j, kind in enumerate(tail):
+        yield kind, _cast(params[f"tail_{j}_{kind}"], dtype)
+
+
+def _window(cfg: ModelConfig) -> Optional[int]:
+    """The attention layers' local window: the hybrid family's, else
+    none."""
+    return cfg.rglru.window if cfg.family == "hybrid" else None
 
 
 # ---------------------------------------------------------------------------
@@ -165,6 +232,13 @@ def _ffn(p, h, cfg: ModelConfig, rc: RunConfig) -> torch.Tensor:
     return moe_mod.moe_apply(p, h, cfg, policy=rc.policy)
 
 
+def _rec_block_apply(p, x, cfg: ModelConfig, rc: RunConfig):
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    x = x + rglru_mod.rglru_apply(p["rglru"], h, cfg, rc.policy)
+    h = rms_norm(x, p["ln2"], cfg.norm_eps)
+    return x + ffn_apply(p["ffn"], h, cfg.ffn_act, rc.policy)
+
+
 def _ssm_block_apply(p, x, cfg: ModelConfig, rc: RunConfig):
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     return x + ssm_mod.mamba_apply(p["mamba"], h, cfg, rc.policy)
@@ -173,14 +247,20 @@ def _ssm_block_apply(p, x, cfg: ModelConfig, rc: RunConfig):
 def forward(params: Pytree, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
             rc: RunConfig) -> torch.Tensor:
     """Full-sequence forward -> logits (B, S, vocab) in the compute dtype.
-    Attention runs through ``flash_attention``, the SSM scan through
-    ``ssm_scan``."""
+    Attention runs through ``flash_attention`` (with the hybrid family's
+    local window), the SSM scan through ``ssm_scan``, the RG-LRU recurrence
+    through ``rglru_scan``."""
     _check_family(cfg)
     dtype = torch_dtype(rc.dtype)
     x = embed_inputs(params, batch, cfg, dtype)
-    block = _ssm_block_apply if cfg.family == "ssm" else _dense_block_apply
-    for i in range(cfg.n_layers):
-        x = block(_layer(params["blocks"], i, dtype), x, cfg, rc)
+    window = _window(cfg)
+    for kind, bp in _layers(params, cfg, dtype):
+        if kind == "ssm":
+            x = _ssm_block_apply(bp, x, cfg, rc)
+        elif kind == "rec":
+            x = _rec_block_apply(bp, x, cfg, rc)
+        else:
+            x = _dense_block_apply(bp, x, cfg, rc, window=window)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return matmul(x, _head_t(params, cfg, dtype), rc.policy)
 
@@ -195,10 +275,23 @@ def cache_spec(cfg: ModelConfig, batch: int, max_len: int,
     """Shape and dtype of every cache leaf.  ``len`` is per-sequence: each
     slot of a continuously batched engine carries its own position.  The
     SSM family keeps an fp32 state (L, B, d_in, N) and the last K-1 conv
-    inputs (L, B, K-1, d_in) in the compute dtype instead of K/V."""
+    inputs (L, B, K-1, d_in) in the compute dtype instead of K/V.  The
+    hybrid family keeps, over its recurrent layers, an fp32 h (n_rec, B, w)
+    and the conv inputs (n_rec, B, K-1, w), and over its attention layers a
+    K/V ring (n_attn, B, Hkv, W, hd) of ``W = min(window, max_len)``."""
     _check_family(cfg)
     L, hd = cfg.n_layers, cfg.resolved_head_dim
     out = {"len": ((batch,), torch.int32)}
+    if cfg.family == "hybrid":
+        n_full, tail = _hybrid_layout(cfg)
+        kinds = list(cfg.rglru.pattern) * n_full + list(tail)
+        n_rec = kinds.count("rec")
+        w = cfg.rglru.lru_width or cfg.d_model
+        ring = min(cfg.rglru.window, max_len)
+        kv = ((len(kinds) - n_rec, batch, cfg.n_kv_heads, ring, hd), dtype)
+        return {**out, "h": ((n_rec, batch, w), wide_dtype(dtype)),
+                "conv": ((n_rec, batch, cfg.rglru.conv_width - 1, w), dtype),
+                "k": kv, "v": kv}
     if cfg.family == "ssm":
         d_in, _, d_state = ssm_mod.ssm_dims(cfg)
         out["ssm"] = ((L, batch, d_in, d_state), wide_dtype(dtype))
@@ -216,33 +309,52 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
                                              torch_dtype(dtype)).items()}
 
 
+def _write_rows(leaf: torch.Tensor, i: int, rows: Optional[torch.Tensor],
+                new: torch.Tensor) -> None:
+    """Layer ``i``'s state in a stacked cache leaf, in place: the rows of
+    ``rows`` (every slot when None) take ``new``'s."""
+    if rows is None:
+        leaf[i] = new.to(leaf.dtype)
+    else:
+        leaf[i, rows] = new[rows].to(leaf.dtype)
+
+
 def _decode_body(params: Pytree, cache: Pytree, tokens: torch.Tensor,
                  cfg: ModelConfig, rc: RunConfig,
                  rows: Optional[torch.Tensor]) -> torch.Tensor:
-    """One token for every slot; writes the K/V rows or SSM states of
-    ``rows`` (all slots when None) in place and returns fp32 logits
-    (B, vocab).  ``len`` is left to the caller."""
+    """One token for every slot; writes the K/V rows, SSM states or RG-LRU
+    states of ``rows`` (all slots when None) in place and returns fp32
+    logits (B, vocab).  ``len`` is left to the caller.  Each kind of layer
+    has its own cursor into the cache leaves it owns (the hybrid family's
+    recurrent layers into ``h``/``conv``, its attention layers into the
+    ``k``/``v`` ring of ``slot = len % W``)."""
     dtype = torch_dtype(rc.dtype)
     x = params["embed"][tokens].to(dtype)
     length = cache["len"]
-    for i in range(cfg.n_layers):
-        bp = _layer(params["blocks"], i, dtype)
+    window = _window(cfg)
+    seen = {"attn": 0, "rec": 0, "ssm": 0}
+    for kind, bp in _layers(params, cfg, dtype):
+        i = seen[kind]
+        seen[kind] += 1
         hn = rms_norm(x, bp["ln1"], cfg.norm_eps)
-        if cfg.family == "ssm":
+        if kind == "ssm":
             y, ssm_s, conv_s = ssm_mod.mamba_decode(
                 bp["mamba"], hn, cfg, cache["ssm"][i], cache["conv"][i],
                 rc.policy)
-            if rows is None:
-                cache["ssm"][i] = ssm_s
-                cache["conv"][i] = conv_s
-            else:
-                cache["ssm"][i, rows] = ssm_s[rows]
-                cache["conv"][i, rows] = conv_s[rows].to(cache["conv"].dtype)
+            _write_rows(cache["ssm"], i, rows, ssm_s)
+            _write_rows(cache["conv"], i, rows, conv_s)
             x = x + y
             continue
-        y, _, _ = attn.gqa_decode(bp["attn"], hn, cfg, cache["k"][i],
-                                  cache["v"][i], length, rows=rows,
-                                  policy=rc.policy)
+        if kind == "rec":
+            y, h_s, conv_s = rglru_mod.rglru_decode(
+                bp["rglru"], hn, cfg, cache["h"][i], cache["conv"][i],
+                rc.policy)
+            _write_rows(cache["h"], i, rows, h_s)
+            _write_rows(cache["conv"], i, rows, conv_s)
+        else:
+            y, _, _ = attn.gqa_decode(bp["attn"], hn, cfg, cache["k"][i],
+                                      cache["v"][i], length, window=window,
+                                      rows=rows, policy=rc.policy)
         x = x + y
         hn = rms_norm(x, bp["ln2"], cfg.norm_eps)
         y = (moe_mod.moe_apply(bp["ffn"], hn, cfg, rc.policy) if cfg.moe
@@ -294,9 +406,9 @@ def prefill_step(params: Pytree, cache: Pytree,
 
     Each column runs the same body as :func:`decode_step` over the whole
     batch, so the chunked path is bit-exact with token-by-token prefill.
-    The per-slot merge of the JAX step is done without copies: the K/V and
-    SSM state writes of a column go to its active slots only (a masked
-    scatter), an inactive slot's ``len`` stays put (:func:`_merge_masked`),
+    The per-slot merge of the JAX step is done without copies: the K/V,
+    SSM and RG-LRU state writes of a column go to its active slots only (a
+    masked scatter), an inactive slot's ``len`` stays put (:func:`_merge_masked`),
     and its logits keep their previous value.
     """
     _check_family(cfg)

@@ -21,7 +21,7 @@ from ..config import ModelConfig
 from ..core.policy import ExecutionPolicy
 from ..device import upcast
 from ..kernels.ssm_scan import ssm_scan
-from .layers import ParamSpec, matmul
+from .layers import ParamSpec, causal_conv1d, matmul
 
 
 def ssm_dims(cfg: ModelConfig) -> Tuple[int, int, int]:
@@ -72,33 +72,13 @@ def _ssm_coeffs(p, x_in: torch.Tensor, cfg: ModelConfig,
     return dA, dBx, C
 
 
-def _conv1d(p, x: torch.Tensor, conv_state: Optional[torch.Tensor] = None
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Causal depthwise conv.  x: (B, T, d_in); conv_state: (B, K-1, d_in).
-    The reference's K shifted multiply-adds in x's dtype (not a cuDNN
-    convolution, which takes fp32 to TF32 on the card).  Returns the
-    output and the new state (the last K-1 inputs)."""
-    w = p["conv_w"]
-    K, T = w.shape[0], x.shape[1]
-    if conv_state is None:
-        pad = torch.zeros((x.shape[0], K - 1, x.shape[2]), dtype=x.dtype,
-                          device=x.device)
-    else:
-        pad = conv_state.to(x.dtype)
-    xp = torch.cat([pad, x], dim=1)
-    out = xp[:, 0:T] * w[0]
-    for k in range(1, K):
-        out = out + xp[:, k:k + T] * w[k]
-    return out + p["conv_b"], xp[:, -(K - 1):]
-
-
 def mamba_apply(p, x: torch.Tensor, cfg: ModelConfig,
                 policy: Optional[ExecutionPolicy] = None) -> torch.Tensor:
     """Full-sequence forward.  x: (B, S, d) -> (B, S, d); the scan is one
     ``ssm_scan`` call over the whole sequence."""
     xz = matmul(x, p["in_proj"], policy)
     xi, z = xz.chunk(2, dim=-1)
-    xi, _ = _conv1d(p, xi)
+    xi, _ = causal_conv1d(p, xi)
     xi = F.silu(xi)
     dt, A, Bc, C = _scan_inputs(p, xi, cfg, policy)
     y = ssm_scan(xi, dt, A, Bc, C).to(x.dtype)
@@ -116,7 +96,7 @@ def mamba_decode(p, x: torch.Tensor, cfg: ModelConfig,
     conv_state); the states given are not modified."""
     xz = matmul(x, p["in_proj"], policy)
     xi, z = xz.chunk(2, dim=-1)
-    xi, conv_state = _conv1d(p, xi, conv_state)
+    xi, conv_state = causal_conv1d(p, xi, conv_state)
     xi = F.silu(xi)
     dA, dBx, C = _ssm_coeffs(p, xi, cfg, policy)
     ssm_state = dA[:, 0] * ssm_state + dBx[:, 0]

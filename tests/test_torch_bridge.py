@@ -23,7 +23,7 @@ from repro_torch.models import init_cache, init_model_params, param_specs
 from repro_torch.models.layers import ParamSpec
 
 ARCHS = ["phi3-mini-3.8b", "glm4-9b", "olmoe-1b-7b", "granite-moe-3b-a800m",
-         "falcon-mamba-7b"]
+         "falcon-mamba-7b", "recurrentgemma-2b"]
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 
@@ -115,6 +115,27 @@ def test_init_scales_follow_the_specs():
     again = init_model_params(torch.Generator().manual_seed(0), cfg,
                               device="cpu")
     assert torch.equal(p["embed"], again["embed"])
+
+
+def test_hybrid_init_scales_follow_the_specs():
+    """The hybrid tree: ``macros`` leaves stacked over the n_full macro
+    blocks are drawn at std 1/sqrt(n_full), as the reference draws them;
+    the unstacked ``tail_*`` leaves at 1/sqrt(their first axis), the input
+    width."""
+    import dataclasses
+    cfg = dataclasses.replace(get_reduced("recurrentgemma-2b"), n_layers=26)
+    p = init_model_params(torch.Generator().manual_seed(0), cfg,
+                          device="cpu")
+    assert set(p) == {"embed", "final_norm", "head", "macros", "tail_0_rec",
+                      "tail_1_rec"}
+    assert set(p["macros"]) == {"0_rec", "1_rec", "2_attn"}
+    rg = p["macros"]["1_rec"]["rglru"]["rg_w"]
+    assert rg.shape == (8, 64, 64)
+    assert abs(rg.std().item() - 1 / np.sqrt(8)) < 0.05 / np.sqrt(8)
+    wi = p["tail_1_rec"]["ffn"]["wi"]
+    assert abs(wi.std().item() - 1 / np.sqrt(64)) < 0.05 / np.sqrt(64)
+    assert torch.all(p["tail_0_rec"]["rglru"]["lam"] == 1)
+    assert torch.count_nonzero(p["macros"]["2_attn"]["ln2"]) == 0
 
 
 def test_port_imports_nothing_of_jax_or_the_jax_package():

@@ -8,7 +8,8 @@ Tolerances: fp32 2e-4 (no TF32: the kernels' fp32 path is plain FMA and
 the references run with ``allow_tf32`` off), bf16 2e-2, logits 2e-3.
 ``moe_gemm`` must give the same bits at every ring depth and for a row
 whatever rows come with it (what keeps chunked prefill bit-exact with token
-prefill on the card)."""
+prefill on the card).  ``rglru_scan`` takes a separate multiply and add a
+step, as its plain version does, and is held to the same tolerances."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -19,12 +20,14 @@ from repro_torch.config import RunConfig
 from repro_torch.configs import get_reduced
 from repro_torch.core.policy import ExecutionPolicy as EP
 from repro_torch.kernels import (flash_attention, moe_gemm, queue_matmul,
-                                 ssm_scan)
+                                 rglru_scan, ssm_scan)
 from repro_torch.kernels.flash_attention.ops import _plain
 from repro_torch.kernels.moe_gemm.ref import moe_gemm_ref
 from repro_torch.kernels.queue_matmul.ref import matmul_ref
+from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
 from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
-from repro_torch.models import forward, init_model_params
+from repro_torch.models import (decode_step, forward, init_cache,
+                                init_model_params, prefill_step)
 from repro_torch.models.layers import tree_map
 from repro_torch.serve import ServeEngine
 
@@ -75,6 +78,9 @@ def test_queue_matmul_baseline_runs_no_kernel(card):
     (4, 2, 100, 100, 80, True, None, 0),
     (4, 4, 33, 97, 16, True, 24, 64),
     (2, 1, 65, 65, 128, False, 20, 0),
+    (10, 1, 150, 150, 256, True, 48, 0),     # recurrentgemma's MQA heads
+    (10, 1, 40, 170, 256, True, 64, 130),
+    (4, 2, 70, 70, 200, True, None, 0),
 ])
 def test_flash_attention_kernel_against_plain(card, hq, hkv, sq, sk, d,
                                               causal, window, q_offset,
@@ -151,6 +157,22 @@ def test_ssm_scan_kernel_against_plain(card, b, t, d, n, dtype):
     _close(out, ssm_scan_ref(x, dt, A, Bm, C), TOL[dtype])
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,w", [(2, 37, 20), (1, 150, 70), (3, 9, 300),
+                                   (1, 700, 64), (1, 33, 2560)])
+def test_rglru_scan_kernel_against_plain(card, b, t, w, dtype):
+    """Odd T and w: no padding, any T >= 1 and any w."""
+    a = torch.sigmoid(torch.randn((b, t, w), generator=card, device="cuda")
+                      + 2.0).to(dtype)
+    bx = torch.randn((b, t, w), generator=card, device="cuda").to(dtype)
+    before = rglru_scan.launches
+    out = rglru_scan(a, bx)
+    torch.cuda.synchronize()
+    assert rglru_scan.launches == before + 1
+    assert out.dtype == torch.float32 and out.shape == (b, t, w)
+    _close(out, rglru_scan_ref(a, bx), TOL[dtype])
+
+
 def test_float64_on_the_card_raises_instead_of_falling_back(card):
     """fp64 is the CPU's witness only: the kernels refuse it on the card
     rather than hand it to a plain version."""
@@ -165,10 +187,13 @@ def test_float64_on_the_card_raises_instead_of_falling_back(card):
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         ssm_scan(x[None], x[None], -x.t()[:, :4].abs(), x[None, :, :4],
                  x[None, :, :4])
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        rglru_scan(x[None], x[None])
 
 
 @pytest.mark.parametrize("arch", ["phi3-mini-3.8b", "glm4-9b", "olmoe-1b-7b",
-                                  "granite-moe-3b-a800m", "falcon-mamba-7b"])
+                                  "granite-moe-3b-a800m", "falcon-mamba-7b",
+                                  "recurrentgemma-2b"])
 def test_model_and_engine_on_the_card_match_the_cpu(card, arch):
     cfg = get_reduced(arch)
     rc = RunConfig(dtype="float32", remat=False)
@@ -185,3 +210,30 @@ def test_model_and_engine_on_the_card_match_the_cpu(card, arch):
         done = eng.run()
         out[dev] = [done[r].generated for r in rids]
     assert out["cuda"] == out["cpu"]
+
+
+def test_hybrid_decode_through_a_wrapped_ring_matches_the_cpu(card):
+    """recurrentgemma-smoke (window 16): a 20-token chunked prefill wraps
+    the K/V ring, then 4 decode steps, on the card and on the CPU."""
+    cfg = get_reduced("recurrentgemma-2b")
+    rc = RunConfig(dtype="float32", remat=False)
+    p_cpu = init_model_params(1, cfg, device="cpu")
+    p_gpu = tree_map(lambda a: a.cuda(), p_cpu)
+    rng = np.random.default_rng(1)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (3, 24)))
+    n = torch.tensor([20, 20, 17], dtype=torch.int32)
+    out = {}
+    for dev, p in (("cuda", p_gpu), ("cpu", p_cpu)):
+        cache = init_cache(cfg, 3, 32, torch.float32, device=dev)
+        logits, cache = prefill_step(p, cache, {
+            "tokens": toks[:, :20].to(dev), "n_tokens": n.to(dev)}, cfg, rc)
+        steps = [logits.cpu()]
+        for j in range(20, 24):
+            logits, cache = decode_step(p, cache, {
+                "tokens": toks[:, j:j + 1].to(dev)}, cfg, rc)
+            steps.append(logits.cpu())
+        out[dev] = (steps, {k: v.cpu() for k, v in cache.items()})
+    for a, b in zip(out["cuda"][0], out["cpu"][0]):
+        _close(a, b, 2e-3)
+    for k, v in out["cpu"][1].items():
+        _close(out["cuda"][1][k], v, 2e-3)

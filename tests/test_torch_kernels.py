@@ -13,17 +13,19 @@ torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp
 import numpy as np
+from _hypothesis_compat import given, settings, st
 
 from repro.core.policy import ExecutionPolicy as JEP
 from repro.kernels import flash_attention as jax_flash_attention
 from repro.kernels import moe_gemm as jax_moe_gemm
 from repro.kernels import queue_matmul as jax_queue_matmul
+from repro.kernels import rglru_scan as jax_rglru_scan
 from repro.kernels import ssm_scan as jax_ssm_scan
 from repro.models.attention import flash_attention_ref as jax_flash_ref
 from repro_torch.core.policy import ExecutionPolicy as EP
 from repro_torch.core.policy import OperatingPoint
 from repro_torch.kernels import (flash_attention, moe_gemm, queue_matmul,
-                                 ssm_scan)
+                                 rglru_scan, ssm_scan)
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.moe_gemm import ops as mg_ops
 from repro_torch.kernels.queue_matmul import ops as qm_ops
@@ -268,3 +270,49 @@ def test_ssm_scan_checks_shapes_and_cpu_path_launches_nothing():
     assert ssm_scan.launches == before
     with pytest.raises(ValueError, match="ssm_scan takes"):
         ssm_scan(x, dt, A[:, :3], Bm, C)
+
+
+# --- rglru_scan -------------------------------------------------------------
+
+def _rglru_inputs(b, t, w, seed=0):
+    """a in (0, 1) as the RG-LRU's gates make it, bx standard normal."""
+    rng = np.random.default_rng(seed)
+    a = 1.0 / (1.0 + np.exp(-rng.standard_normal((b, t, w)) - 1.0))
+    bx = rng.standard_normal((b, t, w))
+    return a.astype(np.float32), bx.astype(np.float32)
+
+
+@given(b=st.integers(1, 2), t=st.integers(1, 300), w=st.integers(1, 200),
+       dtype=st.sampled_from(["float32", "bfloat16"]))
+@settings(max_examples=12, deadline=None)
+def test_rglru_scan_matches_pallas_over_shapes(b, t, w, dtype):
+    """T and w not multiples of the Pallas wrapper's 128-wide tiles, which
+    it pads; a and bx in ``dtype``, h in fp32 (tests/test_kernels.py:120's
+    2e-4 for fp32)."""
+    a, bx = _rglru_inputs(b, t, w, seed=t * 1000 + w)
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    ref = jax_rglru_scan(jnp.asarray(a, jd), jnp.asarray(bx, jd))
+    out = rglru_scan(torch.from_numpy(a).to(td), torch.from_numpy(bx).to(td))
+    assert out.dtype == torch.float32 and out.shape == (b, t, w)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=2e-4,
+                               atol=2e-4)
+
+
+def test_rglru_scan_state_carries_across_time_blocks():
+    """T over several of the Pallas kernel's time blocks (bt = 32)."""
+    a, bx = _rglru_inputs(1, 200, 8, seed=3)
+    ref = jax_rglru_scan(jnp.asarray(a), jnp.asarray(bx), bt=32, bw=8)
+    out = rglru_scan(torch.from_numpy(a), torch.from_numpy(bx))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=2e-4,
+                               atol=2e-4)
+
+
+def test_rglru_scan_checks_shapes_and_cpu_path_launches_nothing():
+    a, bx = (torch.from_numpy(x) for x in _rglru_inputs(1, 5, 6))
+    before = rglru_scan.launches
+    rglru_scan(a, bx)
+    assert rglru_scan.launches == before
+    with pytest.raises(ValueError, match="rglru_scan takes"):
+        rglru_scan(a, bx[:, :4])
+    with pytest.raises(ValueError, match="rglru_scan takes"):
+        rglru_scan(a[0], bx[0])

@@ -1,9 +1,11 @@
 """The PyTorch port's model against the JAX package's, on bridged weights
 in fp32, for the dense family (phi3-mini-smoke, glm4-smoke with GQA 8 over
-2), the MoE family (olmoe-smoke, granite-moe-smoke with GQA 4 over 2) and
-the SSM family (falcon-mamba-smoke): ``forward``, ``decode_step`` over
-several steps at mixed per-slot lengths, and ``prefill_step`` on a
-mixed-phase batch.  Tolerance 2e-3, the reference's own for logits
+2), the MoE family (olmoe-smoke, granite-moe-smoke with GQA 4 over 2), the
+SSM family (falcon-mamba-smoke) and the hybrid family
+(recurrentgemma-smoke: one (rec, rec, attn) macro block and a (rec, rec)
+tail, local window 16): ``forward``, ``decode_step`` over several steps at
+mixed per-slot lengths (and, for the hybrid, past its window, where the
+K/V ring wraps), and ``prefill_step`` on a mixed-phase batch.  Tolerance 2e-3, the reference's own for logits
 (tests/test_models.py:90); cache leaves (K/V, or the SSM and conv states)
 are held to the same bound.  Within the port, chunked prefill is bit-exact
 with token-by-token prefill."""
@@ -30,7 +32,8 @@ from repro_torch.models import (decode_step, forward, init_cache,
                                 prepare_params)
 
 ARCHS = ["phi3-mini-3.8b", "glm4-9b", "olmoe-1b-7b", "granite-moe-3b-a800m",
-         "falcon-mamba-7b"]
+         "falcon-mamba-7b", "recurrentgemma-2b"]
+HYBRID = "recurrentgemma-2b"
 MOE_ARCHS = ["olmoe-1b-7b", "granite-moe-3b-a800m"]
 JRC_ = JRC(dtype="float32", remat=False)
 RC = RunConfig(dtype="float32", remat=False)
@@ -178,11 +181,55 @@ def test_chunked_prefill_is_bit_exact_with_token_prefill(arch):
         assert torch.equal(chunk[k], token[k]), k
 
 
+def test_decode_steps_match_reference_past_the_window():
+    """The hybrid model decoding 24 tokens into caches of 12: its K/V ring
+    holds ``min(window, max_len)`` = 12 slots and wraps twice."""
+    cfg_j, cfg_t, pj, pt = _setup(HYBRID)
+    cache_j = jax_init_cache(cfg_j, 2, 12, jnp.float32)
+    cache_t = init_cache(cfg_t, 2, 12, torch.float32, device="cpu")
+    assert cache_t["k"].shape[3] == 12
+    toks = np.random.default_rng(7).integers(0, cfg_j.vocab, (2, 24))
+    for j in range(24):
+        tok = toks[:, j:j + 1]
+        lj, cache_j = jax_decode(pj, cache_j,
+                                 {"tokens": jnp.asarray(tok, jnp.int32)},
+                                 cfg_j, JRC_)
+        lt, cache_t = decode_step(pt, cache_t,
+                                  {"tokens": torch.from_numpy(tok)}, cfg_t,
+                                  RC)
+        np.testing.assert_allclose(lt.numpy(), np.asarray(lj), **TOL)
+    _assert_cache_close(cache_j, cache_t)
+
+
+def test_hybrid_chunked_prefill_is_bit_exact_past_the_window():
+    """Ragged prompts of 26, 19 and 23 tokens (window 16) in chunks of 8
+    against one column at a time: each slot's last logits and every cache
+    leaf keep their bits."""
+    cfg = get_reduced(HYBRID)
+    params = init_model_params(6, cfg, device="cpu")
+    toks = torch.from_numpy(
+        np.random.default_rng(8).integers(0, cfg.vocab, (3, 26)))
+    lens = np.array([26, 19, 23])
+    out = {}
+    for width in (8, 1):
+        cache = init_cache(cfg, 3, 32, torch.float32, device="cpu")
+        last = torch.zeros((3, cfg.vocab))
+        for j in range(0, 26, width):
+            n = np.clip(lens - j, 0, width).astype(np.int32)
+            logits, cache = prefill_step(params, cache, {
+                "tokens": toks[:, j:j + width],
+                "n_tokens": torch.from_numpy(n)}, cfg, RC)
+            last[n > 0] = logits[n > 0]
+        out[width] = (last, cache)
+    assert torch.equal(out[8][0], out[1][0])
+    for k in out[8][1]:
+        assert torch.equal(out[8][1][k], out[1][1][k]), k
+
+
 def test_other_families_are_not_ported_yet():
-    """The hybrid family (recurrentgemma) comes in a later slice."""
+    """MLA (minicpm3) comes in a later slice."""
     import dataclasses
-    from repro_torch.config import RGLRUConfig
-    cfg = dataclasses.replace(get_reduced("phi3-mini-3.8b"), family="hybrid",
-                              rglru=RGLRUConfig())
+    from repro_torch.config import MLAConfig
+    cfg = dataclasses.replace(get_reduced("phi3-mini-3.8b"), mla=MLAConfig())
     with pytest.raises(NotImplementedError, match="later slice"):
         init_model_params(0, cfg, device="cpu")

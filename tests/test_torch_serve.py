@@ -91,9 +91,11 @@ def test_port_engine_matches_jax_engine(prefill):
     _engine_parity(ARCH, prefill)
 
 
-@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "falcon-mamba-7b"])
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "falcon-mamba-7b",
+                                  "recurrentgemma-2b"])
 def test_port_engine_matches_jax_engine_on_moe_and_ssm(arch):
-    """The MoE and SSM families through the chunked-prefill engine."""
+    """The MoE, SSM and hybrid families through the chunked-prefill
+    engine."""
     _engine_parity(arch, "chunked")
 
 
@@ -130,6 +132,30 @@ def test_engine_midrun_admission_matches_fresh_engine():
     done = eng.run()
     assert len(done) == 3
     fresh = _engine(params)
+    rid_f = fresh.submit(prompt, max_new=max_new)
+    assert done[rid].generated == fresh.run()[rid_f].generated
+
+
+def test_hybrid_engine_midrun_admission_matches_fresh_engine():
+    """The hybrid family (window 16, caches of 24, so the K/V ring wraps):
+    a request admitted into a freed slot mid-run, after its neighbours'
+    long prompts, generates what it generates alone."""
+    cfg = get_reduced("recurrentgemma-2b")
+    params = init_model_params(0, cfg, device="cpu")
+    prompt, max_new = [7, 3, 9, 1, 4], 6
+
+    def engine():
+        return ServeEngine(params, cfg, RC, batch_slots=2, max_len=24,
+                           prefill_chunk=4, device="cpu")
+    eng = engine()
+    eng.submit(list(range(1, 19)), max_new=4)
+    eng.submit([4, 5, 6], max_new=2)
+    for _ in range(4):
+        eng.step()
+    rid = eng.submit(prompt, max_new=max_new)
+    done = eng.run()
+    assert len(done) == 3
+    fresh = engine()
     rid_f = fresh.submit(prompt, max_new=max_new)
     assert done[rid].generated == fresh.run()[rid_f].generated
 
@@ -282,7 +308,7 @@ def test_launcher_serves_on_the_cpu_when_asked(monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("arch", ["olmoe-1b-7b", "granite-moe-3b-a800m",
-                                  "falcon-mamba-7b"])
+                                  "falcon-mamba-7b", "recurrentgemma-2b"])
 def test_launcher_serves_moe_and_ssm_on_the_cpu(monkeypatch, capsys, arch):
     from repro_torch.launch import serve as launch
     monkeypatch.setattr(sys, "argv", [

@@ -21,8 +21,8 @@ from repro.models.ssm import mamba_decode as jax_mamba_decode
 from repro.models.ssm import mamba_specs as jax_mamba_specs
 from repro_torch import bridge
 from repro_torch.configs import get_reduced
-from repro_torch.models.ssm import (_conv1d, mamba_apply, mamba_decode,
-                                    ssm_dims)
+from repro_torch.models.layers import causal_conv1d
+from repro_torch.models.ssm import mamba_apply, mamba_decode, ssm_dims
 
 ARCH = "falcon-mamba-7b"
 TOL = dict(rtol=1e-4, atol=1e-5)
@@ -65,8 +65,9 @@ def test_conv1d_matches_reference_with_and_without_state():
     for state in (None, st):
         oj, sj = jax_conv1d(pj, jnp.asarray(x),
                             None if state is None else jnp.asarray(state))
-        ot, s_t = _conv1d(pt, torch.from_numpy(x),
-                          None if state is None else torch.from_numpy(state))
+        ot, s_t = causal_conv1d(
+            pt, torch.from_numpy(x),
+            None if state is None else torch.from_numpy(state))
         np.testing.assert_allclose(ot.numpy(), np.asarray(oj), rtol=1e-6,
                                    atol=1e-6)
         np.testing.assert_array_equal(s_t.numpy(), np.asarray(sj))
