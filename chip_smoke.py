@@ -10,10 +10,16 @@ prints no result):
 1. build   — compile the five CUDA kernels from the sources in the
    checkout, one ``nvcc`` each, all at once.
 2. kernels — each kernel against its plain PyTorch version on the card at
-   the serve paths' shapes, with its time, its bound and the time of one
-   library call that computes the same function where there is one (a
-   yardstick the port never calls).  ``queue_matmul`` and ``moe_gemm``
-   must be bit-identical across ring depths.
+   the serve paths' shapes, with its device time (``cuda_ms``), its bound
+   and the time of one library call that computes the same function where
+   there is one (a yardstick the port never calls); ``queue_matmul`` and
+   ``flash_attention`` also with their wall time launched back to back
+   (``wall_ms``), and ``queue_matmul`` with its host time a call
+   (``host_ms``).  ``queue_matmul`` and
+   ``moe_gemm`` must be bit-identical across ring depths; ``queue_matmul``
+   is checked at M = 4 (its thin bf16 kernel), 64, 128 and 512 (its wide
+   one), ``flash_attention`` also at head dims 80 and 200 and on a query
+   chunk at the end of a longer key sequence (Sk != Sq, ``q_offset``).
 3. parity  — phi3-mini-3.8b, olmoe-1b-7b and falcon-mamba-7b at full
    width, depth cut to 2 layers, and recurrentgemma-2b cut to 5 (one
    (rec, rec, attn) macro block and the full model's (rec, rec) tail):
@@ -58,6 +64,9 @@ HBM_BYTES_PER_S = 3.35e12                 # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12,     # dense tensor-core bf16
               torch.float32: 67e12}       # fp32 outside the tensor cores
 TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
+#: cuda_ms's sleep: cycles per second at the H100's highest SM clock (a
+#: lower clock sleeps longer), and the longest sleep
+SLEEP_CYCLES_PER_S, MAX_SLEEP_S = 1.98e9, 0.2
 SEED = 20261016
 SERVED = ("phi3-mini-3.8b", "olmoe-1b-7b", "falcon-mamba-7b",
           "recurrentgemma-2b")
@@ -127,7 +136,49 @@ def host_cpu() -> str:
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     """Mean device time of ``fn()`` in ms, from CUDA events around
-    ``iters`` calls after ``warmup`` calls."""
+    ``iters`` calls after ``warmup`` calls.  The calls queue behind a sleep
+    on the card long enough (up to ``MAX_SLEEP_S``) for the host to enqueue
+    them all, so that the host's time to launch them does not show."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    sleep_s = min(MAX_SLEEP_S, 1.5 * iters * host_s + 1e-3)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(sleep_s * SLEEP_CYCLES_PER_S))
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def host_ms(fn, iters: int = 100, warmup: int = 3) -> float:
+    """Median host time of one ``fn()`` call in ms (what the host spends to
+    launch it: the wrapper's Python, ``ctypes`` and the launch), each call
+    timed on the host clock while the card works through the queue; the
+    median, since the host's clock is shared with other work."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return sorted(times)[iters // 2] * 1e3
+
+
+def wall_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean time of ``fn()`` in ms with the calls launched back to back
+    from an idle card, as a decode body launches them: the host's launch
+    cost and the kernel's, whichever is longer."""
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
@@ -234,9 +285,15 @@ def matmul_shapes(arch: str):
             for (k, n), (names, dtypes) in merged.items()]
 
 
+#: ring depth pairs every queue_matmul case must give the same bits at
+QM_DEPTHS = ((1, 1), (2, 2), (4, 4), (2, 4), (8, 8), (1, 8))
+
+
 def check_queue_matmul(gen, report) -> dict:
     """Every product of the served models at M = 4 (decode over 4 slots)
-    and M = 512 (``forward``), bit-identical across ring depths."""
+    and M = 512 (``forward``), and phi3's q/k/v/o and ffn products also at
+    M = 64 and 128 (the wide kernel's smallest tiles), bit-identical
+    across the ring depths of ``QM_DEPTHS``."""
     from repro_torch.kernels.queue_matmul import ops
     from repro_torch.kernels.queue_matmul.ref import matmul_ref
     rep = None
@@ -246,13 +303,16 @@ def check_queue_matmul(gen, report) -> dict:
              for name, k, n, dtypes in matmul_shapes(arch)
              for dtype in dtypes]
     for arch, name, k, n, dtype in cases:
-        for m in (4, 512):
+        ms_ = (4, 512)
+        if arch == "phi3-mini-3.8b" and name != "head":
+            ms_ = (4, 64, 128, 512)
+        for m in ms_:
             x = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
             w = (torch.randn((k, n), generator=gen, device="cuda")
                  / math.sqrt(k)).to(dtype)
             ref = matmul_ref(x, w).to(dtype)
             outs = {d: ops.queue_matmul(x, w, depth_x=d[0], depth_w=d[1])
-                    for d in ((1, 1), (2, 2), (4, 4), (2, 4))}
+                    for d in QM_DEPTHS}
             torch.cuda.synchronize()
             base = outs[(1, 1)]
             for d, o in outs.items():
@@ -265,18 +325,29 @@ def check_queue_matmul(gen, report) -> dict:
             args = [(x.clone(), w.clone()) for _ in range(copies)]
             make = cycling(args)
             ms = cuda_ms(make(lambda a, b: ops.queue_matmul(a, b)))
+            wall = wall_ms(make(lambda a, b: ops.queue_matmul(a, b)))
+            host = host_ms(make(lambda a, b: ops.queue_matmul(a, b)))
             plain = cuda_ms(make(lambda a, b: matmul_ref(a, b).to(a.dtype)))
             lib = cuda_ms(make(torch.matmul))
             b_ms, b_by = bound(2.0 * m * n * k,
                                (m * k + k * n + m * n) * x.element_size(),
                                dtype)
             del args, outs, ref
+            # the kernel this M takes (older trees have one kernel)
+            kind = (ops.regime(m, dtype) if hasattr(ops, "regime")
+                    else "ring")
             log(f"[kernels] queue_matmul {arch.split('-')[0]:>6s} "
                 f"{name:>8s} {m:4d} {k:5d} {n:5d} {str(dtype)[6:]:>8s} "
                 f"{err:10.3e} {ms:8.4f} {plain:8.4f} {lib:8.4f} {b_ms:8.4f} "
-                f"({b_by})")
+                f"({b_by}; {kind}"
+                + (f", split {ops.split_k(k, n)}" if kind == "thin" else "")
+                + f"; {2.0 * m * n * k / ms / 1e9:.1f} TFLOP/s, "
+                f"{(m * k + k * n + m * n) * x.element_size() / ms / 1e6:.0f}"
+                f" GB/s; wall {wall:.4f}, host {host:.4f})")
             row = {"model": arch, "product": name, "M": m, "K": k, "N": n,
-                   "dtype": str(dtype)[6:], "max_abs_err": err, "ms": ms,
+                   "dtype": str(dtype)[6:], "regime": kind,
+                   "max_abs_err": err, "ms": ms, "wall_ms": wall,
+                   "host_ms": host,
                    "plain_ms": plain, "library_ms": lib, "bound_ms": b_ms,
                    "bound_by": b_by}
             report.append({"kernel": "queue_matmul", **row})
@@ -286,83 +357,99 @@ def check_queue_matmul(gen, report) -> dict:
     return rep
 
 
-def _pairs(sq: int, sk: int, causal: bool, window) -> int:
-    """(q, k) pairs the masks keep, counted from this run's shapes."""
-    i = torch.arange(sq)[:, None]
-    j = torch.arange(sk)[None]
-    keep = torch.ones((sq, sk), dtype=torch.bool)
+def _keep(sq: int, sk: int, causal: bool, window, q_offset: int,
+          device=None) -> torch.Tensor:
+    """The (q, k) pairs the masks keep: query i sits at q_offset + i."""
+    i = q_offset + torch.arange(sq, device=device)[:, None]
+    j = torch.arange(sk, device=device)[None]
+    keep = torch.ones((sq, sk), dtype=torch.bool, device=device)
     if causal:
         keep &= j <= i
     if window is not None:
         keep &= j > i - window
-    return int(keep.sum())
+    return keep
 
 
-def _sdpa(q, k, v, causal, window):
+def _sdpa(q, k, v, causal, window, q_offset):
     import torch.nn.functional as F
     hq, hkv = q.shape[1], k.shape[1]
     if hkv != hq:
         k = k.repeat_interleave(hq // hkv, dim=1)
         v = v.repeat_interleave(hq // hkv, dim=1)
-    if window is None:
+    if window is None and q_offset == 0 and q.shape[2] == k.shape[2]:
         return F.scaled_dot_product_attention(q, k, v, is_causal=causal)
-    s = q.shape[2]
-    i = torch.arange(s, device=q.device)[:, None]
-    j = torch.arange(s, device=q.device)[None]
-    mask = j > i - window
-    if causal:
-        mask &= j <= i
+    mask = _keep(q.shape[2], k.shape[2], causal, window, q_offset, q.device)
     return F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
 
 
 def check_flash_attention(gen, report) -> dict:
     from repro_torch.kernels.flash_attention import ops
     rep = None
-    log("[kernels] flash_attention  B  Hq Hkv    S   D  causal window  dtype  "
-        "max_abs_err  ms  plain_ms  library_ms  bound_ms")
+    log("[kernels] flash_attention  B  Hq Hkv   Sq    Sk   D  causal window "
+        "q_off  dtype  max_abs_err  ms  plain_ms  library_ms  bound_ms")
     # phi3's heads (32 of 96), olmoe's (16 of 128) and recurrentgemma's (10
     # of 256 over one KV head, window 2048), at the 512 tokens of phase 4's
     # ``forward`` and the 128 of phase 3's; windows, GQA, longer and ragged
     # sequences at phi3's width, and recurrentgemma's at 4096 tokens, where
-    # its window bites
-    cases = [(32, 32, 512, 96, True, None), (32, 32, 512, 96, True, 256),
-             (32, 32, 512, 96, False, None), (32, 8, 512, 96, True, None),
-             (32, 32, 1024, 96, True, None), (32, 32, 1024, 96, True, 256),
-             (32, 32, 1024, 96, False, None), (32, 8, 1024, 96, True, None),
-             (32, 32, 300, 96, True, None), (32, 32, 128, 96, True, None),
-             (16, 16, 512, 128, True, None), (16, 16, 128, 128, True, None),
-             (10, 1, 512, 256, True, 2048), (10, 1, 128, 256, True, 2048),
-             (10, 1, 4096, 256, True, 2048)]
+    # its window bites; head dims 80 and 200 (padded to 16 in the kernel);
+    # a query chunk at the end of a longer key sequence (Sk != Sq,
+    # q_offset), as a chunked prefill would give it
+    cases = [(32, 32, 512, 512, 96, True, None, 0),
+             (32, 32, 512, 512, 96, True, 256, 0),
+             (32, 32, 512, 512, 96, False, None, 0),
+             (32, 8, 512, 512, 96, True, None, 0),
+             (32, 32, 1024, 1024, 96, True, None, 0),
+             (32, 32, 1024, 1024, 96, True, 256, 0),
+             (32, 32, 1024, 1024, 96, False, None, 0),
+             (32, 8, 1024, 1024, 96, True, None, 0),
+             (32, 32, 300, 300, 96, True, None, 0),
+             (32, 32, 128, 128, 96, True, None, 0),
+             (16, 16, 512, 512, 128, True, None, 0),
+             (16, 16, 128, 128, 128, True, None, 0),
+             (10, 1, 512, 512, 256, True, 2048, 0),
+             (10, 1, 128, 128, 256, True, 2048, 0),
+             (10, 1, 4096, 4096, 256, True, 2048, 0),
+             (32, 32, 512, 512, 80, True, None, 0),
+             (16, 4, 512, 512, 200, True, 300, 0),
+             (32, 8, 128, 640, 96, True, None, 512),
+             (10, 1, 256, 4096, 256, True, 2048, 3840)]
     for dtype in (torch.float32, torch.bfloat16):
-        for hq, hkv, s, d, causal, window in cases:
-            q = torch.randn((1, hq, s, d), generator=gen, device="cuda").to(dtype)
-            k = torch.randn((1, hkv, s, d), generator=gen, device="cuda").to(dtype)
-            v = torch.randn((1, hkv, s, d), generator=gen, device="cuda").to(dtype)
-            out = ops.flash_attention(q, k, v, causal=causal, window=window)
-            ref = ops._plain(q, k, v, causal, window, 0)
+        for hq, hkv, sq, sk, d, causal, window, q_off in cases:
+            q = torch.randn((1, hq, sq, d), generator=gen, device="cuda").to(dtype)
+            k = torch.randn((1, hkv, sk, d), generator=gen, device="cuda").to(dtype)
+            v = torch.randn((1, hkv, sk, d), generator=gen, device="cuda").to(dtype)
+
+            def run():
+                return ops.flash_attention(q, k, v, causal=causal,
+                                           window=window, q_offset=q_off)
+            out = run()
+            ref = ops._plain(q, k, v, causal, window, q_off)
             torch.cuda.synchronize()
             err = within(out, ref, TOL[dtype])
-            ms = cuda_ms(lambda: ops.flash_attention(q, k, v, causal=causal,
-                                                     window=window))
-            plain = cuda_ms(lambda: ops._plain(q, k, v, causal, window, 0),
+            ms = cuda_ms(run)
+            wall = wall_ms(run)
+            plain = cuda_ms(lambda: ops._plain(q, k, v, causal, window, q_off),
                             iters=5)
-            lib = cuda_ms(lambda: _sdpa(q, k, v, causal, window))
-            pairs = _pairs(s, s, causal, window)
+            lib = cuda_ms(lambda: _sdpa(q, k, v, causal, window, q_off))
+            pairs = int(_keep(sq, sk, causal, window, q_off).sum())
             b_ms, b_by = bound(4.0 * hq * pairs * d,
-                               (2 * hq + 2 * hkv) * s * d * q.element_size(),
-                               dtype)
-            log(f"[kernels] flash_attention  1 {hq:3d} {hkv:3d} {s:5d} {d:3d} "
-                f"{int(causal):6d} {str(window):>6s} {str(dtype)[6:]:>8s} "
-                f"{err:10.3e} {ms:8.4f} {plain:8.4f} {lib:8.4f} {b_ms:8.4f} "
-                f"({b_by})")
-            row = {"B": 1, "Hq": hq, "Hkv": hkv, "S": s, "D": d,
-                   "causal": causal, "window": window,
+                               (2 * hq * sq + 2 * hkv * sk) * d
+                               * q.element_size(), dtype)
+            log(f"[kernels] flash_attention  1 {hq:3d} {hkv:3d} {sq:5d} "
+                f"{sk:5d} {d:3d} {int(causal):6d} {str(window):>6s} "
+                f"{q_off:5d} {str(dtype)[6:]:>8s} {err:10.3e} {ms:8.4f} "
+                f"{plain:8.4f} {lib:8.4f} {b_ms:8.4f} ({b_by}; "
+                f"{ms / lib:.2f}x library; "
+                f"{4.0 * hq * pairs * d / ms / 1e9:.1f} TFLOP/s; "
+                f"wall {wall:.4f})")
+            row = {"B": 1, "Hq": hq, "Hkv": hkv, "Sq": sq, "Sk": sk, "D": d,
+                   "causal": causal, "window": window, "q_offset": q_off,
                    "dtype": str(dtype)[6:], "max_abs_err": err, "ms": ms,
-                   "plain_ms": plain, "library_ms": lib, "bound_ms": b_ms,
-                   "bound_by": b_by}
+                   "wall_ms": wall, "plain_ms": plain, "library_ms": lib,
+                   "bound_ms": b_ms, "bound_by": b_by}
             report.append({"kernel": "flash_attention", **row})
-            if (hq, hkv, s, causal, window, dtype) == (
-                    32, 32, 512, True, None, torch.bfloat16):
+            if (hq, hkv, sq, causal, window, d, dtype) == (
+                    32, 32, 512, True, None, 96, torch.bfloat16):
                 rep = row
     return rep
 
@@ -846,7 +933,7 @@ def profile_decode(params, cache, cfg, rc, arch: str, n: int = 5) -> None:
     for _ in range(n):
         step()
     torch.cuda.synchronize()
-    wall_ms = (time.time() - t0) / n * 1e3
+    body_ms = (time.time() - t0) / n * 1e3
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
             step()
@@ -861,11 +948,11 @@ def profile_decode(params, cache, cfg, rc, arch: str, n: int = 5) -> None:
     ours = {k: sum(v for key, v in dev.items() if k in key)
             for k in per_body}
     log(f"[profile] {arch} decode body ({tok.shape[0]} slots, "
-        f"{cfg.n_layers} layers): launches {per_body}; {wall_ms:.2f} ms "
+        f"{cfg.n_layers} layers): launches {per_body}; {body_ms:.2f} ms "
         f"wall, {busy:.2f} ms in kernels ("
         + ", ".join(f"{v:.2f} {k}" for k, v in ours.items())
         + f", {busy - sum(ours.values()):.2f} other); device idle share "
-        f"{1 - busy / wall_ms:.3f}")
+        f"{1 - busy / body_ms:.3f}")
     for k, v in sorted(dev.items(), key=lambda kv: -kv[1])[:8]:
         log(f"[profile]   {v:8.3f} ms  {k[:90]}")
 

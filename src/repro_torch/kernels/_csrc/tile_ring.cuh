@@ -12,7 +12,11 @@
 // Both multipliers sum over K in K order, one kBK tile after the other, and
 // give every output element the same sequence of operations whatever the
 // block's row count (16 or 64) and the element's place in it, so a result
-// never depends on the ring depth, on M, or on which row a token sits in.
+// of theirs never depends on the ring depth, on M, or on which row a token
+// sits in.  queue_matmul's fp32 products and both of moe_gemm's use them;
+// queue_matmul's bf16 products take its thin (M <= 16) or wide kernel
+// (queue_matmul.cu), which sum in other orders, so there a bf16 row's bits
+// depend on whether M <= 16, and on nothing else.
 // The fp32 multiplier sums each kBK tile on its own and adds that partial
 // sum to the running one: a chain of kBK + K/kBK additions in place of K,
 // which keeps its rounding error below a blocked CPU sgemm's (one long

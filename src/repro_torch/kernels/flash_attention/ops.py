@@ -3,8 +3,10 @@
 A CPU tensor goes to the plain version (:func:`attention_ref`, with KV heads
 repeated for GQA); a CUDA tensor launches the kernel in
 ``csrc/flash_attention.cu`` on the current stream, which expands GQA by
-index and needs no padding of S.  ``flash_attention.launches`` counts
-kernel launches.
+index and needs no padding of S.  bf16 runs on the tensor cores, fp32 on
+FMAs.  A bf16 head dim that is not a multiple of 8 is padded with zero
+columns here (never on the served models' shapes), so every row is a
+16-byte copy.  ``flash_attention.launches`` counts kernel launches.
 """
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ import functools
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from .. import _build
 from .ref import attention_ref
@@ -27,7 +30,7 @@ def _library() -> ctypes.CDLL:
     stream as ``c_void_p``, so ctypes never cuts them to 32 bits)."""
     lib = _build.load("flash_attention")
     lib.flash_attention_launch.argtypes = ([ctypes.c_void_p] * 4
-                                           + [ctypes.c_int] * 11
+                                           + [ctypes.c_int] * 12
                                            + [ctypes.c_void_p])
     lib.flash_attention_launch.restype = ctypes.c_int
     lib.flash_attention_error_string.argtypes = [ctypes.c_int]
@@ -58,21 +61,28 @@ def _launch(q, k, v, causal, window, q_offset) -> torch.Tensor:
     Hkv, Sk = k.shape[1], k.shape[2]
     if D > MAX_HEAD_DIM:
         raise ValueError(f"head dim {D} > {MAX_HEAD_DIM}")
+    ld = D
+    if q.dtype == torch.bfloat16 and D % 8:
+        ld = D + (-D) % 8
+        q, k, v = (F.pad(t, (0, ld - D)) for t in (q, k, v))
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("the bf16 flash_attention kernel needs 16-byte "
+                         "aligned q, k and v")
     out = torch.empty_like(q)
     lib = _library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Hq,
-            Hkv, Sq, Sk, D, int(causal), int(window is not None),
+            Hkv, Sq, Sk, D, ld, int(causal), int(window is not None),
             0 if window is None else int(window), int(q_offset),
             _DTYPE_CODES[q.dtype], stream)
     if err != 0:
         raise RuntimeError("flash_attention kernel launch failed: "
                            + lib.flash_attention_error_string(err).decode())
     flash_attention.launches += 1
-    return out
+    return out[..., :D] if ld != D else out
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -14,11 +14,32 @@ stream, except under ``ExecutionPolicy.BASELINE``, which is the plain matmul
 on any device (as in the JAX wrapper) and launches nothing.  COPIFT forces
 both rings to depth 1.  ``queue_matmul.launches`` counts kernel launches.
 
+Two regimes, chosen here by M (not a fallback: each is the kernel for its
+M, and each keeps the whole contract).  A bf16 product with M <= 16
+(``THIN_MAX_M``; decode over the slots) takes the thin kernel, bound by the
+bytes of w: 64-column tiles 128 deep copied with ``cp.async``, K split into
+:func:`split_k` parts, a function of (K, N) alone, summed in rank order
+inside a thread-block cluster.  A bf16 product with M > 16 (``forward``)
+takes the wide kernel, bound by operations: a producer warp issues TMA
+copies into the two rings and two ``wgmma`` warpgroups consume them, in
+128 x 256 tiles, with K split the same way where the tiles alone would
+leave SMs idle; its parts meet in an fp32 workspace allocated here.  fp32
+takes the FMA kernel at any M.  Within a regime every depth pair gives the
+same bits, and a row's result does not depend on the other rows; a bf16
+row's bits do depend on the regime.
+
+The contract, in both regimes: ``depth_x`` and ``depth_w`` are real stage
+counts in [1, 16]; a pair whose rings need more than 227 KB of shared
+memory (``MAX_SMEM`` = 232448 bytes, :func:`smem_bytes`) raises
+``ValueError`` naming the bytes it needed, before anything launches.
+Every pair up to (8, 8) fits in every kernel; (16, 16) fits none but the
+fp32 kernel at M <= 16.
+
 ``block`` and ``unroll`` are the Pallas kernel's tile and K-loop unroll.
-The CUDA kernel's tiles are compiled in (a 16- or 64-row block by 64
-columns, 32 deep) and its K loop is unrolled at compile time, so on the
-card neither changes what runs; both are kept so that the precedence rules
-and the callers stay the same as the reference's.
+The CUDA kernels' tiles are compiled in and their K loops are unrolled at
+compile time, so on the card neither changes what runs; both are kept so
+that the precedence rules and the callers stay the same as the
+reference's.
 """
 from __future__ import annotations
 
@@ -35,6 +56,93 @@ from .ref import matmul_ref
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_DEPTH = 16
+#: the most shared memory a block may use on an H100 (227 KB)
+MAX_SMEM = 232448
+#: bf16 products with at most this many rows take the thin kernel
+THIN_MAX_M = 16
+#: the thin kernel's column tile and stage depth; the wide kernel's column
+#: tile and the K unit its parts are made of (its stages are 64 deep when
+#: both rings fit at that depth, else 32); the largest K split (a portable
+#: cluster)
+_THIN_BN, _THIN_BK, _WIDE_BN, _WIDE_UNIT = 64, 128, 256, 64
+_MAX_SPLIT = 8
+
+
+def regime(m: int, dtype: torch.dtype) -> str:
+    """Which kernel a product of ``m`` rows runs on the card: "fp32",
+    "thin" (bf16, m <= ``THIN_MAX_M``) or "wide" (bf16)."""
+    if dtype == torch.float32:
+        return "fp32"
+    return "thin" if m <= THIN_MAX_M else "wide"
+
+
+@functools.lru_cache(maxsize=None)
+def split_k(k: int, n: int, wide: bool = False) -> int:
+    """The number of K parts of a bf16 product with a (K, N) weight, summed
+    in a fixed order.  Doubled from 1 while the parts fit one cluster (8),
+    the column tiles times the parts stay under a target, and every part
+    keeps a minimum depth.  Thin kernel: 160 blocks (two fit an SM at the
+    default depths), parts of at least four 128-deep stages.  Wide kernel:
+    20 tiles (80 blocks of 128 x 256 at M = 512), parts of at least 16
+    64-deep units, since its parts meet through a workspace whose traffic
+    grows with the split.  The targets were picked by timing the served
+    shapes on an H100 at several splits.  A function of (K, N) only, so
+    a row's sum order, and its bits, never depend on M, the depths or the
+    card."""
+    bn, bk, target, least = ((_WIDE_BN, _WIDE_UNIT, 20, 16) if wide
+                             else (_THIN_BN, _THIN_BK, 160, 4))
+    n_tiles, nk = -(-n // bn), -(-k // bk)
+    s = 1
+    while (s < _MAX_SPLIT and n_tiles * s < target
+           and nk >= 2 * least * s):
+        s *= 2
+    return s
+
+
+def _wide_smem(depth_x: int, depth_w: int, bk: int) -> int:
+    # 1 KB to align the swizzled stages, x 128 x bk and w bk x 256 a stage,
+    # full and empty barriers
+    return (1024 + 2 * bk * (128 * depth_x + _WIDE_BN * depth_w)
+            + 16 * (depth_x + depth_w))
+
+
+def smem_bytes(m: int, depth_x: int, depth_w: int, dtype: torch.dtype) -> int:
+    """Shared memory one block of the kernel for ``m`` rows needs at these
+    depths, as ``csrc/queue_matmul.cu`` lays it out.  The wide kernel's
+    stages are 64 deep where both rings fit at that depth, else 32; every
+    k16 step is the same either way, so the bits are too."""
+    barriers = -(-(depth_x + depth_w) * 8 // 128) * 128
+    kind = regime(m, dtype)
+    if kind == "fp32":
+        bm = 16 if m <= 16 else 64
+        return barriers + 4 * (depth_x * bm * 32 + depth_w * 32 * 64)
+    if kind == "thin":
+        # the fp32 partials of 4 warps and the block reuse the rings
+        return barriers + max(2 * (depth_x * 16 * _THIN_BK
+                                   + depth_w * _THIN_BK * _THIN_BN),
+                              4 * 5 * 16 * _THIN_BN)
+    deep = _wide_smem(depth_x, depth_w, 64)
+    return deep if deep <= MAX_SMEM else _wide_smem(depth_x, depth_w, 32)
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(m_thin: bool, k: int, n: int, depth_x: int, depth_w: int,
+          dtype: torch.dtype) -> int:
+    """Check a launch's depths against the contract; returns the K split
+    it passes to the kernel (1 for fp32)."""
+    if not (1 <= depth_x <= _MAX_DEPTH and 1 <= depth_w <= _MAX_DEPTH):
+        raise ValueError(f"ring depths must lie in [1, {_MAX_DEPTH}], got "
+                         f"({depth_x}, {depth_w})")
+    m = 1 if m_thin else THIN_MAX_M + 1
+    need = smem_bytes(m, depth_x, depth_w, dtype)
+    if need > MAX_SMEM:
+        raise ValueError(
+            f"queue_matmul rings of depths ({depth_x}, {depth_w}) need "
+            f"{need} bytes of shared memory in the {regime(m, dtype)} "
+            f"kernel ({'M <= 16' if m_thin else 'M > 16'}), above the "
+            f"{MAX_SMEM} a block may use")
+    kind = regime(m, dtype)
+    return 1 if kind == "fp32" else split_k(k, n, wide=kind == "wide")
 
 
 def operating_point() -> OperatingPoint:
@@ -48,10 +156,12 @@ def _library() -> ctypes.CDLL:
     """The built kernel library, its C functions typed (pointers and the
     stream as ``c_void_p``, so ctypes never cuts them to 32 bits)."""
     lib = _build.load("queue_matmul")
-    lib.queue_matmul_launch.argtypes = ([ctypes.c_void_p] * 3
-                                        + [ctypes.c_int] * 6
+    lib.queue_matmul_launch.argtypes = ([ctypes.c_void_p] * 4
+                                        + [ctypes.c_int] * 7
                                         + [ctypes.c_void_p])
     lib.queue_matmul_launch.restype = ctypes.c_int
+    lib.queue_matmul_smem_bytes.argtypes = [ctypes.c_int] * 4
+    lib.queue_matmul_smem_bytes.restype = ctypes.c_longlong
     lib.queue_matmul_error_string.argtypes = [ctypes.c_int]
     lib.queue_matmul_error_string.restype = ctypes.c_char_p
     return lib
@@ -72,9 +182,6 @@ def _launch(x: torch.Tensor, w: torch.Tensor, depth_x: int,
                         f"operands of one dtype, got {x.dtype} and {w.dtype}")
     if w.device != x.device:
         raise ValueError(f"operands on {x.device} and {w.device}")
-    if not (1 <= depth_x <= _MAX_DEPTH and 1 <= depth_w <= _MAX_DEPTH):
-        raise ValueError(f"ring depths must lie in [1, {_MAX_DEPTH}], got "
-                         f"({depth_x}, {depth_w})")
     m, n = x.shape[0], w.shape[1]
     vec = 16 // x.element_size()
     xp = _pad_cols(x, vec).contiguous()
@@ -82,22 +189,33 @@ def _launch(x: torch.Tensor, w: torch.Tensor, depth_x: int,
     if wp.shape[0] != xp.shape[1]:
         wp = F.pad(wp, (0, 0, 0, xp.shape[1] - wp.shape[0]))
     wp = wp.contiguous()
-    for t in (xp, wp):
-        if t.data_ptr() % 16:
-            raise ValueError("queue_matmul kernel needs 16-byte aligned "
-                             "operands")
-    out = torch.empty((m, wp.shape[1]), dtype=x.dtype, device=x.device)
+    k, n_pad = xp.shape[1], wp.shape[1]
+    split = _plan(m <= THIN_MAX_M, k, n_pad, depth_x, depth_w, x.dtype)
+    px, pw = xp.data_ptr(), wp.data_ptr()
+    if px % 16 or pw % 16:
+        raise ValueError("queue_matmul kernel needs 16-byte aligned "
+                         "operands")
+    out = torch.empty((m, n_pad), dtype=x.dtype, device=x.device)
+    # the wide kernel's K parts meet in an fp32 workspace (never in decode)
+    work = (torch.empty((split, m, n_pad), dtype=torch.float32,
+                        device=x.device)
+            if split > 1 and m > THIN_MAX_M else None)
     lib = _library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    args = (px, pw, out.data_ptr(), None if work is None else work.data_ptr(),
+            m, n_pad, k, depth_x, depth_w, _DTYPE_CODES[x.dtype], split)
+    # the launch goes to the current device: switch only when x is not on it
+    if x.device.index == torch.cuda.current_device():
         err = lib.queue_matmul_launch(
-            xp.data_ptr(), wp.data_ptr(), out.data_ptr(), m, wp.shape[1],
-            xp.shape[1], depth_x, depth_w, _DTYPE_CODES[x.dtype], stream)
+            *args, torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(x.device):
+            err = lib.queue_matmul_launch(
+                *args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError("queue_matmul kernel launch failed: "
                            + lib.queue_matmul_error_string(err).decode())
     queue_matmul.launches += 1
-    return out[:, :n] if wp.shape[1] != n else out
+    return out[:, :n] if n_pad != n else out
 
 
 def _queue_matmul(x: torch.Tensor, w: torch.Tensor, *,

@@ -9,7 +9,10 @@ the references run with ``allow_tf32`` off), bf16 2e-2, logits 2e-3.
 ``moe_gemm`` must give the same bits at every ring depth and for a row
 whatever rows come with it (what keeps chunked prefill bit-exact with token
 prefill on the card).  ``rglru_scan`` takes a separate multiply and add a
-step, as its plain version does, and is held to the same tolerances."""
+step, as its plain version does, and is held to the same tolerances.
+bf16 ``queue_matmul`` has two kernels, thin (M <= 16) and wide; each must
+give the same bits at every depth pair and for a row whatever rows come
+with it."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -23,6 +26,7 @@ from repro_torch.kernels import (flash_attention, moe_gemm, queue_matmul,
                                  rglru_scan, ssm_scan)
 from repro_torch.kernels.flash_attention.ops import _plain
 from repro_torch.kernels.moe_gemm.ref import moe_gemm_ref
+from repro_torch.kernels.queue_matmul import ops as qm_ops
 from repro_torch.kernels.queue_matmul.ref import matmul_ref
 from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
 from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
@@ -71,6 +75,95 @@ def test_queue_matmul_baseline_runs_no_kernel(card):
     out = queue_matmul(x, x.t().contiguous(), policy=EP.BASELINE)
     assert queue_matmul.launches == before
     _close(out, matmul_ref(x, x.t()), 2e-4)
+
+
+@pytest.mark.parametrize("m", [4, 16, 17, 64, 65, 512])
+def test_queue_matmul_bf16_bits_across_depth_pairs(card, m):
+    """K = 2120 (16.6 stages of the thin kernel's 128, split 4: parts of
+    5, 5, 5 and 1.6; 33.1 of the wide kernel's 64-deep units, split 2:
+    parts of 17 and 16.1) and N = 200 (3.1 thin tiles, 0.78 of a wide
+    one): every ring and tile has a ragged edge.  (8, 8) runs the wide
+    kernel's 32-deep stages, the other pairs its 64-deep ones."""
+    k, n = 2120, 200
+    assert qm_ops.split_k(k, n) == 4 and qm_ops.split_k(k, n, wide=True) == 2
+    x = torch.randn((m, k), generator=card, device="cuda").bfloat16()
+    w = (torch.randn((k, n), generator=card, device="cuda")
+         / k ** 0.5).bfloat16()
+    before = queue_matmul.launches
+    outs = [queue_matmul(x, w, depth_x=a, depth_w=b)
+            for a, b in ((1, 1), (4, 4), (8, 8), (2, 5))]
+    torch.cuda.synchronize()
+    assert queue_matmul.launches == before + 4
+    for o in outs:
+        assert o.dtype == torch.bfloat16 and o.shape == (m, n)
+        assert torch.equal(o, outs[0])
+    _close(outs[0], matmul_ref(x, w).bfloat16(), TOL[torch.bfloat16])
+
+
+def test_queue_matmul_bf16_rows_do_not_depend_on_their_neighbours(card):
+    """Within a regime a row's bits are the same whatever the other rows:
+    the first 64 of 512 rows alone (wide), and one of 4 rows alone (thin)."""
+    x = torch.randn((512, 768), generator=card, device="cuda").bfloat16()
+    w = (torch.randn((768, 384), generator=card, device="cuda")
+         / 768 ** 0.5).bfloat16()
+    full = queue_matmul(x, w)
+    assert torch.equal(queue_matmul(x[:64], w), full[:64])
+    assert torch.equal(queue_matmul(x[64:81], w), full[64:81])
+    four = queue_matmul(x[:4], w)
+    assert torch.equal(queue_matmul(x[2:3], w), four[2:3])
+    assert torch.equal(queue_matmul(x[:16], w)[:4], four)
+
+
+def test_queue_matmul_refuses_rings_that_do_not_fit(card):
+    """Rings at (16, 16) need 394752 bytes of shared memory in the wide
+    kernel and 327936 in the thin one: refused before any launch.  Deep x
+    rings beside shallow w rings fit both."""
+    x = torch.randn((64, 256), generator=card, device="cuda").bfloat16()
+    w = torch.randn((256, 128), generator=card, device="cuda").bfloat16()
+    before = queue_matmul.launches
+    with pytest.raises(ValueError, match="need 394752 bytes of shared memory"):
+        queue_matmul(x, w, depth=16)
+    with pytest.raises(ValueError, match="need 327936 bytes of shared memory"):
+        queue_matmul(x[:4], w, depth=16)
+    assert queue_matmul.launches == before
+    for rows in (x, x[:4]):
+        _close(queue_matmul(rows, w, depth_x=16, depth_w=4),
+               matmul_ref(rows, w), TOL[torch.bfloat16])
+
+
+def test_queue_matmul_wrapper_and_kernels_agree_on_shared_memory(card):
+    lib = qm_ops._library()
+    for m in (4, 512):
+        for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
+            for dx, dw in ((1, 1), (4, 4), (2, 8), (16, 16)):
+                assert lib.queue_matmul_smem_bytes(m, dx, dw, code) == \
+                    qm_ops.smem_bytes(m, dx, dw, dtype)
+
+
+@pytest.mark.parametrize("hq,hkv,sq,sk,d,causal,window,q_offset", [
+    (4, 2, 100, 100, 80, True, None, 0),
+    (8, 2, 70, 300, 80, True, 64, 230),
+    (4, 4, 64, 130, 80, False, None, 66),
+    (4, 1, 129, 129, 200, True, 50, 0),
+    (6, 2, 40, 200, 200, True, None, 160),
+    (10, 1, 150, 150, 256, True, 48, 0),
+    (10, 1, 65, 400, 256, True, 200, 335),
+    (2, 2, 33, 33, 36, True, None, 0),       # D % 8 != 0: padded to 40
+])
+def test_flash_attention_bf16_on_the_tensor_cores(card, hq, hkv, sq, sk, d,
+                                                  causal, window, q_offset):
+    """Head dims 80, 200 and 256 (and 36), Sk != Sq with q_offset, windows
+    and GQA, against the plain version."""
+    q = torch.randn((2, hq, sq, d), generator=card, device="cuda").bfloat16()
+    k = torch.randn((2, hkv, sk, d), generator=card, device="cuda").bfloat16()
+    v = torch.randn((2, hkv, sk, d), generator=card, device="cuda").bfloat16()
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, causal=causal, window=window,
+                          q_offset=q_offset)
+    assert flash_attention.launches == before + 1
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    _close(out, _plain(q, k, v, causal, window, q_offset),
+           TOL[torch.bfloat16])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
