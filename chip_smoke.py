@@ -18,7 +18,10 @@ prints no result):
    (``host_ms``).  ``queue_matmul`` and
    ``moe_gemm`` must be bit-identical across ring depths; ``queue_matmul``
    is checked at M = 4 (its thin bf16 kernel), 64, 128 and 512 (its wide
-   one), ``flash_attention`` also at head dims 80 and 200 and on a query
+   one), ``moe_gemm`` at C = 4 (thin), also with the expert mask of a
+   top-8 routing of 4 tokens (the active experts' bits equal to the
+   unmasked call's, the others zeros), and at C = 130 and 512 (wide),
+   ``flash_attention`` also at head dims 80 and 200 and on a query
    chunk at the end of a longer key sequence (Sk != Sq, ``q_offset``).
 3. parity  — phi3-mini-3.8b, olmoe-1b-7b and falcon-mamba-7b at full
    width, depth cut to 2 layers, and recurrentgemma-2b cut to 5 (one
@@ -39,7 +42,9 @@ prints no result):
    512 tokens runs ``flash_attention`` (and ``ssm_scan`` for falcon-mamba,
    ``rglru_scan`` for recurrentgemma).  Each model's run is its own main
    path: the launch counts are set to 0 just before it and read just after
-   it, and every kernel of that path must have run.
+   it, and every kernel of that path must have run.  Then a profile of a
+   decode body: launches, kernel time by kernel, the device's idle share,
+   and for olmoe the experts each layer's mask keeps.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  It imports nothing of JAX.
@@ -454,59 +459,102 @@ def check_flash_attention(gen, report) -> dict:
     return rep
 
 
+def routed_mask(gen, tokens: int, experts: int, k: int) -> torch.Tensor:
+    """The experts a top-k router picks for ``tokens`` independent tokens
+    (seeded normal logits, top ``k`` of ``experts`` each): the mask the
+    decode body hands ``moe_gemm``."""
+    logits = torch.randn((tokens, experts), generator=gen, device="cuda")
+    active = torch.zeros(experts, dtype=torch.int8, device="cuda")
+    return active.scatter_(0, logits.topk(k, dim=-1).indices.reshape(-1), 1)
+
+
 def check_moe_gemm(gen, report) -> dict:
-    """olmoe-1b-7b's expert products: decode (C = 4 slots) and ``forward``
-    over 512 tokens (C = 512), wi/wg with the broadcast x of the dense
-    dispatch (expert stride 0) and wo with a per-expert x."""
+    """olmoe-1b-7b's expert products: decode (C = 4 slots) with every
+    expert and with the mask of a top-8 routing of 4 tokens, and a
+    ``forward`` over 130 and 512 tokens (C = 130, 512: bf16's wide
+    kernel), wi/wg with the broadcast x of the dense dispatch (expert
+    stride 0) and wo with a per-expert x.  Bit-identical across depths;
+    with the mask, the active experts' blocks are the unmasked call's bits
+    and the others zeros.  The bound of a routed call counts the active
+    experts' weights only; no single library call computes it."""
     from repro_torch.kernels.moe_gemm import ops
     from repro_torch.kernels.moe_gemm.ref import moe_gemm_ref
     depth = ops.operating_point().effective_depths()[1]
     rep = None
     log(f"[kernels] moe_gemm  E    C     d     f  x  dtype  max_abs_err  ms  "
         f"plain_ms  library_ms  bound_ms  (depth {depth})")
-    for dtype in (torch.float32, torch.bfloat16):
-        for c in (4, 512):
-            for d, f, bcast in ((2048, 1024, True), (1024, 2048, False)):
-                e = 64
-                if bcast:
-                    x = torch.randn((c, d), generator=gen, device="cuda"
-                                    ).to(dtype).expand(e, c, d)
-                else:
-                    x = torch.randn((e, c, d), generator=gen, device="cuda"
-                                    ).to(dtype)
-                w = (torch.randn((e, d, f), generator=gen, device="cuda")
-                     / math.sqrt(d)).to(dtype)
-                ref = moe_gemm_ref(x, w)
-                outs = {k: ops.moe_gemm(x, w, depth=k) for k in (1, 2, 4)}
-                torch.cuda.synchronize()
-                for k, o in outs.items():
-                    if not torch.equal(o, outs[1]):
-                        raise AssertionError(
-                            f"moe_gemm depth {k} differs from depth 1 at "
-                            f"E={e} C={c} d={d} f={f} {dtype}")
-                err = within(outs[1], ref, TOL[dtype])
-                args = [(x, w.clone()) for _ in range(2)]
-                make = cycling(args)
-                ms = cuda_ms(make(lambda a, b: ops.moe_gemm(a, b,
-                                                            depth=depth)))
-                plain = cuda_ms(make(moe_gemm_ref), iters=5)
-                lib = cuda_ms(make(torch.bmm))
-                x_bytes = (c if bcast else e * c) * d * x.element_size()
-                b_ms, b_by = bound(2.0 * e * c * d * f,
-                                   x_bytes + w.numel() * w.element_size()
-                                   + e * c * f * 4, dtype)
-                del args, outs, ref
-                log(f"[kernels] moe_gemm {e:3d} {c:4d} {d:5d} {f:5d} "
-                    f"{'b' if bcast else 'e'} {str(dtype)[6:]:>8s} "
-                    f"{err:10.3e} {ms:8.4f} {plain:8.4f} {lib:8.4f} "
-                    f"{b_ms:8.4f} ({b_by})")
-                row = {"E": e, "C": c, "d": d, "f": f, "broadcast_x": bcast,
-                       "dtype": str(dtype)[6:], "depth": depth,
-                       "max_abs_err": err, "ms": ms, "plain_ms": plain,
-                       "library_ms": lib, "bound_ms": b_ms, "bound_by": b_by}
-                report.append({"kernel": "moe_gemm", **row})
-                if (c, d, dtype) == (4, 2048, torch.bfloat16):
-                    rep = row
+    cases = [(dtype, c, routed) for dtype in (torch.float32, torch.bfloat16)
+             for c, routed in ((4, False), (4, True), (130, False),
+                               (512, False))
+             if not (dtype == torch.float32 and c == 130)]
+    for dtype, c, routed in cases:
+        for d, f, bcast in ((2048, 1024, True), (1024, 2048, False)):
+            e = 64
+            if bcast:
+                x = torch.randn((c, d), generator=gen, device="cuda"
+                                ).to(dtype).expand(e, c, d)
+            else:
+                x = torch.randn((e, c, d), generator=gen, device="cuda"
+                                ).to(dtype)
+            w = (torch.randn((e, d, f), generator=gen, device="cuda")
+                 / math.sqrt(d)).to(dtype)
+            active = routed_mask(gen, c, e, 8) if routed else None
+            n_act = int(active.sum()) if routed else e
+            ref = moe_gemm_ref(x, w, active)
+            outs = {k: ops.moe_gemm(x, w, depth=k, active=active)
+                    for k in (1, 2, 4)}
+            torch.cuda.synchronize()
+            for k, o in outs.items():
+                if not torch.equal(o, outs[1]):
+                    raise AssertionError(
+                        f"moe_gemm depth {k} differs from depth 1 at "
+                        f"E={e} C={c} d={d} f={f} {dtype} routed={routed}")
+            if routed:
+                on = active != 0
+                full = ops.moe_gemm(x, w, depth=depth)
+                if not torch.equal(outs[1][on], full[on]) or \
+                        not bool((outs[1][~on] == 0).all()):
+                    raise AssertionError(
+                        f"moe_gemm's mask changed an active expert's bits or "
+                        f"left an inactive one nonzero at C={c} d={d} {dtype}")
+                del full
+            err = within(outs[1], ref, TOL[dtype])
+            args = [(x, w.clone()) for _ in range(2)]
+            make = cycling(args)
+            ms = cuda_ms(make(lambda a, b: ops.moe_gemm(a, b, depth=depth,
+                                                        active=active)))
+            plain = cuda_ms(make(lambda a, b: moe_gemm_ref(a, b, active)),
+                            iters=5)
+            lib = None if routed else cuda_ms(make(torch.bmm))
+            x_bytes = (c if bcast else n_act * c) * d * x.element_size()
+            b_ms, b_by = bound(2.0 * n_act * c * d * f,
+                               x_bytes + n_act * d * f * w.element_size()
+                               + e * c * f * 4, dtype)
+            del args, outs, ref
+            kind = ops.regime(c, dtype)
+            log(f"[kernels] moe_gemm {e:3d} {c:4d} {d:5d} {f:5d} "
+                f"{'b' if bcast else 'e'} {str(dtype)[6:]:>8s} "
+                f"{err:10.3e} {ms:8.4f} {plain:8.4f} "
+                f"{'    none' if lib is None else f'{lib:8.4f}'} "
+                f"{b_ms:8.4f} ({b_by}; {kind}"
+                + (f", split {ops.split_k(e, d, f)}" if kind == "thin"
+                   else "")
+                + f"; {n_act} of {e} experts active"
+                + (f", routed top-8 of {c} tokens" if routed else "")
+                + f"; {2.0 * n_act * c * d * f / ms / 1e9:.1f} TFLOP/s, "
+                f"{(x_bytes + n_act * d * f * w.element_size() + e * c * f * 4) / ms / 1e6:.0f}"
+                f" GB/s"
+                + (f"; {ms / lib:.2f}x library)" if lib else ")"))
+            row = {"E": e, "C": c, "d": d, "f": f, "broadcast_x": bcast,
+                   "dtype": str(dtype)[6:], "depth": depth, "regime": kind,
+                   "routed": routed, "active": n_act,
+                   "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                   "library_ms": lib, "bound_ms": b_ms, "bound_by": b_by}
+            report.append({"kernel": "moe_gemm", **row})
+            # the decode body's call: C = 4 slots over the routed experts
+            if (c, d, dtype, routed) == (4, 2048, torch.bfloat16, True):
+                rep = row
+        free_card()
     return rep
 
 
@@ -925,10 +973,19 @@ def profile_decode(params, cache, cfg, rc, arch: str, n: int = 5) -> None:
     step = lambda: decode_step(params, cache, {"tokens": tok}, cfg, rc)
     counters = launch_counters()
     before = {k: c.launches for k, c in counters.items()}
-    step()
+    routes = []
+    with routing(routes):
+        step()
     torch.cuda.synchronize()
     per_body = {k: c.launches - before[k] for k, c in counters.items()
                 if c.launches > before[k]}
+    if cfg.moe:
+        # the experts each MoE layer's mask keeps: those its slots route to
+        act = [len(torch.unique(r)) for r in routes]
+        log(f"[profile] {arch} active experts per MoE layer of a decode "
+            f"body ({tok.shape[0]} slots, top-{cfg.moe.top_k} of "
+            f"{cfg.moe.num_experts}): mean {sum(act) / len(act):.2f}, "
+            f"{act}")
     t0 = time.time()
     for _ in range(n):
         step()

@@ -1,7 +1,8 @@
-// Hopper building blocks shared by queue_matmul.cu and flash_attention.cu:
+// Hopper building blocks shared by the port's kernels (queue_matmul.cu,
+// moe_gemm.cu, flash_attention.cu and the GEMM headers beside this one):
 // mbarriers that count bytes (expect_tx), TMA tile copies, wgmma with
-// shared-memory descriptors, ldmatrix and mma.sync fragments, and the
-// tensor-map encoder reached through the runtime.
+// shared-memory descriptors, ldmatrix and mma.sync fragments, the
+// tensor-map encoder reached through the runtime, and two host helpers.
 //
 // What each piece is for:
 //  * mbar_expect_tx / mbar_arrive: a TMA ring's "full" barrier is armed by
@@ -10,9 +11,11 @@
 //    counts one arrival per consumer warp.  mbar_wait_or_trap spins on a
 //    phase parity, which is the queue pop for both, and traps after about
 //    10 s rather than hang the card;
-//  * tma_load_2d: one thread asks the Tensor Memory Accelerator for a whole
-//    box of a row-major matrix.  Rows or columns past the matrix arrive as
-//    zeros, and the barrier still counts the whole box;
+//  * tma_load_2d / tma_load_3d: one thread asks the Tensor Memory
+//    Accelerator for a whole box of a row-major matrix, or of one matrix
+//    of a stack of them (the third coordinate picks the matrix, so a box
+//    never reaches into the next one).  Rows or columns past the matrix
+//    arrive as zeros, and the barrier still counts the whole box;
 //  * wgmma_m64n64k16: four warps multiply a 64 x 16 bf16 tile of A by a
 //    16 x 64 tile of B, both read from shared memory through descriptors
 //    (gmma_desc), into 32 fp32 accumulators a thread.  A is K-major, a 64-
@@ -24,10 +27,15 @@
 //    wgmma_commit and wgmma_wait bracket a group of them;
 //  * ldmatrix_x4(_trans) and mma_16816: the warp-level tensor-core path
 //    (mma.sync m16n8k16, bf16 in, fp32 accumulators);
-//  * encode_tiled: cuTensorMapEncodeTiled is not in the CUDA runtime; it
-//    is looked up once through the runtime's entry-point query (the
-//    ByVersion form from CUDA 12.5), so the library links against the
-//    runtime only, not against -lcuda.
+//  * encode_tiled / encode_tiled_3d: cuTensorMapEncodeTiled is not in the
+//    CUDA runtime; it is looked up once through the runtime's entry-point
+//    query (the ByVersion form from CUDA 12.5), so the library links
+//    against the runtime only, not against -lcuda;
+//  * allow_smem: the dynamic shared-memory opt-in, set only when a launch
+//    needs more than the kernel was last allowed (it costs host time, and
+//    the host sets the pace of a decode body); launch_in_cluster: a launch
+//    whose blocks form clusters of `cluster` along x (a plain launch when
+//    it is 1).
 
 #pragma once
 
@@ -85,6 +93,18 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       "bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1)
+      : "memory");
+}
+
+// Box at (c0 = column, c1 = row, c2 = matrix) of the stack `map` describes.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
       : "memory");
 }
 
@@ -165,19 +185,16 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// A tensor map of the row-major (rows, cols) bf16 matrix at `base`, in
-// boxes of box_rows x box_cols, with the given swizzle.
-inline cudaError_t encode_tiled(CUtensorMap* map, const void* base,
-                                uint64_t rows, uint64_t cols,
-                                uint32_t box_rows, uint32_t box_cols,
-                                CUtensorMapSwizzle swizzle) {
-  using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                              void*, const cuuint64_t*, const cuuint64_t*,
-                              const cuuint32_t*, const cuuint32_t*,
-                              CUtensorMapInterleave, CUtensorMapSwizzle,
-                              CUtensorMapL2promotion,
-                              CUtensorMapFloatOOBfill);
-  static Encode encode = nullptr;
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                  void*, const cuuint64_t*, const cuuint64_t*,
+                                  const cuuint32_t*, const cuuint32_t*,
+                                  CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up once.
+inline cudaError_t tensor_map_encoder(EncodeTiled* out) {
+  static EncodeTiled encode = nullptr;
   if (encode == nullptr) {
     void* fn = nullptr;
     cudaDriverEntryPointQueryResult found;
@@ -191,17 +208,88 @@ inline cudaError_t encode_tiled(CUtensorMap* map, const void* base,
     if (err != cudaSuccess) return err;
     if (found != cudaDriverEntryPointSuccess || fn == nullptr)
       return cudaErrorSymbolNotFound;
-    encode = reinterpret_cast<Encode>(fn);
+    encode = reinterpret_cast<EncodeTiled>(fn);
   }
-  const cuuint64_t dims[2] = {cols, rows};
-  const cuuint64_t strides[1] = {cols * sizeof(__nv_bfloat16)};
-  const cuuint32_t box[2] = {box_cols, box_rows};
-  const cuuint32_t elem[2] = {1, 1};
+  *out = encode;
+  return cudaSuccess;
+}
+
+// A tensor map of `depth` row-major (rows, cols) bf16 matrices at `base`,
+// matrix_stride elements apart (rank 3; rank 2 when depth is 0), in boxes
+// of box_rows x box_cols (x 1 matrix), with the given swizzle.
+inline cudaError_t encode_tiled_3d(CUtensorMap* map, const void* base,
+                                   uint64_t depth, uint64_t rows,
+                                   uint64_t cols, uint64_t matrix_stride,
+                                   uint32_t box_rows, uint32_t box_cols,
+                                   CUtensorMapSwizzle swizzle) {
+  EncodeTiled encode = nullptr;
+  const cudaError_t err = tensor_map_encoder(&encode);
+  if (err != cudaSuccess) return err;
+  const cuuint32_t rank = depth == 0 ? 2 : 3;
+  const cuuint64_t dims[3] = {cols, rows, depth};
+  const cuuint64_t strides[2] = {cols * sizeof(__nv_bfloat16),
+                                 matrix_stride * sizeof(__nv_bfloat16)};
+  const cuuint32_t box[3] = {box_cols, box_rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
   const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
-      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base),
+      dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A tensor map of the row-major (rows, cols) bf16 matrix at `base`, in
+// boxes of box_rows x box_cols, with the given swizzle.
+inline cudaError_t encode_tiled(CUtensorMap* map, const void* base,
+                                uint64_t rows, uint64_t cols,
+                                uint32_t box_rows, uint32_t box_cols,
+                                CUtensorMapSwizzle swizzle) {
+  return encode_tiled_3d(map, base, 0, rows, cols, 0, box_rows, box_cols,
+                         swizzle);
+}
+
+// Let `Kernel` use `bytes` of dynamic shared memory on the current device.
+template <auto Kernel>
+cudaError_t allow_smem(size_t bytes) {
+  constexpr int kDevices = 64;
+  static size_t allowed[kDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kDevices && allowed[dev] >= bytes) return cudaSuccess;
+  err = cudaFuncSetAttribute(Kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(bytes));
+  if (err == cudaSuccess && dev < kDevices) allowed[dev] = bytes;
+  return err;
+}
+
+// Launch `kernel` with clusters of `cluster` blocks along x (no cluster to
+// form when it is 1: the plain launch costs less); returns the launch's
+// error.
+template <typename... Params, typename... Args>
+cudaError_t launch_in_cluster(void (*kernel)(Params...), dim3 grid,
+                              int threads, size_t smem, cudaStream_t stream,
+                              int cluster, Args... args) {
+  if (cluster == 1) {
+    kernel<<<grid, threads, smem, stream>>>(args...);
+    return cudaGetLastError();
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
 }  // namespace hopper

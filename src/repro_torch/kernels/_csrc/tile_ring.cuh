@@ -1,6 +1,6 @@
-// Device code shared by queue_matmul.cu and moe_gemm.cu: shared-memory tile
-// rings filled with cp.async, one mbarrier per slot, and the two tile
-// multipliers (bf16 on mma.sync m16n8k16, fp32 on FMAs).
+// Device code shared by queue_matmul.cu, moe_gemm.cu and thin_gemm.cuh:
+// shared-memory tile rings filled with cp.async, one mbarrier per slot, and
+// the fp32 tile multiplier (FMAs).
 //
 // A ring slot holds one BM x kBK tile of the activations and/or one
 // kBK x kBN tile of the weights.  Every thread copies its share of a slot
@@ -9,15 +9,15 @@
 // completes once every copy into the slot has landed; waiting on that phase
 // is the queue pop.
 //
-// Both multipliers sum over K in K order, one kBK tile after the other, and
-// give every output element the same sequence of operations whatever the
+// The multiplier sums over K in K order, one kBK tile after the other, and
+// gives every output element the same sequence of operations whatever the
 // block's row count (16 or 64) and the element's place in it, so a result
-// of theirs never depends on the ring depth, on M, or on which row a token
-// sits in.  queue_matmul's fp32 products and both of moe_gemm's use them;
-// queue_matmul's bf16 products take its thin (M <= 16) or wide kernel
-// (queue_matmul.cu), which sum in other orders, so there a bf16 row's bits
+// of it never depends on the ring depth, on M, or on which row a token
+// sits in.  queue_matmul's and moe_gemm's fp32 products use it; their
+// bf16 products take the thin (M <= 16) or wide kernel (thin_gemm.cuh,
+// wide_gemm.cuh), which sum in other orders, so there a bf16 row's bits
 // depend on whether M <= 16, and on nothing else.
-// The fp32 multiplier sums each kBK tile on its own and adds that partial
+// It sums each kBK tile on its own and adds that partial
 // sum to the running one: a chain of kBK + K/kBK additions in place of K,
 // which keeps its rounding error below a blocked CPU sgemm's (one long
 // chain of FMAs was twice as far from an fp64 product).
@@ -155,85 +155,6 @@ struct FmaTile {
       }
     }
   }
-};
-
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
-                                              __nv_bfloat16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
-
-// bf16: eight warps, (BM/16) along M and the rest along N; each warp owns a
-// 16-row strip of n8 tiles and runs mma.sync m16n8k16 with fp32 accumulators.
-template <int BM>
-struct MmaTile {
-  static constexpr int WM = BM / 16, WN = 8 / WM;
-  static constexpr int WARP_N = kBN / WN, NT = WARP_N / 8;
-  float acc[NT][4];
-  __device__ void zero() {
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-  }
-  __device__ void mma(const __nv_bfloat16* xs, const __nv_bfloat16* ws) {
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    const int g = lane >> 2, t = lane & 3;
-    const int row0 = (warp / WN) * 16 + g;
-    const int ncol = (warp % WN) * WARP_N + g;
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      const int col = kk + 2 * t;
-      const uint32_t a0 =
-          *reinterpret_cast<const uint32_t*>(xs + row0 * kBK + col);
-      const uint32_t a1 =
-          *reinterpret_cast<const uint32_t*>(xs + (row0 + 8) * kBK + col);
-      const uint32_t a2 =
-          *reinterpret_cast<const uint32_t*>(xs + row0 * kBK + col + 8);
-      const uint32_t a3 =
-          *reinterpret_cast<const uint32_t*>(xs + (row0 + 8) * kBK + col + 8);
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const int n = ncol + 8 * j;
-        const uint32_t b0 = pack_bf16(ws[col * kBN + n], ws[(col + 1) * kBN + n]);
-        const uint32_t b1 =
-            pack_bf16(ws[(col + 8) * kBN + n], ws[(col + 9) * kBN + n]);
-        asm volatile(
-            "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-            "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-            : "+f"(acc[j][0]), "+f"(acc[j][1]), "+f"(acc[j][2]),
-              "+f"(acc[j][3])
-            : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-      }
-    }
-  }
-  template <typename O>
-  __device__ void store(O* out, int M, int N, int m0, int n0) const {
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    const int g = lane >> 2, t = lane & 3;
-    const int r0 = m0 + (warp / WN) * 16 + g;
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const int c0 = n0 + (warp % WN) * WARP_N + 8 * j + 2 * t;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = r0 + (e >= 2 ? 8 : 0), c = c0 + (e & 1);
-        if (r < M && c < N)
-          put(out + static_cast<size_t>(r) * N + c, acc[j][e]);
-      }
-    }
-  }
-};
-
-template <typename T, int BM>
-struct TileFor;
-template <int BM>
-struct TileFor<float, BM> {
-  using type = FmaTile<BM>;
-};
-template <int BM>
-struct TileFor<__nv_bfloat16, BM> {
-  using type = MmaTile<BM>;
 };
 
 // Shared memory starts with `n_barriers` mbarriers (8 bytes each); tiles

@@ -2,8 +2,10 @@
 
 The operands are the JAX wrapper's, ``ssm_scan(x, dt, A, Bm, C)``; its
 time and channel tiles (``bt``, ``bd``) have no counterpart: the CUDA
-kernel walks the whole sequence in one block per (batch, channel group),
-and nothing is padded.
+kernel is a chunked scan, one block per (batch row, 32 channels) holding
+up to 8 chunks of the sequence (at least 32 steps each), their start
+states carried across the chunks inside the block, in one launch a call;
+nothing is padded.
 
 Where it runs: a CPU tensor goes to the plain version (:func:`ssm_scan_ref`);
 a CUDA tensor launches the kernel in ``csrc/ssm_scan.cu`` on the current

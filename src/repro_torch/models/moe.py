@@ -11,11 +11,16 @@ in fp32.
   handed to ``moe_gemm`` as one (T, d) matrix seen by every expert (expert
   stride 0), so row t of every expert's product is token t.  That keeps a
   token's result independent of its neighbours' routing, which is what
-  makes chunked prefill bit-exact with token prefill on the card.
+  makes chunked prefill bit-exact with token prefill on the card.  The
+  experts no token routes to are masked out (``active``, built on the
+  device from the top-k indices), so a decode body reads only the routed
+  experts' weights: their rows would have been multiplied by a combine
+  weight of 0, and are now zeros times 0, so the mask changes no bit.
 * :func:`moe_apply_grouped` is the capacity-bounded sort-based dispatch,
-  rule for rule as the reference's, with tokens over capacity dropped.  Its
-  combine gathers each token's k expert rows back and sums them in a fixed
-  order, with no atomics, so it gives the same bits from run to run.
+  rule for rule as the reference's, with tokens over capacity dropped.
+  Experts whose buffers are empty are masked out.  Its combine gathers
+  each token's k expert rows back and sums them in a fixed order, with no
+  atomics, so it gives the same bits from run to run.
 
 ``moe_gemm`` returns fp32; each product is cast to the compute dtype where
 the reference's einsums round.
@@ -64,31 +69,36 @@ def router_probs(p, x: torch.Tensor, cfg: ModelConfig,
 
 
 def _expert_gemm(x: torch.Tensor, w: torch.Tensor,
-                 policy: Optional[ExecutionPolicy]) -> torch.Tensor:
+                 policy: Optional[ExecutionPolicy],
+                 active: Optional[torch.Tensor]) -> torch.Tensor:
     """``moe_gemm`` at the table's ``moe_gemm`` point (its ring carries the
-    weight stream, so it takes the F2I depth), cast to ``x.dtype``."""
+    weight stream, so it takes the F2I depth) over the ``active`` experts,
+    cast to ``x.dtype``."""
     pt = operating_point()
     return moe_gemm(x, w, depth=pt.effective_depths()[1],
-                    policy=policy if policy is not None else pt.policy
-                    ).to(x.dtype)
+                    policy=policy if policy is not None else pt.policy,
+                    active=active).to(x.dtype)
 
 
 def _expert_ffn(p, buf: torch.Tensor, act: str,
-                policy: Optional[ExecutionPolicy]) -> torch.Tensor:
-    """The experts' FFN over (E, C, d) rows -> (E, C, d) in ``buf.dtype``."""
-    h = _expert_gemm(buf, p["wi"], policy)
+                policy: Optional[ExecutionPolicy],
+                active: Optional[torch.Tensor]) -> torch.Tensor:
+    """The experts' FFN over (E, C, d) rows -> (E, C, d) in ``buf.dtype``;
+    an expert outside ``active`` (``None``: every expert) gives zeros."""
+    h = _expert_gemm(buf, p["wi"], policy, active)
     if act == "swiglu":
-        h = F.silu(_expert_gemm(buf, p["wg"], policy)) * h
+        h = F.silu(_expert_gemm(buf, p["wg"], policy, active)) * h
     elif act == "relu2":
         h = torch.square(F.relu(h))
     else:
         h = F.gelu(h, approximate="tanh")
-    return _expert_gemm(h, p["wo"], policy)
+    return _expert_gemm(h, p["wo"], policy, active)
 
 
 def moe_apply(p, x: torch.Tensor, cfg: ModelConfig,
               policy: Optional[ExecutionPolicy] = None) -> torch.Tensor:
-    """Dense-dispatch MoE: one-hot combine (exact reference)."""
+    """Dense-dispatch MoE: one-hot combine (exact reference), over the
+    routed experts only."""
     e = cfg.moe
     B, S, d = x.shape
     T = B * S
@@ -97,8 +107,11 @@ def moe_apply(p, x: torch.Tensor, cfg: ModelConfig,
     # reference, in x.dtype (the top-k indices of a token are distinct)
     combine = torch.zeros((T, e.num_experts), dtype=x.dtype, device=x.device)
     combine.scatter_(1, idx.reshape(T, -1), w.reshape(T, -1).to(x.dtype))
+    # the experts some token routes to, on the device (no host copy)
+    active = torch.zeros(e.num_experts, dtype=torch.int8, device=x.device)
+    active.scatter_(0, idx.reshape(-1), 1)
     xe = x.reshape(T, d).expand(e.num_experts, T, d)     # expert stride 0
-    y = _expert_ffn(p, xe, cfg.ffn_act, policy)           # (E, T, d)
+    y = _expert_ffn(p, xe, cfg.ffn_act, policy, active)   # (E, T, d)
     return torch.einsum("etd,te->td", y, combine).reshape(B, S, d)
 
 
@@ -141,7 +154,7 @@ def moe_apply_grouped(p, x: torch.Tensor, cfg: ModelConfig,
     buf = buf[:E * C].reshape(E, C, d)
 
     # --- FP stream: expert GEMMs ------------------------------------------
-    y = _expert_ffn(p, buf, cfg.ffn_act, policy)          # (E, C, d)
+    y = _expert_ffn(p, buf, cfg.ffn_act, policy, counts > 0)  # (E, C, d)
 
     # --- combine: gather back into (T, k) order, sum over k in order ------
     y_tok = y[eid_c, slot_c] * (w_s * keep).to(x.dtype)[:, None]

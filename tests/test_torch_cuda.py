@@ -8,7 +8,9 @@ Tolerances: fp32 2e-4 (no TF32: the kernels' fp32 path is plain FMA and
 the references run with ``allow_tf32`` off), bf16 2e-2, logits 2e-3.
 ``moe_gemm`` must give the same bits at every ring depth and for a row
 whatever rows come with it (what keeps chunked prefill bit-exact with token
-prefill on the card).  ``rglru_scan`` takes a separate multiply and add a
+prefill on the card) and whatever experts its ``active`` mask drops; in
+bf16 it has two kernels, thin (C <= 16) and wide, and a row's bits may
+differ between them, never within one.  ``rglru_scan`` takes a separate multiply and add a
 step, as its plain version does, and is held to the same tolerances.
 bf16 ``queue_matmul`` has two kernels, thin (M <= 16) and wide; each must
 give the same bits at every depth pair and for a row whatever rows come
@@ -25,6 +27,7 @@ from repro_torch.core.policy import ExecutionPolicy as EP
 from repro_torch.kernels import (flash_attention, moe_gemm, queue_matmul,
                                  rglru_scan, ssm_scan)
 from repro_torch.kernels.flash_attention.ops import _plain
+from repro_torch.kernels.moe_gemm import ops as mg_ops
 from repro_torch.kernels.moe_gemm.ref import moe_gemm_ref
 from repro_torch.kernels.queue_matmul import ops as qm_ops
 from repro_torch.kernels.queue_matmul.ref import matmul_ref
@@ -32,6 +35,7 @@ from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
 from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
 from repro_torch.models import (decode_step, forward, init_cache,
                                 init_model_params, prefill_step)
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import tree_map
 from repro_torch.serve import ServeEngine
 
@@ -207,18 +211,136 @@ def test_moe_gemm_kernel_on_ragged_shapes(card, e, c, d, f, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_moe_gemm_rows_do_not_depend_on_their_neighbours(card, dtype):
-    """A broadcast x (expert stride 0) reads the one matrix; each row's
-    result is the same bits whether it comes with 3 other rows or alone,
-    and whether the block is 16 or 64 rows."""
-    x = torch.randn((40, 512), generator=card, device="cuda").to(dtype)
+    """A broadcast x (expert stride 0) reads the one matrix; within a
+    kernel each row's result is the same bits whatever rows come with it.
+    fp32 has one kernel for every C (40 rows against 4 and 1); bf16 has
+    two, so rows are compared within each: the wide one (C > 16: 130 rows
+    against a 64-row prefix, the first 40 and 17 rows from row 40) and the
+    thin one (C <= 16: 4 rows against 1, and against the first 4 of 16)."""
+    x = torch.randn((130, 512), generator=card, device="cuda").to(dtype)
     w = (torch.randn((6, 512, 128), generator=card, device="cuda")
          / 512 ** 0.5).to(dtype)
-    full = moe_gemm(x.expand(6, 40, 512), w)
-    assert torch.equal(full, moe_gemm(x.expand(6, 40, 512).contiguous(), w))
-    four = moe_gemm(x[:4].expand(6, 4, 512), w)
-    assert torch.equal(four, full[:, :4])
-    one = moe_gemm(x[2:3].expand(6, 1, 512), w)
-    assert torch.equal(one, full[:, 2:3])
+
+    def run(rows):
+        return moe_gemm(rows.expand(6, *rows.shape), w)
+    if dtype == torch.float32:
+        full = run(x[:40])
+        assert torch.equal(full, moe_gemm(x[:40].expand(6, 40, 512)
+                                          .contiguous(), w))
+        assert torch.equal(run(x[:4]), full[:, :4])
+        assert torch.equal(run(x[2:3]), full[:, 2:3])
+        return
+    full = run(x)
+    assert torch.equal(full, moe_gemm(x.expand(6, 130, 512).contiguous(), w))
+    assert torch.equal(run(x[:64]), full[:, :64])
+    assert torch.equal(run(x[:40]), full[:, :40])
+    assert torch.equal(run(x[40:57]), full[:, 40:57])
+    four = run(x[:4])
+    assert torch.equal(run(x[2:3]), four[:, 2:3])
+    assert torch.equal(run(x[:16])[:, :4], four)
+
+
+@pytest.mark.parametrize("e,c,d,f,bcast", [(3, 17, 100, 130, False),
+                                           (64, 70, 264, 72, True),
+                                           (5, 130, 520, 300, False),
+                                           (8, 512, 1000, 264, True),
+                                           (2, 512, 64, 1032, False)])
+def test_moe_gemm_wide_kernel_on_ragged_shapes(card, e, c, d, f, bcast):
+    """bf16 with C > 16 (TMA + wgmma): C not a multiple of the 128-row
+    tile, d and f not multiples of the stage or the 256-column tile, a
+    broadcast or a per-expert x; every depth gives the same bits, up to the
+    deepest that fits (9, with 32-deep stages)."""
+    x = torch.randn((c, d) if bcast else (e, c, d), generator=card,
+                    device="cuda").bfloat16()
+    if bcast:
+        x = x.expand(e, c, d)
+    w = (torch.randn((e, d, f), generator=card, device="cuda")
+         / d ** 0.5).bfloat16()
+    before = moe_gemm.launches
+    outs = [moe_gemm(x, w, depth=depth) for depth in (1, 2, 4, 5, 9)]
+    torch.cuda.synchronize()
+    assert moe_gemm.launches == before + 5
+    assert mg_ops.regime(c, torch.bfloat16) == "wide"
+    for o in outs:
+        assert o.dtype == torch.float32 and o.shape == (e, c, f)
+        assert torch.equal(o, outs[0])
+    _close(outs[0], moe_gemm_ref(x, w), TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [4, 70])
+@pytest.mark.parametrize("mask_dtype", [torch.bool, torch.int8])
+def test_moe_gemm_mask_skips_experts_and_keeps_the_bits(card, c, dtype,
+                                                       mask_dtype):
+    """An inactive expert's block is exact zeros; an active one's is the
+    unmasked call's, bit for bit, in each kernel (C = 4: thin in bf16; C =
+    70: wide in bf16; fp32 at both)."""
+    e, d, f = 16, 264, 200
+    x = torch.randn((c, d), generator=card, device="cuda").to(dtype)
+    w = (torch.randn((e, d, f), generator=card, device="cuda")
+         / d ** 0.5).to(dtype)
+    xe = x.expand(e, c, d)
+    on = torch.zeros(e, dtype=torch.bool, device="cuda")
+    on[[0, 3, 4, 9, 15]] = True
+    full = moe_gemm(xe, w)
+    out = moe_gemm(xe, w, active=on.to(mask_dtype))
+    assert torch.equal(out[on], full[on])
+    assert bool((out[~on] == 0).all())
+    assert torch.equal(moe_gemm(xe, w, active=torch.ones_like(on)), full)
+    _close(out, moe_gemm_ref(xe, w, on), TOL[dtype])
+
+
+def test_moe_gemm_refuses_rings_that_do_not_fit(card):
+    """Depth 16 fits only the fp32 kernel at C <= 16; the largest depths
+    that fit are 11 (thin), 9 (wide) and 14 (fp32, C > 16).  Refused
+    before any launch."""
+    x = torch.randn((2, 4, 256), generator=card, device="cuda")
+    w = torch.randn((2, 256, 128), generator=card, device="cuda")
+    xb, wb = x.bfloat16(), w.bfloat16()
+    xw = torch.randn((2, 40, 256), generator=card, device="cuda")
+    before = moe_gemm.launches
+    for a, b, depth in ((xb, wb, 12), (xw.bfloat16(), wb, 10), (xw, w, 15)):
+        with pytest.raises(ValueError, match="bytes of shared memory"):
+            moe_gemm(a, b, depth=depth)
+    assert moe_gemm.launches == before
+    for a, b, depth in ((x, w, 16), (xb, wb, 11), (xw.bfloat16(), wb, 9),
+                        (xw, w, 14)):
+        _close(moe_gemm(a, b, depth=depth), moe_gemm_ref(a, b),
+               TOL[a.dtype])
+
+
+def test_moe_gemm_wrapper_and_kernels_agree_on_shared_memory(card):
+    lib = mg_ops._library()
+    for c in (4, 512):
+        for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
+            for depth in (1, 2, 4, 5, 9, 16):
+                assert lib.moe_gemm_smem_bytes(c, depth, code) == \
+                    mg_ops.smem_bytes(c, depth, dtype)
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "granite-moe-3b-a800m"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tokens", [1, 4, 40])
+def test_moe_apply_mask_keeps_the_bits(card, monkeypatch, arch, dtype,
+                                      tokens):
+    """The routed dispatch gives the same bits as the dense one with every
+    expert computed: the dropped experts' rows were multiplied by a
+    combine weight of 0 and are now zeros times 0.  1 and 4 tokens take
+    the thin kernel in bf16 (few of the 8 experts routed), 40 the wide
+    one."""
+    cfg = get_reduced(arch)
+    p = tree_map(lambda a: a.cuda().to(dtype),
+                 init_model_params(0, cfg, device="cpu")["blocks"]["ffn"])
+    p = {k: v[0] for k, v in p.items()}            # the first layer
+    x = (torch.randn((1, tokens, cfg.d_model), generator=card,
+                     device="cuda") * 0.3).to(dtype)
+    before = moe_gemm.launches
+    routed = moe_mod.moe_apply(p, x, cfg)
+    assert moe_gemm.launches == before + 3
+    real = moe_mod.moe_gemm
+    monkeypatch.setattr(moe_mod, "moe_gemm",
+                        lambda *a, active=None, **k: real(*a, **k))
+    assert torch.equal(routed, moe_mod.moe_apply(p, x, cfg))
 
 
 def test_moe_gemm_baseline_runs_no_kernel(card):
@@ -246,6 +368,26 @@ def test_ssm_scan_kernel_against_plain(card, b, t, d, n, dtype):
     out = ssm_scan(x, dt, A, Bm, C)
     torch.cuda.synchronize()
     assert ssm_scan.launches == before + 1
+    assert out.dtype == torch.float32 and out.shape == (b, t, d)
+    _close(out, ssm_scan_ref(x, dt, A, Bm, C), TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [1, 5, 16, 32])
+@pytest.mark.parametrize("t", [1, 63, 64, 65, 200, 512])
+def test_ssm_scan_chunks_against_plain(card, t, n, dtype):
+    """The chunked scan at T below, at and past one chunk, ragged, and
+    cut into the most chunks; every state size up to ``MAX_STATE``."""
+    b, d = 2, 70
+    x = (torch.randn((b, t, d), generator=card, device="cuda") * 0.5
+         ).to(dtype)
+    dt = (torch.nn.functional.softplus(
+        torch.randn((b, t, d), generator=card, device="cuda") - 1.0)
+          ).to(dtype)
+    A = -torch.exp(torch.randn((d, n), generator=card, device="cuda") * 0.5)
+    Bm = torch.randn((b, t, n), generator=card, device="cuda").to(dtype)
+    C = torch.randn((b, t, n), generator=card, device="cuda").to(dtype)
+    out = ssm_scan(x, dt, A, Bm, C)
     assert out.dtype == torch.float32 and out.shape == (b, t, d)
     _close(out, ssm_scan_ref(x, dt, A, Bm, C), TOL[dtype])
 

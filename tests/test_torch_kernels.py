@@ -217,6 +217,78 @@ def test_moe_gemm_point_comes_from_the_table():
     assert mg_ops.operating_point() == OperatingPoint()
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("e,c,d,f,bcast", [(6, 4, 40, 24, True),
+                                           (5, 70, 130, 65, False),
+                                           (8, 17, 64, 96, True)])
+def test_moe_gemm_mask_against_pallas(e, c, d, f, bcast, dtype):
+    """The expert mask: active experts match the Pallas kernel, inactive
+    ones are exact zeros, and no mask or an all-ones one (bool or int8)
+    gives the unmasked result."""
+    jx, jw, tx, tw = _pair((e, c, d), (e, d, f), dtype, seed=5)
+    if bcast:
+        tx = tx[:1].expand(e, c, d)
+        jx = jnp.asarray(tx.float().numpy(), dtype)
+    ref = np.asarray(jax_moe_gemm(jx, jw, bc=64, bf=64, bk=64), np.float32)
+    on = np.zeros(e, bool)
+    on[[0, 2, e - 1]] = True
+    for mask in (torch.from_numpy(on), torch.from_numpy(on).to(torch.int8)):
+        out = moe_gemm(tx, tw, active=mask)
+        assert out.dtype == torch.float32 and out.shape == (e, c, f)
+        np.testing.assert_allclose(out.numpy()[on], ref[on], **TOL[dtype])
+        assert (out.numpy()[~on] == 0).all()
+    full = moe_gemm(tx, tw)
+    np.testing.assert_allclose(full.numpy(), ref, **TOL[dtype])
+    for ones in (torch.ones(e, dtype=torch.bool),
+                 torch.ones(e, dtype=torch.int8)):
+        assert torch.equal(moe_gemm(tx, tw, active=ones), full)
+
+
+def test_moe_gemm_refuses_a_malformed_mask():
+    x, w = torch.ones((3, 4, 8)), torch.ones((3, 8, 5))
+    for bad in (torch.ones(4, dtype=torch.bool), torch.ones((3, 1)),
+                torch.ones(3)):
+        with pytest.raises(ValueError, match="active must be"):
+            moe_gemm(x, w, active=bad)
+
+
+@pytest.mark.parametrize("c,dtype,kind", [(1, torch.bfloat16, "thin"),
+                                          (16, torch.bfloat16, "thin"),
+                                          (17, torch.bfloat16, "wide"),
+                                          (512, torch.bfloat16, "wide"),
+                                          (4, torch.float32, "fp32"),
+                                          (512, torch.float32, "fp32")])
+def test_moe_gemm_regime_follows_c_and_dtype(c, dtype, kind):
+    assert mg_ops.regime(c, dtype) == kind
+
+
+@pytest.mark.parametrize("c,dtype,fits,first_refused", [
+    (4, torch.bfloat16, 11, 12), (40, torch.bfloat16, 9, 10),
+    (4, torch.float32, 16, None), (40, torch.float32, 14, 15)])
+def test_moe_gemm_depths_that_fit(c, dtype, fits, first_refused):
+    """The largest depth whose rings fit 227 KB in each kernel: the wide
+    kernel's stages fall from 64 to 32 deep past depth 4, so it fits to
+    9; the plan refuses the first depth past it, naming the bytes."""
+    assert mg_ops.smem_bytes(c, fits, dtype) <= mg_ops.MAX_SMEM
+    if first_refused is None:
+        return
+    assert mg_ops.smem_bytes(c, first_refused, dtype) > mg_ops.MAX_SMEM
+    with pytest.raises(ValueError, match="bytes of shared memory"):
+        mg_ops._plan(c <= mg_ops.THIN_MAX_C, 64, 2048, 1024, first_refused,
+                     dtype)
+
+
+def test_moe_gemm_split_is_a_function_of_the_shapes():
+    """olmoe's 64 experts already give 1024 column tiles: no split.  Few
+    experts over a deep K split it, up to a cluster of 8."""
+    assert mg_ops.split_k(64, 2048, 1024) == 1
+    assert mg_ops.split_k(64, 1024, 2048) == 1
+    assert mg_ops.split_k(2, 2048, 128) == 4
+    assert mg_ops.split_k(1, 16384, 64) == 8
+    assert mg_ops._plan(True, 2, 2048, 128, 4, torch.bfloat16) == 4
+    assert mg_ops._plan(False, 2, 2048, 128, 4, torch.bfloat16) == 1
+
+
 # --- ssm_scan ---------------------------------------------------------------
 
 def _scan_inputs(b, t, d, n, seed=0):

@@ -21,6 +21,7 @@ from repro.models.moe import moe_specs as jax_moe_specs
 from repro.models.moe import router_probs as jax_router_probs
 from repro_torch import bridge
 from repro_torch.configs import get_reduced
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.moe import moe_apply, moe_apply_grouped, router_probs
 
 ARCHS = ["olmoe-1b-7b", "granite-moe-3b-a800m"]
@@ -71,6 +72,55 @@ def test_dense_dispatch_matches_reference(arch, act):
     cfg_j, cfg_t, pj, pt, x = _setup(arch, act, seed=1)
     ref = jax_moe_apply(pj, jnp.asarray(x), cfg_j)
     out = moe_apply(pt, torch.from_numpy(x), cfg_t)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("tokens", [1, 3])
+def test_routed_dispatch_matches_reference(arch, tokens, monkeypatch):
+    """A few tokens route to few experts: moe_apply masks the others out
+    of every expert product, matches the JAX dense dispatch and, on the
+    CPU, equals the port's dense dispatch with every expert computed."""
+    cfg_j, cfg_t, pj, pt, x = _setup(arch, seed=2)
+    x = x[:1, :tokens]
+    _, idx = router_probs(pt, torch.from_numpy(x), cfg_t)
+    assert len(set(idx.flatten().tolist())) < cfg_t.moe.num_experts
+    masks = []
+    real = moe_mod.moe_gemm
+
+    def spy(*args, active=None, **kwargs):
+        masks.append(active)
+        return real(*args, active=active, **kwargs)
+    monkeypatch.setattr(moe_mod, "moe_gemm", spy)
+    out = moe_apply(pt, torch.from_numpy(x), cfg_t)
+    assert len(masks) == 3
+    for m in masks:
+        assert m.tolist() == [int(e in idx) for e in
+                              range(cfg_t.moe.num_experts)]
+    ref = jax_moe_apply(pj, jnp.asarray(x), cfg_j)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
+    monkeypatch.setattr(moe_mod, "moe_gemm",
+                        lambda *a, active=None, **k: real(*a, **k))
+    assert torch.equal(out, moe_apply(pt, torch.from_numpy(x), cfg_t))
+
+
+def test_grouped_dispatch_masks_empty_buffers(monkeypatch):
+    """The grouped dispatch hands moe_gemm the mask of non-empty buffers;
+    the empty ones were zeros in and zeros out, so nothing changes."""
+    cfg_j, cfg_t, pj, pt, x = _setup("olmoe-1b-7b", seed=3)
+    x = x[:1, :2]
+    masks = []
+    real = moe_mod.moe_gemm
+
+    def spy(*args, active=None, **kwargs):
+        masks.append(active)
+        return real(*args, active=active, **kwargs)
+    monkeypatch.setattr(moe_mod, "moe_gemm", spy)
+    out = moe_apply_grouped(pt, torch.from_numpy(x), cfg_t)
+    _, idx = router_probs(pt, torch.from_numpy(x), cfg_t)
+    used = [e in idx for e in range(cfg_t.moe.num_experts)]
+    assert all(m.tolist() == used for m in masks) and not all(used)
+    ref = jax_moe_apply_grouped(pj, jnp.asarray(x), cfg_j)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
 
 
