@@ -21,11 +21,14 @@ prints no result):
    one), ``moe_gemm`` at C = 4 (thin), also with the expert mask of a
    top-8 routing of 4 tokens (the active experts' bits equal to the
    unmasked call's, the others zeros), and at C = 130 and 512 (wide),
-   ``flash_attention`` also at head dims 80 and 200 and on a query
-   chunk at the end of a longer key sequence (Sk != Sq, ``q_offset``).
-3. parity  — phi3-mini-3.8b, olmoe-1b-7b and falcon-mamba-7b at full
-   width, depth cut to 2 layers, and recurrentgemma-2b cut to 5 (one
-   (rec, rec, attn) macro block and the full model's (rec, rec) tail):
+   ``flash_attention`` also at head dims 80 and 200, with minicpm3's v
+   head dim 64 below its q/k head dim 96, and on a query chunk at the end
+   of a longer key sequence (Sk != Sq, ``q_offset``), ``rglru_scan`` (a
+   chunked scan, whose rounding differs from the plain version's
+   sequential walk) also at 4096 steps, where it walks T in segments.
+3. parity  — phi3-mini-3.8b, olmoe-1b-7b, falcon-mamba-7b and minicpm3-4b
+   at full width, depth cut to 2 layers, and recurrentgemma-2b cut to 5
+   (one (rec, rec, attn) macro block and the full model's (rec, rec) tail):
    ``forward`` and 4 ``decode_step``s in fp32 on the card (kernels) and on
    the CPU (plain versions), and in fp64 on the CPU, on the same seeded
    weights.  The card must be no farther from fp64 than the CPU's fp32 run
@@ -36,11 +39,12 @@ prints no result):
    at the full-depth model's scale, and olmoe's also at the fan-in scale
    (see ``PARITY``).
 4. serve   — phi3-mini-3.8b (32 layers), olmoe-1b-7b (16),
-   falcon-mamba-7b (64) and recurrentgemma-2b (26) at full width, bf16, one
-   after the other: the chunked-prefill engine serves 6 seeded requests, a
-   token-prefill engine must give the same tokens, and one ``forward`` over
-   512 tokens runs ``flash_attention`` (and ``ssm_scan`` for falcon-mamba,
-   ``rglru_scan`` for recurrentgemma).  Each model's run is its own main
+   falcon-mamba-7b (64), recurrentgemma-2b (26) and minicpm3-4b (62, MLA)
+   at full width, bf16, one after the other: the chunked-prefill engine
+   serves 6 seeded requests, a token-prefill engine must give the same
+   tokens, and one ``forward`` over 512 tokens runs ``flash_attention``
+   (and ``ssm_scan`` for falcon-mamba, ``rglru_scan`` for
+   recurrentgemma).  Each model's run is its own main
    path: the launch counts are set to 0 just before it and read just after
    it, and every kernel of that path must have run.  Then a profile of a
    decode body: launches, kernel time by kernel, the device's idle share,
@@ -74,7 +78,7 @@ TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
 SLEEP_CYCLES_PER_S, MAX_SLEEP_S = 1.98e9, 0.2
 SEED = 20261016
 SERVED = ("phi3-mini-3.8b", "olmoe-1b-7b", "falcon-mamba-7b",
-          "recurrentgemma-2b")
+          "recurrentgemma-2b", "minicpm3-4b")
 #: phase 3's draws of the kept layers: (arch, scale, whether the card is
 #: held to 2e-3 of the CPU's fp64 run).  "depth" is the full-depth model's
 #: scale, as the reference's initializer gives it (std 1/sqrt(n_layers));
@@ -88,12 +92,15 @@ SERVED = ("phi3-mini-3.8b", "olmoe-1b-7b", "falcon-mamba-7b",
 #: its gates and attention, but a saturated sigmoid or softmax is flat, so
 #: rounding does not grow through it: the card measured 0.12 of 2e-3 from
 #: fp64 there (and 0.004 at the fan-in scale), so its depth draw carries
-#: the 2e-3 check alone.
+#: the 2e-3 check alone.  minicpm3's depth scale (std 1/sqrt(62)) leaves
+#: its logits well conditioned (the card measured 0.017 of 2e-3 from
+#: fp64), so its depth draw carries the check alone too.
 PARITY = (("phi3-mini-3.8b", "depth", True),
           ("olmoe-1b-7b", "depth", False),
           ("olmoe-1b-7b", "fan_in", True),
           ("falcon-mamba-7b", "depth", True),
-          ("recurrentgemma-2b", "depth", True))
+          ("recurrentgemma-2b", "depth", True),
+          ("minicpm3-4b", "depth", True))
 #: recurrentgemma's ring check: window, cache length and prompt length
 #: (the prompt passes the window, so the ring has wrapped before the 4
 #: decode steps)
@@ -255,7 +262,9 @@ def phase_build() -> None:
 
 def matmul_shapes(arch: str):
     """(product, K, N, dtypes) of every ``queue_matmul`` product on
-    ``arch``'s serve path, at full width; the router runs in fp32 only."""
+    ``arch``'s serve path, at full width; the router runs in fp32 only.
+    MLA's wuk and wuv (the latent to every head's k and v) run in the
+    expanded form of ``forward`` only; its decode absorbs them."""
     from repro_torch.configs import get_config
     from repro_torch.models.ssm import ssm_dims
     cfg = get_config(arch)
@@ -272,6 +281,16 @@ def matmul_shapes(arch: str):
                ("out_proj", w, d, both), ("q", d, cfg.n_heads * hd, both),
                ("k/v", d, cfg.n_kv_heads * hd, both),
                ("o", cfg.n_heads * hd, d, both),
+               ("wi/wg", d, cfg.d_ff, both), ("ffn wo", cfg.d_ff, d, both)]
+    elif cfg.mla:
+        m, h = cfg.mla, cfg.n_heads
+        out = [("wdq", d, m.q_lora_rank, both),
+               ("wuq", m.q_lora_rank,
+                h * (m.qk_nope_head_dim + m.qk_rope_head_dim), both),
+               ("wdkv", d, m.kv_lora_rank + m.qk_rope_head_dim, both),
+               ("wuk", m.kv_lora_rank, h * m.qk_nope_head_dim, both),
+               ("wuv", m.kv_lora_rank, h * m.v_head_dim, both),
+               ("o", h * m.v_head_dim, d, both),
                ("wi/wg", d, cfg.d_ff, both), ("ffn wo", cfg.d_ff, d, both)]
     else:
         out = [("q", d, cfg.n_heads * hd, both),
@@ -296,9 +315,9 @@ QM_DEPTHS = ((1, 1), (2, 2), (4, 4), (2, 4), (8, 8), (1, 8))
 
 def check_queue_matmul(gen, report) -> dict:
     """Every product of the served models at M = 4 (decode over 4 slots)
-    and M = 512 (``forward``), and phi3's q/k/v/o and ffn products also at
-    M = 64 and 128 (the wide kernel's smallest tiles), bit-identical
-    across the ring depths of ``QM_DEPTHS``."""
+    and M = 512 (``forward``; MLA's wuk/wuv there only), and phi3's q/k/v/o
+    and ffn products also at M = 64 and 128 (the wide kernel's smallest
+    tiles), bit-identical across the ring depths of ``QM_DEPTHS``."""
     from repro_torch.kernels.queue_matmul import ops
     from repro_torch.kernels.queue_matmul.ref import matmul_ref
     rep = None
@@ -307,11 +326,17 @@ def check_queue_matmul(gen, report) -> dict:
     cases = [(arch, name, k, n, dtype) for arch in SERVED
              for name, k, n, dtypes in matmul_shapes(arch)
              for dtype in dtypes]
+    seen = set()                      # a shape two models share runs once
     for arch, name, k, n, dtype in cases:
         ms_ = (4, 512)
         if arch == "phi3-mini-3.8b" and name != "head":
             ms_ = (4, 64, 128, 512)
+        elif name == "wuk/wuv":
+            ms_ = (512,)
         for m in ms_:
+            if (m, k, n, dtype) in seen:
+                continue
+            seen.add((m, k, n, dtype))
             x = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
             w = (torch.randn((k, n), generator=gen, device="cuda")
                  / math.sqrt(k)).to(dtype)
@@ -390,15 +415,17 @@ def _sdpa(q, k, v, causal, window, q_offset):
 def check_flash_attention(gen, report) -> dict:
     from repro_torch.kernels.flash_attention import ops
     rep = None
-    log("[kernels] flash_attention  B  Hq Hkv   Sq    Sk   D  causal window "
-        "q_off  dtype  max_abs_err  ms  plain_ms  library_ms  bound_ms")
+    log("[kernels] flash_attention  B  Hq Hkv   Sq    Sk   D  Dv causal "
+        "window q_off  dtype  max_abs_err  ms  plain_ms  library_ms  "
+        "bound_ms")
     # phi3's heads (32 of 96), olmoe's (16 of 128) and recurrentgemma's (10
     # of 256 over one KV head, window 2048), at the 512 tokens of phase 4's
     # ``forward`` and the 128 of phase 3's; windows, GQA, longer and ragged
     # sequences at phi3's width, and recurrentgemma's at 4096 tokens, where
     # its window bites; head dims 80 and 200 (padded to 16 in the kernel);
     # a query chunk at the end of a longer key sequence (Sk != Sq,
-    # q_offset), as a chunked prefill would give it
+    # q_offset), as a chunked prefill would give it; minicpm3's MLA heads
+    # (40 of q/k 96 and v 64) at phase 4's and phase 3's lengths
     cases = [(32, 32, 512, 512, 96, True, None, 0),
              (32, 32, 512, 512, 96, True, 256, 0),
              (32, 32, 512, 512, 96, False, None, 0),
@@ -418,11 +445,14 @@ def check_flash_attention(gen, report) -> dict:
              (16, 4, 512, 512, 200, True, 300, 0),
              (32, 8, 128, 640, 96, True, None, 512),
              (10, 1, 256, 4096, 256, True, 2048, 3840)]
+    cases = [c + (c[4],) for c in cases] + [
+        (40, 40, 512, 512, 96, True, None, 0, 64),
+        (40, 40, 128, 128, 96, True, None, 0, 64)]
     for dtype in (torch.float32, torch.bfloat16):
-        for hq, hkv, sq, sk, d, causal, window, q_off in cases:
+        for hq, hkv, sq, sk, d, causal, window, q_off, dv in cases:
             q = torch.randn((1, hq, sq, d), generator=gen, device="cuda").to(dtype)
             k = torch.randn((1, hkv, sk, d), generator=gen, device="cuda").to(dtype)
-            v = torch.randn((1, hkv, sk, d), generator=gen, device="cuda").to(dtype)
+            v = torch.randn((1, hkv, sk, dv), generator=gen, device="cuda").to(dtype)
 
             def run():
                 return ops.flash_attention(q, k, v, causal=causal,
@@ -437,18 +467,19 @@ def check_flash_attention(gen, report) -> dict:
                             iters=5)
             lib = cuda_ms(lambda: _sdpa(q, k, v, causal, window, q_off))
             pairs = int(_keep(sq, sk, causal, window, q_off).sum())
-            b_ms, b_by = bound(4.0 * hq * pairs * d,
-                               (2 * hq * sq + 2 * hkv * sk) * d
+            # QK^T over D and PV over Dv, 2 operations a multiply-add
+            flops = 2.0 * hq * pairs * (d + dv)
+            b_ms, b_by = bound(flops, (hq * sq + hkv * sk) * (d + dv)
                                * q.element_size(), dtype)
             log(f"[kernels] flash_attention  1 {hq:3d} {hkv:3d} {sq:5d} "
-                f"{sk:5d} {d:3d} {int(causal):6d} {str(window):>6s} "
+                f"{sk:5d} {d:3d} {dv:3d} {int(causal):6d} {str(window):>6s} "
                 f"{q_off:5d} {str(dtype)[6:]:>8s} {err:10.3e} {ms:8.4f} "
                 f"{plain:8.4f} {lib:8.4f} {b_ms:8.4f} ({b_by}; "
                 f"{ms / lib:.2f}x library; "
-                f"{4.0 * hq * pairs * d / ms / 1e9:.1f} TFLOP/s; "
+                f"{flops / ms / 1e9:.1f} TFLOP/s; "
                 f"wall {wall:.4f})")
             row = {"B": 1, "Hq": hq, "Hkv": hkv, "Sq": sq, "Sk": sk, "D": d,
-                   "causal": causal, "window": window, "q_offset": q_off,
+                   "Dv": dv, "causal": causal, "window": window, "q_offset": q_off,
                    "dtype": str(dtype)[6:], "max_abs_err": err, "ms": ms,
                    "wall_ms": wall, "plain_ms": plain, "library_ms": lib,
                    "bound_ms": b_ms, "bound_by": b_by}
@@ -604,16 +635,16 @@ def check_ssm_scan(gen, report) -> dict:
 
 def check_rglru_scan(gen, report) -> dict:
     """recurrentgemma-2b's scan: width 2560, over the 512 tokens of phase
-    4's ``forward`` and the 128 of phase 3's, with a and bx drawn as the
-    model's gates make them.  No single PyTorch call computes it, so there
-    is no library time."""
+    4's ``forward``, the 128 of phase 3's and 4096 (walked in segments),
+    with a and bx drawn as the model's gates make them.  No single PyTorch
+    call computes it, so there is no library time."""
     from repro_torch.kernels.rglru_scan import ops
     from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
     rep = None
     log("[kernels] rglru_scan  B    T     w  dtype  max_abs_err  ms  "
         "plain_ms  bound_ms")
     for dtype in (torch.float32, torch.bfloat16):
-        for b, t, w in ((1, 512, 2560), (1, 128, 2560)):
+        for b, t, w in ((1, 512, 2560), (1, 128, 2560), (1, 4096, 2560)):
             def rnd(*shape):
                 return torch.randn(shape, generator=gen, device="cuda")
             # a = exp(-8 softplus(1) r), r a sigmoid; bx = sqrt(1 - a^2) x
@@ -626,15 +657,15 @@ def check_rglru_scan(gen, report) -> dict:
             torch.cuda.synchronize()
             err = within(out, ref, TOL[dtype])
             ms = cuda_ms(lambda: ops.rglru_scan(a, bx))
-            plain = cuda_ms(lambda: rglru_scan_ref(a, bx), iters=5)
+            plain = cuda_ms(lambda: rglru_scan_ref(a, bx),
+                            iters=5 if t <= 512 else 1)
             # a multiply and an add per element; a and bx read, h written
             b_ms, b_by = bound(2.0 * b * t * w,
                                b * t * w * (2 * a.element_size() + 4),
                                torch.float32)
             log(f"[kernels] rglru_scan {b:2d} {t:4d} {w:5d} "
                 f"{str(dtype)[6:]:>8s} {err:10.3e} {ms:8.4f} {plain:8.4f} "
-                f"{b_ms:8.4f} ({b_by}); bit-equal to plain: "
-                f"{bool(torch.equal(out, ref))}")
+                f"{b_ms:8.4f} ({b_by}; {b_ms / ms:.2f} of the bound)")
             row = {"B": b, "T": t, "w": w, "dtype": str(dtype)[6:],
                    "max_abs_err": err, "ms": ms, "plain_ms": plain,
                    "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}

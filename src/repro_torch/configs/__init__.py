@@ -1,9 +1,10 @@
 """Architecture registry: --arch <id> -> ModelConfig (+ reduced smoke).
 
-The port serves the dense GQA family (phi3-mini-3.8b, glm4-9b), the MoE
-family (olmoe-1b-7b, granite-moe-3b-a800m), the SSM family
-(falcon-mamba-7b) and the hybrid family (recurrentgemma-2b); the other
-architectures of the JAX package's registry come with their families."""
+The port serves the dense family with GQA (phi3-mini-3.8b, glm4-9b) and
+with MLA (minicpm3-4b), the MoE family (olmoe-1b-7b,
+granite-moe-3b-a800m), the SSM family (falcon-mamba-7b) and the hybrid
+family (recurrentgemma-2b); the other architectures of the JAX package's
+registry come with their families."""
 from importlib import import_module
 from typing import List
 
@@ -11,6 +12,7 @@ _MODULES = {
     "falcon-mamba-7b": "falcon_mamba_7b",
     "phi3-mini-3.8b": "phi3_mini_3_8b",
     "glm4-9b": "glm4_9b",
+    "minicpm3-4b": "minicpm3_4b",
     "granite-moe-3b-a800m": "granite_moe_3b",
     "olmoe-1b-7b": "olmoe_1b_7b",
     "recurrentgemma-2b": "recurrentgemma_2b",

@@ -1,0 +1,16 @@
+"""minicpm3-4b — dense with Multi-head Latent Attention
+[hf:openbmb/MiniCPM3-4B]."""
+from ..config import MLAConfig, ModelConfig
+
+CONFIG = ModelConfig(
+    name="minicpm3-4b", family="dense", n_layers=62, d_model=2560,
+    n_heads=40, n_kv_heads=40, d_ff=6400, vocab=73448,
+    mla=MLAConfig(q_lora_rank=768, kv_lora_rank=256,
+                  qk_nope_head_dim=64, qk_rope_head_dim=32, v_head_dim=64))
+
+def reduced() -> ModelConfig:
+    return ModelConfig(
+        name="minicpm3-smoke", family="dense", n_layers=2, d_model=64,
+        n_heads=4, n_kv_heads=4, d_ff=128, vocab=128,
+        mla=MLAConfig(q_lora_rank=32, kv_lora_rank=16,
+                      qk_nope_head_dim=8, qk_rope_head_dim=4, v_head_dim=8))

@@ -6,7 +6,12 @@ repeated for GQA); a CUDA tensor launches the kernel in
 index and needs no padding of S.  bf16 runs on the tensor cores, fp32 on
 FMAs.  A bf16 head dim that is not a multiple of 8 is padded with zero
 columns here (never on the served models' shapes), so every row is a
-16-byte copy.  ``flash_attention.launches`` counts kernel launches.
+16-byte copy.  A v head dim ``Dv`` below q's and k's ``D`` (MLA: 96 for q
+and k, 64 for v) is padded with zero columns to ``D`` on the card, and the
+output sliced back: zero columns of v give zero columns of the output, and
+the scale 1/sqrt(D) is q's either way, so the padding is exact; the kernel
+keeps one head dim for its tiles.  ``flash_attention.launches`` counts
+kernel launches.
 """
 from __future__ import annotations
 
@@ -40,13 +45,13 @@ def _library() -> ctypes.CDLL:
 
 def _plain(q, k, v, causal, window, q_offset) -> torch.Tensor:
     B, Hq, Sq, D = q.shape
-    Hkv, Sk = k.shape[1], k.shape[2]
+    Hkv, Sk, Dv = k.shape[1], k.shape[2], v.shape[3]
     k = k.repeat_interleave(Hq // Hkv, dim=1)
     v = v.repeat_interleave(Hq // Hkv, dim=1)
     out = attention_ref(q.reshape(B * Hq, Sq, D), k.reshape(B * Hq, Sk, D),
-                        v.reshape(B * Hq, Sk, D), causal=causal,
+                        v.reshape(B * Hq, Sk, Dv), causal=causal,
                         window=window, q_offset=q_offset)
-    return out.reshape(B, Hq, Sq, D).to(q.dtype)
+    return out.reshape(B, Hq, Sq, Dv).to(q.dtype)
 
 
 def _launch(q, k, v, causal, window, q_offset) -> torch.Tensor:
@@ -58,9 +63,11 @@ def _launch(q, k, v, causal, window, q_offset) -> torch.Tensor:
     if not (k.device == v.device == q.device):
         raise ValueError("q, k and v must lie on one device")
     B, Hq, Sq, D = q.shape
-    Hkv, Sk = k.shape[1], k.shape[2]
+    Hkv, Sk, Dv = k.shape[1], k.shape[2], v.shape[3]
     if D > MAX_HEAD_DIM:
         raise ValueError(f"head dim {D} > {MAX_HEAD_DIM}")
+    if Dv < D:
+        v = F.pad(v, (0, D - Dv))
     ld = D
     if q.dtype == torch.bfloat16 and D % 8:
         ld = D + (-D) % 8
@@ -82,20 +89,23 @@ def _launch(q, k, v, causal, window, q_offset) -> torch.Tensor:
         raise RuntimeError("flash_attention kernel launch failed: "
                            + lib.flash_attention_error_string(err).decode())
     flash_attention.launches += 1
-    return out[..., :D] if ld != D else out
+    return out[..., :Dv] if ld != Dv else out
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     q_offset: int = 0) -> torch.Tensor:
-    """q: (B, Hq, Sq, D); k/v: (B, Hkv, Sk, D), Hq a multiple of Hkv.
-    Query ``i`` sits at position ``q_offset + i``.  Returns (B, Hq, Sq, D)
-    in ``q.dtype``."""
-    if q.ndim != 4 or k.shape != v.shape or k.shape[0] != q.shape[0] or \
-            k.shape[3] != q.shape[3] or q.shape[1] % k.shape[1]:
-        raise ValueError(f"flash_attention takes q (B, Hq, Sq, D) and k/v "
-                         f"(B, Hkv, Sk, D), got {tuple(q.shape)}, "
-                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    """q: (B, Hq, Sq, D); k: (B, Hkv, Sk, D); v: (B, Hkv, Sk, Dv) with
+    Dv <= D; Hq a multiple of Hkv.  Query ``i`` sits at position
+    ``q_offset + i``.  Returns (B, Hq, Sq, Dv) in ``q.dtype``."""
+    if q.ndim != 4 or k.ndim != 4 or v.ndim != 4 or \
+            v.shape[:3] != k.shape[:3] or k.shape[0] != q.shape[0] or \
+            k.shape[3] != q.shape[3] or v.shape[3] > q.shape[3] or \
+            q.shape[1] % k.shape[1]:
+        raise ValueError(f"flash_attention takes q (B, Hq, Sq, D), k "
+                         f"(B, Hkv, Sk, D) and v (B, Hkv, Sk, Dv <= D), got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
     if q.device.type == "cpu":
         return _plain(q, k, v, causal, window, q_offset)
     if q.device.type != "cuda":

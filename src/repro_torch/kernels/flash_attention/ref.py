@@ -11,7 +11,7 @@ from ...device import upcast
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True, window: Optional[int] = None,
                   q_offset: int = 0) -> torch.Tensor:
-    """q: (BH, Sq, D); k/v: (BH, Sk, D) -> (BH, Sq, D) in ``v.dtype``.
+    """q/k: (BH, Sq|Sk, D); v: (BH, Sk, Dv) -> (BH, Sq, Dv) in ``v.dtype``.
     Query ``i`` sits at position ``q_offset + i``; scores are fp32 (fp64 for fp64)."""
     sq, sk = q.shape[1], k.shape[1]
     s = torch.einsum("bqd,bkd->bqk", upcast(q), upcast(k)) / math.sqrt(

@@ -1,9 +1,12 @@
 """Public wrapper of the CUDA RG-LRU scan, h in fp32.
 
 The operands are the JAX wrapper's, ``rglru_scan(a, bx)``; its time and
-channel tiles (``bt``, ``bw``) have no counterpart: the CUDA kernel walks
-the whole sequence with one thread per (batch, channel), and nothing is
-padded.
+channel tiles (``bt``, ``bw``) have no counterpart: the CUDA kernel is a
+single-pass chunked scan, one block per (batch row, 16 channels) holding
+up to 16 chunks of 16 steps at a time, their start states carried across
+the chunks inside the block and the sequence walked in segments of 256
+steps, in one launch a call; nothing is padded.  Its rounding differs from
+the plain version's sequential walk (composed decays, one FMA a step).
 
 Where it runs: a CPU tensor goes to the plain version
 (:func:`rglru_scan_ref`); a CUDA tensor launches the kernel in

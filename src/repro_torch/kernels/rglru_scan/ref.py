@@ -10,7 +10,9 @@ def rglru_scan_ref(a: torch.Tensor, bx: torch.Tensor) -> torch.Tensor:
 
     ``h_t = a_t * h_{t-1} + bx_t`` from ``h_0 = 0``, both inputs cast to
     fp32 first (fp64 stays fp64), one multiply and one add a step, each
-    rounded, as the CUDA kernel computes it."""
+    rounded, in sequence.  The CUDA kernel composes chunks of the sequence
+    instead, so it rounds differently and is held to this within the
+    kernel tolerance."""
     acc = wide_dtype(a.dtype)
     a, bx = a.to(acc), bx.to(acc)
     h = torch.zeros_like(a[:, 0])

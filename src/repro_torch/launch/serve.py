@@ -8,6 +8,7 @@ the card unless ``--device cpu`` is given.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b \\
       --reduced --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-2b
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch minicpm3-4b
 
 Weights are random, drawn from ``--seed``; prompts come from a numpy
 generator seeded with ``--seed + 1``.

@@ -1,13 +1,15 @@
-"""Attention layers, dense GQA part: full/causal/local-window attention and
-the decode path.
+"""Attention layers: GQA (full/causal/local-window), MLA, and their decode
+paths.
 
-Sequence-level attention (:func:`gqa_apply`) runs the port's
-``flash_attention`` op: the CUDA kernel on the card, its plain version on
-the CPU.  :func:`flash_attention_ref` is the model-level plain version, a
-blockwise online softmax in PyTorch, ported from the JAX package's reference
-of the same name.  Decode attention (:func:`decode_attention_ref`) stays
-plain PyTorch, as the JAX package computes it outside any kernel.  MLA comes
-with its family in a later slice.
+Sequence-level attention (:func:`gqa_apply`, :func:`mla_apply`) runs the
+port's ``flash_attention`` op: the CUDA kernel on the card, its plain
+version on the CPU.  :func:`flash_attention_ref` is the model-level plain
+version, a blockwise online softmax in PyTorch, ported from the JAX
+package's reference of the same name.  Decode attention
+(:func:`decode_attention_ref`, and MLA's absorbed scores over the latent
+cache in :func:`mla_decode`) stays plain PyTorch, as the JAX package
+computes it outside any kernel.  Every 2-D projection runs through
+``queue_matmul``.
 """
 from __future__ import annotations
 
@@ -20,7 +22,7 @@ from ..config import ModelConfig
 from ..core.policy import ExecutionPolicy
 from ..device import upcast, wide_dtype
 from ..kernels.flash_attention import flash_attention
-from .layers import ParamSpec, apply_rope, matmul, rope_angles
+from .layers import ParamSpec, apply_rope, matmul, rms_norm, rope_angles
 
 NEG_INF = -1e30
 
@@ -205,3 +207,105 @@ def gqa_decode(p, x: torch.Tensor, cfg: ModelConfig, k_cache: torch.Tensor,
         valid = torch.clamp(length + 1, max=T)
         o = decode_attention_ref(q, k_cache, v_cache, valid)
     return _out_project(o, p["wo"], policy), k_cache, v_cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (Multi-head Latent Attention, MiniCPM3/DeepSeek-style)
+# ---------------------------------------------------------------------------
+
+def mla_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+    d, m, H = cfg.d_model, cfg.mla, cfg.n_heads
+    qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+    return {
+        "wdq": ParamSpec((d, m.q_lora_rank), ("embed", "lora")),
+        "q_norm": ParamSpec((m.q_lora_rank,), ("lora",), init="zeros"),
+        "wuq": ParamSpec((m.q_lora_rank, H, qk), ("lora", "heads", "head_dim")),
+        "wdkv": ParamSpec((d, m.kv_lora_rank + m.qk_rope_head_dim),
+                          ("embed", "lora")),
+        "kv_norm": ParamSpec((m.kv_lora_rank,), ("lora",), init="zeros"),
+        "wuk": ParamSpec((m.kv_lora_rank, H, m.qk_nope_head_dim),
+                         ("lora", "heads", "head_dim")),
+        "wuv": ParamSpec((m.kv_lora_rank, H, m.v_head_dim),
+                         ("lora", "heads", "head_dim")),
+        "wo": ParamSpec((H, m.v_head_dim, d), ("heads", "head_dim", "embed")),
+    }
+
+
+def _mla_qkv(p, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor,
+             policy: Optional[ExecutionPolicy]):
+    """The query heads' nope and rope parts (B, H, S, .), the normed latent
+    (B, S, r) and the shared rope key (B, S, rope_dim); RoPE at
+    ``positions``, (B, S) or (1, S)."""
+    m = cfg.mla
+    cq = rms_norm(matmul(x, p["wdq"], policy), p["q_norm"], cfg.norm_eps)
+    q = _project(cq, p["wuq"], policy)
+    q_nope, q_rope = q[..., :m.qk_nope_head_dim], q[..., m.qk_nope_head_dim:]
+    ckv = matmul(x, p["wdkv"], policy)
+    latent = rms_norm(ckv[..., :m.kv_lora_rank], p["kv_norm"], cfg.norm_eps)
+    cos, sin = rope_angles(positions, m.qk_rope_head_dim, cfg.rope_theta,
+                           wide_dtype(x.dtype))
+    return (q_nope, apply_rope(q_rope, cos[:, None], sin[:, None]), latent,
+            apply_rope(ckv[..., m.kv_lora_rank:], cos, sin))
+
+
+def mla_apply(p, x: torch.Tensor, cfg: ModelConfig, *, q_offset: int = 0,
+              policy: Optional[ExecutionPolicy] = None) -> torch.Tensor:
+    """The expanded form, for ``forward``: the latent is projected to every
+    head's k (nope part, with the shared rope key appended) and v, and the
+    heads run causal ``flash_attention`` with q/k head dim
+    ``nope + rope`` and v head dim ``v_head_dim``.  x: (B, S, d)."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    pos = q_offset + torch.arange(S, device=x.device)
+    q_nope, q_rope, latent, k_rope = _mla_qkv(p, x, cfg, pos[None], policy)
+    k_nope = _project(latent, p["wuk"], policy)
+    v = _project(latent, p["wuv"], policy)
+    k = torch.cat([k_nope, k_rope[:, None].expand(
+        B, cfg.n_heads, S, m.qk_rope_head_dim)], dim=-1)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    o = flash_attention(q, k, v, causal=True, q_offset=q_offset)
+    return _out_project(o, p["wo"], policy)
+
+
+def mla_decode(p, x: torch.Tensor, cfg: ModelConfig,
+               latent_cache: torch.Tensor, rope_cache: torch.Tensor,
+               length: torch.Tensor, *, rows: Optional[torch.Tensor] = None,
+               policy: Optional[ExecutionPolicy] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The absorbed form, for decode: the caches hold only the latent
+    (B, T, r) and the rope key (B, T, rope_dim); the score of position t
+    is ``q_nope W_uk . latent_t + q_rope . k_rope_t``.  x: (B, 1, d);
+    ``length`` per-sequence (B,).  Returns (out (B, 1, d), latent_cache,
+    rope_cache).
+
+    The caches are written in place, the rows of ``rows`` only (default
+    all), at ``min(length, T - 1)``: the reference writes with
+    ``dynamic_update_slice`` at ``length``, which JAX clamps to the last
+    row once a slot's length reaches T (the engine advances free slots'
+    lengths too), where GQA's ring writes at ``length % T``.  Every
+    position up to ``length`` is attended, so past T all T rows are."""
+    m = cfg.mla
+    B = x.shape[0]
+    length = torch.as_tensor(length, dtype=torch.int64,
+                             device=x.device).expand(B)
+    q_nope, q_rope, lat_t, k_rope_t = _mla_qkv(p, x, cfg, length[:, None],
+                                               policy)
+    T = latent_cache.shape[1]
+    slot = torch.clamp(length, max=T - 1)
+    if rows is None:
+        rows = torch.arange(B, device=x.device)
+    latent_cache[rows, slot[rows]] = lat_t[rows, 0].to(latent_cache.dtype)
+    rope_cache[rows, slot[rows]] = k_rope_t[rows, 0].to(rope_cache.dtype)
+
+    q_eff = torch.einsum("bhsk,rhk->bhsr", q_nope, p["wuk"])   # (B,H,1,r)
+    lat = upcast(latent_cache)
+    s = (torch.einsum("bhsr,btr->bhst", upcast(q_eff), lat)
+         + torch.einsum("bhsk,btk->bhst", upcast(q_rope),
+                        upcast(rope_cache)))
+    s = s / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
+    mask = torch.arange(T, device=x.device)[None] <= length[:, None]
+    s = torch.where(mask[:, None, None], s,
+                    torch.tensor(NEG_INF, dtype=s.dtype, device=x.device))
+    o_lat = torch.einsum("bhst,btr->bhsr", torch.softmax(s, dim=-1), lat)
+    o = torch.einsum("bhsr,rhk->bhsk", o_lat.to(x.dtype), p["wuv"])
+    return _out_project(o, p["wo"], policy), latent_cache, rope_cache

@@ -1,6 +1,6 @@
-"""Model assembly for the dense GQA, MoE, SSM and hybrid families:
-parameter trees, forward pass, KV and state caches, decode step and chunked
-prefill.
+"""Model assembly for the dense (GQA or MLA), MoE, SSM and hybrid
+families: parameter trees, forward pass, KV, latent and state caches,
+decode step and chunked prefill.
 
 Parameters and caches keep the JAX package's pytree layout — nested dicts,
 per-layer leaves stacked on axis 0, batch on axis 1 of every stacked cache
@@ -13,7 +13,10 @@ through ``ssm_scan`` and the full-sequence RG-LRU recurrence through
 ``rglru_scan``, each under the run's execution policy.  The hybrid family
 (recurrentgemma) keeps the reference's tree: its repeating (rec, rec, attn)
 macro block stacked over ``n_full`` under ``"macros"`` and the unstacked
-tail layers as ``tail_{j}_{kind}``.
+tail layers as ``tail_{j}_{kind}``.  An MLA model (minicpm3) runs its
+attention expanded in ``forward`` (through ``flash_attention`` with a v
+head dim below q's) and absorbed in decode, over a cache of latent and
+rope-key rows.
 
 Two departures from the functional JAX code, both invisible in the
 numbers:
@@ -25,8 +28,8 @@ numbers:
 * :func:`decode_step` and :func:`prefill_step` update the cache in place
   and return the same dict.
 
-MLA and the frontends raise ``NotImplementedError``: they come with their
-families in later slices.
+The vision and audio frontends raise ``NotImplementedError``: they come
+with their families in a later slice.
 """
 from __future__ import annotations
 
@@ -53,10 +56,11 @@ def _check_family(cfg: ModelConfig) -> None:
               or (cfg.family == "moe" and cfg.moe is not None)
               or (cfg.family == "ssm" and cfg.ssm is not None)
               or (cfg.family == "hybrid" and cfg.rglru is not None))
-    if not ported or cfg.mla or cfg.frontend:
+    if not ported or cfg.frontend:
         raise NotImplementedError(
-            f"{cfg.name}: the port serves the dense GQA, MoE, SSM and hybrid "
-            f"families so far; family={cfg.family!r} comes in a later slice")
+            f"{cfg.name}: the port serves the dense (GQA or MLA), MoE, SSM "
+            f"and hybrid families so far; family={cfg.family!r} "
+            f"(frontend={cfg.frontend!r}) comes in a later slice")
 
 
 # ---------------------------------------------------------------------------
@@ -74,7 +78,7 @@ def _dense_block_specs(cfg: ModelConfig) -> Dict[str, Pytree]:
     d = cfg.d_model
     return {"ln1": ParamSpec((d,), ("embed",), init="zeros"),
             "ln2": ParamSpec((d,), ("embed",), init="zeros"),
-            "attn": attn.gqa_specs(cfg),
+            "attn": attn.mla_specs(cfg) if cfg.mla else attn.gqa_specs(cfg),
             "ffn": (moe_mod.moe_specs(cfg) if cfg.moe
                     else ffn_specs(d, cfg.d_ff, cfg.ffn_act))}
 
@@ -179,8 +183,8 @@ def _layer(blocks: Pytree, i: int, dtype: torch.dtype) -> Pytree:
 def _layers(params: Pytree, cfg: ModelConfig,
             dtype: torch.dtype) -> Iterator[Tuple[str, Pytree]]:
     """``(kind, leaves)`` of every layer in the order the model runs them:
-    kind ``"attn"`` (a GQA block with its FFN), ``"ssm"`` (a Mamba block)
-    or ``"rec"`` (an RG-LRU block with its FFN).  The hybrid family runs its
+    kind ``"attn"`` (a GQA or MLA block with its FFN), ``"ssm"`` (a Mamba
+    block) or ``"rec"`` (an RG-LRU block with its FFN).  The hybrid family runs its
     macro blocks, ``pattern * n_full``, then its tail."""
     if cfg.family != "hybrid":
         kind = "ssm" if cfg.family == "ssm" else "attn"
@@ -215,8 +219,12 @@ def embed_inputs(params: Pytree, batch: Dict[str, torch.Tensor],
 def _dense_block_apply(p, x, cfg: ModelConfig, rc: RunConfig,
                        q_offset: int = 0, window: Optional[int] = None):
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    h = attn.gqa_apply(p["attn"], h, cfg, window=window, q_offset=q_offset,
-                       policy=rc.policy)
+    if cfg.mla:
+        h = attn.mla_apply(p["attn"], h, cfg, q_offset=q_offset,
+                           policy=rc.policy)
+    else:
+        h = attn.gqa_apply(p["attn"], h, cfg, window=window,
+                           q_offset=q_offset, policy=rc.policy)
     x = x + h
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
     return x + _ffn(p["ffn"], h, cfg, rc)
@@ -248,7 +256,7 @@ def forward(params: Pytree, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
             rc: RunConfig) -> torch.Tensor:
     """Full-sequence forward -> logits (B, S, vocab) in the compute dtype.
     Attention runs through ``flash_attention`` (with the hybrid family's
-    local window), the SSM scan through ``ssm_scan``, the RG-LRU recurrence
+    local window; MLA's expanded form with its v head dim), the SSM scan through ``ssm_scan``, the RG-LRU recurrence
     through ``rglru_scan``."""
     _check_family(cfg)
     dtype = torch_dtype(rc.dtype)
@@ -278,7 +286,10 @@ def cache_spec(cfg: ModelConfig, batch: int, max_len: int,
     inputs (L, B, K-1, d_in) in the compute dtype instead of K/V.  The
     hybrid family keeps, over its recurrent layers, an fp32 h (n_rec, B, w)
     and the conv inputs (n_rec, B, K-1, w), and over its attention layers a
-    K/V ring (n_attn, B, Hkv, W, hd) of ``W = min(window, max_len)``."""
+    K/V ring (n_attn, B, Hkv, W, hd) of ``W = min(window, max_len)``.  MLA
+    keeps the latent (L, B, max_len, kv_lora_rank) and the rope key
+    (L, B, max_len, qk_rope_head_dim) in the compute dtype instead of
+    K/V."""
     _check_family(cfg)
     L, hd = cfg.n_layers, cfg.resolved_head_dim
     out = {"len": ((batch,), torch.int32)}
@@ -297,6 +308,11 @@ def cache_spec(cfg: ModelConfig, batch: int, max_len: int,
         out["ssm"] = ((L, batch, d_in, d_state), wide_dtype(dtype))
         out["conv"] = ((L, batch, cfg.ssm.d_conv - 1, d_in), dtype)
         return out
+    if cfg.mla:
+        m = cfg.mla
+        return {**out,
+                "latent": ((L, batch, max_len, m.kv_lora_rank), dtype),
+                "rope": ((L, batch, max_len, m.qk_rope_head_dim), dtype)}
     kv = ((L, batch, cfg.n_kv_heads, max_len, hd), dtype)
     return {**out, "k": kv, "v": kv}
 
@@ -322,12 +338,14 @@ def _write_rows(leaf: torch.Tensor, i: int, rows: Optional[torch.Tensor],
 def _decode_body(params: Pytree, cache: Pytree, tokens: torch.Tensor,
                  cfg: ModelConfig, rc: RunConfig,
                  rows: Optional[torch.Tensor]) -> torch.Tensor:
-    """One token for every slot; writes the K/V rows, SSM states or RG-LRU
-    states of ``rows`` (all slots when None) in place and returns fp32
-    logits (B, vocab).  ``len`` is left to the caller.  Each kind of layer
-    has its own cursor into the cache leaves it owns (the hybrid family's
-    recurrent layers into ``h``/``conv``, its attention layers into the
-    ``k``/``v`` ring of ``slot = len % W``)."""
+    """One token for every slot; writes the K/V rows, latent and rope rows,
+    SSM states or RG-LRU states of ``rows`` (all slots when None) in place
+    and returns fp32 logits (B, vocab).  ``len`` is left to the caller.
+    Each kind of layer has its own cursor into the cache leaves it owns
+    (the hybrid family's recurrent layers into ``h``/``conv``, its attention
+    layers into the ``k``/``v`` ring of ``slot = len % W``; MLA's rows go
+    to ``min(len, max_len - 1)``, as the reference's clamped write puts
+    them)."""
     dtype = torch_dtype(rc.dtype)
     x = params["embed"][tokens].to(dtype)
     length = cache["len"]
@@ -351,6 +369,10 @@ def _decode_body(params: Pytree, cache: Pytree, tokens: torch.Tensor,
                 rc.policy)
             _write_rows(cache["h"], i, rows, h_s)
             _write_rows(cache["conv"], i, rows, conv_s)
+        elif cfg.mla:
+            y, _, _ = attn.mla_decode(bp["attn"], hn, cfg,
+                                      cache["latent"][i], cache["rope"][i],
+                                      length, rows=rows, policy=rc.policy)
         else:
             y, _, _ = attn.gqa_decode(bp["attn"], hn, cfg, cache["k"][i],
                                       cache["v"][i], length, window=window,
@@ -407,7 +429,7 @@ def prefill_step(params: Pytree, cache: Pytree,
     Each column runs the same body as :func:`decode_step` over the whole
     batch, so the chunked path is bit-exact with token-by-token prefill.
     The per-slot merge of the JAX step is done without copies: the K/V,
-    SSM and RG-LRU state writes of a column go to its active slots only (a
+    latent, SSM and RG-LRU state writes of a column go to its active slots only (a
     masked scatter), an inactive slot's ``len`` stays put (:func:`_merge_masked`),
     and its logits keep their previous value.
     """

@@ -5,9 +5,10 @@ The port of ``repro.models.rglru``:
 ``a_t = exp(-c * softplus(lam) * r_t)``.  The full-sequence forward
 (:func:`rglru_apply`) hands the whole sequence to the port's
 ``rglru_scan`` op in one call from ``h = 0``, in place of the reference's
-chunked associative scan: the CUDA kernel on the card keeps h in a register
-for the whole sequence.  The reference's ``chunk`` and ``unroll`` change no
-number beyond rounding, so the port has neither.  Decode
+chunked associative scan: the CUDA kernel on the card is itself a chunked
+scan, which composes the chunks' decays inside a block.  The reference's
+``chunk`` and ``unroll`` change no number beyond rounding, so the port has
+neither.  Decode
 (:func:`rglru_decode`) is the O(1) update in plain PyTorch, as the
 reference computes it outside any kernel.  Every projection runs through
 ``queue_matmul``.

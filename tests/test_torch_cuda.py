@@ -10,8 +10,10 @@ the references run with ``allow_tf32`` off), bf16 2e-2, logits 2e-3.
 whatever rows come with it (what keeps chunked prefill bit-exact with token
 prefill on the card) and whatever experts its ``active`` mask drops; in
 bf16 it has two kernels, thin (C <= 16) and wide, and a row's bits may
-differ between them, never within one.  ``rglru_scan`` takes a separate multiply and add a
-step, as its plain version does, and is held to the same tolerances.
+differ between them, never within one.  ``rglru_scan`` is a chunked scan
+that composes the chunks' decays, so it rounds unlike its plain version's
+sequential walk and is held to the same tolerances, at the edges of its
+chunks (16 steps) and segments (256).
 bf16 ``queue_matmul`` has two kernels, thin (M <= 16) and wide; each must
 give the same bits at every depth pair and for a row whatever rows come
 with it."""
@@ -190,6 +192,27 @@ def test_flash_attention_kernel_against_plain(card, hq, hkv, sq, sk, d,
                           q_offset=q_offset)
     assert flash_attention.launches == before + 1
     _close(out, _plain(q, k, v, causal, window, q_offset), TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hq,hkv,sq,sk,d,dv,q_offset", [
+    (40, 40, 128, 128, 96, 64, 0),           # minicpm3's MLA heads
+    (4, 2, 70, 200, 96, 64, 130),
+    (4, 4, 33, 33, 12, 8, 0),                # reduced MLA; bf16 pads D to 16
+    (2, 1, 50, 50, 128, 40, 0),
+])
+def test_flash_attention_with_a_narrower_v_against_plain(card, hq, hkv, sq,
+                                                         sk, d, dv, q_offset,
+                                                         dtype):
+    """v's head dim below q's and k's: one launch, the output Dv wide."""
+    q = torch.randn((2, hq, sq, d), generator=card, device="cuda").to(dtype)
+    k = torch.randn((2, hkv, sk, d), generator=card, device="cuda").to(dtype)
+    v = torch.randn((2, hkv, sk, dv), generator=card, device="cuda").to(dtype)
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, causal=True, q_offset=q_offset)
+    assert flash_attention.launches == before + 1
+    assert out.shape == (2, hq, sq, dv)
+    _close(out, _plain(q, k, v, True, None, q_offset), TOL[dtype])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -408,6 +431,36 @@ def test_rglru_scan_kernel_against_plain(card, b, t, w, dtype):
     _close(out, rglru_scan_ref(a, bx), TOL[dtype])
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,w", [(1, 1, 16), (1, 15, 32), (1, 16, 32),
+                                   (1, 17, 32), (3, 255, 37), (3, 256, 37),
+                                   (3, 257, 37), (2, 511, 2560),
+                                   (1, 513, 40)])
+def test_rglru_scan_chunk_and_segment_edges(card, b, t, w, dtype):
+    """T at the chunk length (16) and the segment length (256) and one
+    either side, T = 1, B = 3 with an odd w, and recurrentgemma's width."""
+    a = torch.sigmoid(torch.randn((b, t, w), generator=card, device="cuda")
+                      + 2.0).to(dtype)
+    bx = torch.randn((b, t, w), generator=card, device="cuda").to(dtype)
+    before = rglru_scan.launches
+    out = rglru_scan(a, bx)
+    torch.cuda.synchronize()
+    assert rglru_scan.launches == before + 1
+    _close(out, rglru_scan_ref(a, bx), TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rglru_scan_carries_a_slow_decay_across_segments(card, dtype):
+    """a = 1 - 1e-3 over 4096 steps (16 segments): h sums hundreds of
+    inputs, so every chunk's start state comes mostly from the carry."""
+    a = torch.full((2, 4096, 300), 1.0 - 1e-3, device="cuda").to(dtype)
+    bx = torch.randn((2, 4096, 300), generator=card, device="cuda").to(dtype)
+    out = rglru_scan(a, bx)
+    ref = rglru_scan_ref(a, bx)
+    assert ref.abs().max() > 20.0
+    _close(out, ref, TOL[dtype])
+
+
 def test_float64_on_the_card_raises_instead_of_falling_back(card):
     """fp64 is the CPU's witness only: the kernels refuse it on the card
     rather than hand it to a plain version."""
@@ -428,7 +481,7 @@ def test_float64_on_the_card_raises_instead_of_falling_back(card):
 
 @pytest.mark.parametrize("arch", ["phi3-mini-3.8b", "glm4-9b", "olmoe-1b-7b",
                                   "granite-moe-3b-a800m", "falcon-mamba-7b",
-                                  "recurrentgemma-2b"])
+                                  "recurrentgemma-2b", "minicpm3-4b"])
 def test_model_and_engine_on_the_card_match_the_cpu(card, arch):
     cfg = get_reduced(arch)
     rc = RunConfig(dtype="float32", remat=False)
@@ -468,6 +521,37 @@ def test_hybrid_decode_through_a_wrapped_ring_matches_the_cpu(card):
                 "tokens": toks[:, j:j + 1].to(dev)}, cfg, rc)
             steps.append(logits.cpu())
         out[dev] = (steps, {k: v.cpu() for k, v in cache.items()})
+    for a, b in zip(out["cuda"][0], out["cpu"][0]):
+        _close(a, b, 2e-3)
+    for k, v in out["cpu"][1].items():
+        _close(out["cuda"][1][k], v, 2e-3)
+
+
+def test_mla_decode_past_max_len_matches_the_cpu(card):
+    """minicpm3-smoke (2 layers): an 8-token chunked prefill into caches of
+    12 rows, then 8 decode steps, so the latent and rope writes clamp to
+    the last row (never past it, which would be a device-side fault), on
+    the card and on the CPU."""
+    cfg = get_reduced("minicpm3-4b")
+    rc = RunConfig(dtype="float32", remat=False)
+    p_cpu = init_model_params(2, cfg, device="cpu")
+    p_gpu = tree_map(lambda a: a.cuda(), p_cpu)
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab, (2, 16)))
+    n = torch.tensor([8, 6], dtype=torch.int32)
+    out = {}
+    for dev, p in (("cuda", p_gpu), ("cpu", p_cpu)):
+        cache = init_cache(cfg, 2, 12, torch.float32, device=dev)
+        logits, cache = prefill_step(p, cache, {
+            "tokens": toks[:, :8].to(dev), "n_tokens": n.to(dev)}, cfg, rc)
+        steps = [logits.cpu()]
+        for j in range(8, 16):
+            logits, cache = decode_step(p, cache, {
+                "tokens": toks[:, j:j + 1].to(dev)}, cfg, rc)
+            steps.append(logits.cpu())
+        torch.cuda.synchronize()
+        out[dev] = (steps, {k: v.cpu() for k, v in cache.items()})
+    assert out["cuda"][1]["len"].tolist() == [16, 14]
     for a, b in zip(out["cuda"][0], out["cpu"][0]):
         _close(a, b, 2e-3)
     for k, v in out["cpu"][1].items():

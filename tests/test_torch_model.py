@@ -1,9 +1,10 @@
 """The PyTorch port's model against the JAX package's, on bridged weights
 in fp32, for the dense family (phi3-mini-smoke, glm4-smoke with GQA 8 over
 2), the MoE family (olmoe-smoke, granite-moe-smoke with GQA 4 over 2), the
-SSM family (falcon-mamba-smoke) and the hybrid family
+SSM family (falcon-mamba-smoke), the hybrid family
 (recurrentgemma-smoke: one (rec, rec, attn) macro block and a (rec, rec)
-tail, local window 16): ``forward``, ``decode_step`` over several steps at
+tail, local window 16) and MLA (minicpm3-smoke: q/k head dim 12, v 8):
+``forward``, ``decode_step`` over several steps at
 mixed per-slot lengths (and, for the hybrid, past its window, where the
 K/V ring wraps), and ``prefill_step`` on a mixed-phase batch.  Tolerance 2e-3, the reference's own for logits
 (tests/test_models.py:90); cache leaves (K/V, or the SSM and conv states)
@@ -32,7 +33,7 @@ from repro_torch.models import (decode_step, forward, init_cache,
                                 prepare_params)
 
 ARCHS = ["phi3-mini-3.8b", "glm4-9b", "olmoe-1b-7b", "granite-moe-3b-a800m",
-         "falcon-mamba-7b", "recurrentgemma-2b"]
+         "falcon-mamba-7b", "recurrentgemma-2b", "minicpm3-4b"]
 HYBRID = "recurrentgemma-2b"
 MOE_ARCHS = ["olmoe-1b-7b", "granite-moe-3b-a800m"]
 JRC_ = JRC(dtype="float32", remat=False)
@@ -226,10 +227,13 @@ def test_hybrid_chunked_prefill_is_bit_exact_past_the_window():
         assert torch.equal(out[8][1][k], out[1][1][k]), k
 
 
-def test_other_families_are_not_ported_yet():
-    """MLA (minicpm3) comes in a later slice."""
+@pytest.mark.parametrize("family,frontend", [("vlm", "vision"),
+                                             ("audio", "audio")])
+def test_other_families_are_not_ported_yet(family, frontend):
+    """The frontends (pixtral's vision, hubert's audio) come in a later
+    slice."""
     import dataclasses
-    from repro_torch.config import MLAConfig
-    cfg = dataclasses.replace(get_reduced("phi3-mini-3.8b"), mla=MLAConfig())
+    cfg = dataclasses.replace(get_reduced("phi3-mini-3.8b"), family=family,
+                              frontend=frontend, n_frontend_tokens=8)
     with pytest.raises(NotImplementedError, match="later slice"):
         init_model_params(0, cfg, device="cpu")

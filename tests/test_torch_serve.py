@@ -92,9 +92,9 @@ def test_port_engine_matches_jax_engine(prefill):
 
 
 @pytest.mark.parametrize("arch", ["olmoe-1b-7b", "falcon-mamba-7b",
-                                  "recurrentgemma-2b"])
+                                  "recurrentgemma-2b", "minicpm3-4b"])
 def test_port_engine_matches_jax_engine_on_moe_and_ssm(arch):
-    """The MoE, SSM and hybrid families through the chunked-prefill
+    """The MoE, SSM, hybrid and MLA families through the chunked-prefill
     engine."""
     _engine_parity(arch, "chunked")
 
@@ -308,7 +308,8 @@ def test_launcher_serves_on_the_cpu_when_asked(monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("arch", ["olmoe-1b-7b", "granite-moe-3b-a800m",
-                                  "falcon-mamba-7b", "recurrentgemma-2b"])
+                                  "falcon-mamba-7b", "recurrentgemma-2b",
+                                  "minicpm3-4b"])
 def test_launcher_serves_moe_and_ssm_on_the_cpu(monkeypatch, capsys, arch):
     from repro_torch.launch import serve as launch
     monkeypatch.setattr(sys, "argv", [
