@@ -7,8 +7,8 @@
 Phases, each of which raises on failure (the run then exits non-zero and
 prints no result):
 
-1. build   — compile the five CUDA kernels from the sources in the
-   checkout, one ``nvcc`` each, all at once.
+1. build   — compile the six CUDA sources in the checkout (the five
+   kernels and ``flash_attention_bwd``), one ``nvcc`` each, all at once.
 2. kernels — each kernel against its plain PyTorch version on the card at
    the serve paths' shapes, with its device time (``cuda_ms``), its bound
    and the time of one library call that computes the same function where
@@ -49,6 +49,23 @@ prints no result):
    it, and every kernel of that path must have run.  Then a profile of a
    decode body: launches, kernel time by kernel, the device's idle share,
    and for olmoe the experts each layer's mask keeps.
+5. train   — the training path (``--train-parts`` picks among a-d):
+   (a) ``flash_attention_bwd`` against its plain backward on the same q,
+   k, v, o, lse and dO (o and lse from the forward kernel) at
+   ``BWD_CASES``, fp32 and bf16, equal to itself across two calls, rows
+   that see no key with zero gradients, timed beside SDPA's backward;
+   ``queue_matmul``'s dX and dW against ``matmul_ref``'s autograd at
+   phi3's products over 1024 tokens; (b) the loss and every gradient leaf
+   of phi3-mini-3.8b and minicpm3-4b at full width and 2 layers, fp32 on
+   the card, fp32 on the CPU and fp64 on the CPU, each leaf held to
+   ``FP64_RATIO`` as phase 3 holds logits, the loss to 2e-3 of fp64; (c)
+   ``FaultTolerantTrainer`` on 2-layer phi3 at full width, a fault
+   injected after the first checkpoint, the replayed losses equal bit for
+   bit; (d) phi3-mini-3.8b at full width and depth, bf16 with remat and
+   AdamW, ``FULL_STEPS`` steps of ``make_train_step``: its own main path,
+   the launch counts set to 0 just before it and read just after, every
+   loss finite and ``queue_matmul``, ``flash_attention`` and
+   ``flash_attention_bwd`` launched; then a profile of one step.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  It imports nothing of JAX.
@@ -68,7 +85,8 @@ import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("build", "kernels", "parity", "serve")
+PHASES = ("build", "kernels", "parity", "serve", "train")
+TRAIN_PARTS = ("a", "b", "c", "d")
 HBM_BYTES_PER_S = 3.35e12                 # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12,     # dense tensor-core bf16
               torch.float32: 67e12}       # fp32 outside the tensor cores
@@ -127,6 +145,11 @@ WHERE = {
                  "src/repro/kernels/ssm_scan/kernel.py:45"),
     "rglru_scan": ("src/repro_torch/kernels/rglru_scan/csrc/rglru_scan.cu",
                    "src/repro/kernels/rglru_scan/kernel.py:33"),
+    # no Pallas kernel: the JAX train path differentiates the plain
+    # blocked attention with XLA's autodiff
+    "flash_attention_bwd": ("src/repro_torch/kernels/flash_attention/csrc/"
+                            "flash_attention_bwd.cu",
+                            "src/repro/models/attention.py:51"),
 }
 
 
@@ -488,6 +511,411 @@ def check_flash_attention(gen, report) -> dict:
                     32, 32, 512, True, None, 96, torch.bfloat16):
                 rep = row
     return rep
+
+
+# ---------------------------------------------------------------------------
+# phase 5 (a): the training path's kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+#: phase 5's backward cases: (B, Hq, Hkv, Sq, Sk, D, Dv, causal, window):
+#: phi3's heads at 2 x 512 tokens (the slice's main path), GQA 32 over 8,
+#: recurrentgemma-like heads of 256 with window 128, minicpm3's MLA heads
+#: (v 64 under q/k 96), and a non-causal window over fewer keys than
+#: queries, so that the rows from Sk - 1 + window on see no key
+BWD_CASES = ((2, 32, 32, 512, 512, 96, 96, True, None),
+             (1, 32, 8, 512, 512, 128, 128, True, None),
+             (1, 10, 1, 512, 512, 256, 256, True, 128),
+             (1, 40, 40, 512, 512, 96, 64, True, None),
+             (1, 4, 2, 512, 128, 96, 96, False, 64))
+
+
+def _sdpa_bwd(q, k, v, do, causal, window):
+    """The backward of one ``scaled_dot_product_attention`` call on the
+    same inputs (GQA's K and V repeated, a mask where windowed): the
+    yardstick for ``flash_attention_bwd``.  Returns a call that runs it."""
+    qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    out = _sdpa(qg, kg, vg, causal, window, 0)
+    return lambda: torch.autograd.grad(out, (qg, kg, vg), do,
+                                       retain_graph=True)
+
+
+def check_flash_attention_bwd(gen, report) -> dict:
+    """The backward kernel against :func:`attention_bwd_ref` (through the
+    wrapper's plain GQA path) on the same q, k, v, o, lse and dO, o and lse
+    from the forward kernel, at ``BWD_CASES`` in fp32 and bf16; two calls
+    must give the same bits, and rows that see no key zero gradients."""
+    from repro_torch.kernels.flash_attention import ops
+    rep = None
+    log("[train] flash_attention_bwd  B  Hq Hkv   Sq   Sk   D  Dv causal "
+        "window  dtype  max_abs_err  ms  plain_ms  library_ms  bound_ms")
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, hq, hkv, sq, sk, d, dv, causal, window in BWD_CASES:
+            def rnd(*shape):
+                return torch.randn(shape, generator=gen, device="cuda").to(
+                    dtype)
+            q, k, v = rnd(b, hq, sq, d), rnd(b, hkv, sk, d), rnd(b, hkv, sk, dv)
+            do = rnd(b, hq, sq, dv)
+            o, lse = ops._launch(q, k, v, causal, window, 0, with_lse=True)
+
+            def run():
+                return ops.flash_attention_bwd(q, k, v, o, lse, do,
+                                               causal=causal, window=window)
+            got, again = run(), run()
+            ref = ops._plain_bwd(q, k, v, o, lse, do, causal, window)
+            torch.cuda.synchronize()
+            for name, x, y in zip(("dq", "dk", "dv"), got, again):
+                if not torch.equal(x, y):
+                    raise AssertionError(f"flash_attention_bwd {name} differs "
+                                         f"between two calls")
+            err = max(within(x, r, TOL[dtype]) for x, r in zip(got, ref))
+            keep = _keep(sq, sk, causal, window, 0, "cuda")
+            empty = ~keep.any(-1)
+            if bool(empty.any()):
+                if not bool((got[0][:, :, empty] == 0).all()) or not all(
+                        bool(torch.isfinite(x).all()) for x in got):
+                    raise AssertionError("flash_attention_bwd: rows with no "
+                                         "key in range got nonzero or "
+                                         "non-finite gradients")
+            ms = cuda_ms(run)
+            plain = cuda_ms(lambda: ops._plain_bwd(q, k, v, o, lse, do,
+                                                   causal, window), iters=3)
+            lib = cuda_ms(_sdpa_bwd(q, k, v, do, causal, window))
+            pairs = int(keep.sum()) * b * hq
+            # S and dQ, dK over D; dP, dV over Dv
+            flops = 2.0 * pairs * (3 * d + 2 * dv)
+            es = q.element_size()
+            nbytes = (b * hq * sq * (2 * d + 2 * dv) * es    # q, o, dO, dQ
+                      + b * hkv * sk * 2 * (d + dv) * es     # k, v, dK, dV
+                      + b * hq * sq * 4)                     # lse
+            b_ms, b_by = bound(flops, nbytes, dtype)
+            t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+            t_mem = nbytes / HBM_BYTES_PER_S * 1e3
+            n_empty = int(empty.sum())
+            log(f"[train] flash_attention_bwd {b:2d} {hq:3d} {hkv:3d} "
+                f"{sq:4d} {sk:4d} {d:3d} {dv:3d} {int(causal):6d} "
+                f"{str(window):>6s} {str(dtype)[6:]:>8s} {err:10.3e} "
+                f"{ms:8.4f} {plain:8.4f} {lib:8.4f} {b_ms:8.4f} ({b_by}: "
+                f"ops {t_ops:.4f}, bytes {t_mem:.4f}; "
+                f"{ms / lib:.2f}x library; {flops / ms / 1e9:.1f} TFLOP/s"
+                + (f"; {n_empty} rows see no key: zero gradients"
+                   if n_empty else "") + "; deterministic)")
+            row = {"B": b, "Hq": hq, "Hkv": hkv, "Sq": sq, "Sk": sk, "D": d,
+                   "Dv": dv, "causal": causal, "window": window,
+                   "dtype": str(dtype)[6:], "max_abs_err": err, "ms": ms,
+                   "plain_ms": plain, "library_ms": lib, "bound_ms": b_ms,
+                   "bound_by": b_by}
+            report.append({"kernel": "flash_attention_bwd", **row})
+            if (b, hq, sq, d, dtype) == (2, 32, 512, 96, torch.bfloat16):
+                rep = row
+            del got, again, ref
+        free_card()
+    return rep
+
+
+def check_queue_matmul_grads(gen, report) -> None:
+    """``queue_matmul``'s backward (dX = dY W^T and dW = X^T dY, both
+    through the kernel) against the autograd of :func:`matmul_ref`, at
+    phi3's products over 2 x 512 tokens, fp32 and bf16; dW's rows are K,
+    so in bf16 both products take the wide kernel.  Times: the two
+    products with their transposes, and ``torch.matmul``'s two."""
+    from repro_torch.kernels.queue_matmul import ops
+    from repro_torch.kernels.queue_matmul.ref import matmul_ref
+    log("[train] queue_matmul grads  M     K     N  dtype  dX err  dW err  "
+        "dX ms  dW ms  library dX, dW ms  bound ms (each)")
+    m = 1024
+    for dtype in (torch.float32, torch.bfloat16):
+        for k, n in ((3072, 3072), (3072, 8192), (8192, 3072),
+                     (3072, 32064)):
+            x = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
+            w = (torch.randn((k, n), generator=gen, device="cuda")
+                 / math.sqrt(k)).to(dtype)
+            dy = torch.randn((m, n), generator=gen, device="cuda").to(dtype)
+            xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
+            dx, dw = torch.autograd.grad(ops.queue_matmul(xg, wg), (xg, wg),
+                                         dy)
+            xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+            rx, rw = torch.autograd.grad(matmul_ref(xr, wr).to(dtype),
+                                         (xr, wr), dy)
+            torch.cuda.synchronize()
+            ex, ew = within(dx, rx, TOL[dtype]), within(dw, rw, TOL[dtype])
+            ms_x = cuda_ms(lambda: ops.queue_matmul(dy, w.t().contiguous()))
+            ms_w = cuda_ms(lambda: ops.queue_matmul(x.t().contiguous(), dy))
+            lib_x = cuda_ms(lambda: torch.matmul(dy, w.t()))
+            lib_w = cuda_ms(lambda: torch.matmul(x.t(), dy))
+            # either product reads two of x, w, dy and writes the third
+            b_ms, b_by = bound(2.0 * m * k * n,
+                               (m * k + k * n + m * n) * x.element_size(),
+                               dtype)
+            log(f"[train] queue_matmul grads {m:5d} {k:5d} {n:5d} "
+                f"{str(dtype)[6:]:>8s} {ex:.3e} {ew:.3e} {ms_x:8.4f} "
+                f"{ms_w:8.4f} {lib_x:8.4f} {lib_w:8.4f} {b_ms:8.4f} "
+                f"({b_by}; {2.0 * m * k * n / ms_x / 1e9:.1f}, "
+                f"{2.0 * m * k * n / ms_w / 1e9:.1f} TFLOP/s)")
+            report.append({"kernel": "queue_matmul_grads", "M": m, "K": k,
+                           "N": n, "dtype": str(dtype)[6:], "dx_err": ex,
+                           "dw_err": ew, "dx_ms": ms_x, "dw_ms": ms_w,
+                           "library_dx_ms": lib_x, "library_dw_ms": lib_w,
+                           "bound_ms": b_ms, "bound_by": b_by})
+            del x, w, dy, dx, dw, rx, rw, xg, wg, xr, wr
+        free_card()
+
+
+# ---------------------------------------------------------------------------
+# phase 5 (b)-(d): gradients at cut depth, the trainer, the slice at full
+# width
+# ---------------------------------------------------------------------------
+
+#: the models phase 5 (b) takes gradients of at full width and 2 layers
+GRAD_PARITY = ("phi3-mini-3.8b", "minicpm3-4b")
+#: phase 5 (c): steps, checkpoint interval and the step an injected fault
+#: hits (so steps 5-7 run twice); phase 5 (d): steps at full width
+TRAINER_STEPS, TRAINER_EVERY, TRAINER_FAULT = 12, 5, 8
+FULL_STEPS = 6
+
+
+def phase_grad_parity(arch: str, failures: list) -> None:
+    """The loss and every gradient leaf of 2 layers at full width (drawn as
+    phase 3 draws them, at the full-depth scale), remat on, in fp32 on the
+    card (the kernels and their backward kernels), in fp32 on the CPU and
+    in fp64 on the CPU (the witness).  Each leaf's RMS distance from fp64
+    on the card must be at most ``FP64_RATIO`` times the CPU fp32 run's,
+    and the loss within 2e-3 of fp64."""
+    from repro_torch.config import RunConfig
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_model_params
+    from repro_torch.models.layers import tree_map
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.train.step import _grads
+    full = get_config(arch)
+    cfg = cut_depth(full)
+    t0 = time.time()
+    p_cpu = init_model_params(SEED, cfg, device="cpu")
+    redraw_scale(p_cpu, cfg, full, "depth")
+    rng = np.random.default_rng(SEED + 2)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (1, 129)))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    runs = {}
+    for name, dev, dtype in (("card", "cuda", "float32"),
+                             ("cpu", "cpu", "float32"),
+                             ("fp64", "cpu", "float64")):
+        p = tree_map(lambda a: a.to(dev, torch.float64 if dtype == "float64"
+                                    else a.dtype), p_cpu)
+        b = {k: v.to(dev) for k, v in batch.items()}
+        g, m = _grads(p, b, cfg, RunConfig(dtype=dtype, remat=True))
+        runs[name] = (float(m["loss"]), [x.cpu() for x in tree_leaves(g)])
+        del p, g
+        free_card()
+    names = _leaf_names(p_cpu)
+    what = f"{arch} ({cfg.n_layers} layers, depth scale) gradients"
+    loss = {k: v[0] for k, v in runs.items()}
+    log(f"[train] {what}: loss card {loss['card']:.7f}, CPU fp32 "
+        f"{loss['cpu']:.7f}, fp64 {loss['fp64']:.7f} (card off fp64 by "
+        f"{abs(loss['card'] - loss['fp64']):.3e})")
+    if abs(loss["card"] - loss["fp64"]) > 2e-3:
+        failures.append(f"{what}: loss {loss['card']} is more than 2e-3 "
+                        f"from fp64's {loss['fp64']}")
+    worst = 0.0
+    for name, card, cpu, exact in zip(names, runs["card"][1],
+                                      runs["cpu"][1], runs["fp64"][1]):
+        r_card, r_cpu = rms(card, exact), rms(cpu, exact)
+        ratio = r_card / r_cpu if r_cpu > 0 else (0.0 if r_card == 0
+                                                  else math.inf)
+        worst = max(worst, ratio)
+        log(f"[train]   {name:>22s}: from fp64 card rms {r_card:.3e}, CPU "
+            f"fp32 rms {r_cpu:.3e} (card/CPU {ratio:.3f}); fp64 rms "
+            f"{exact.pow(2).mean().sqrt().item():.3e}")
+        if ratio > FP64_RATIO:
+            failures.append(f"{what}: leaf {name} is {ratio:.2f} times "
+                            f"farther from fp64 on the card than on the CPU")
+    log(f"[train] {what}: worst card/CPU rms ratio {worst:.3f} (at most "
+        f"{FP64_RATIO}); done in {time.time() - t0:.1f} s")
+
+
+def _leaf_names(tree, prefix: str = "") -> list:
+    """The leaves' paths in the optimizer's (sorted key) order."""
+    if not isinstance(tree, dict):
+        return [prefix]
+    return [n for k in sorted(tree)
+            for n in _leaf_names(tree[k], f"{prefix}/{k}" if prefix else k)]
+
+
+def phase_trainer() -> None:
+    """``FaultTolerantTrainer`` on phi3-mini-3.8b at full width, 2 layers,
+    ``RunConfig`` defaults (bf16, remat), ``TRAINER_STEPS`` steps with a
+    checkpoint every ``TRAINER_EVERY`` and an ``InjectedFault`` at step
+    ``TRAINER_FAULT``: exactly one restart, and the replayed steps' losses
+    equal the first pass's bit for bit.  The checkpoints go to a directory
+    under ``build/`` that is removed afterwards."""
+    import shutil
+    import tempfile
+    from repro_torch.config import RunConfig, ShapeConfig
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_model_params
+    from repro_torch.runtime import FaultTolerantTrainer, InjectedFault
+    cfg = cut_depth(get_config("phi3-mini-3.8b"))
+    shape = ShapeConfig("smoke", 256, 2, "train")
+    faults = {TRAINER_FAULT}
+
+    def fault_hook(step):
+        if step in faults:
+            faults.discard(step)
+            raise InjectedFault(f"device loss @ {step}")
+
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    ckpt = tempfile.mkdtemp(prefix="trainer_ckpt_",
+                            dir=os.path.join(ROOT, "build"))
+    t0 = time.time()
+    try:
+        params = init_model_params(SEED, cfg, device="cuda")
+        tr = FaultTolerantTrainer(cfg, shape, RunConfig(), "cuda", ckpt,
+                                  ckpt_every=TRAINER_EVERY,
+                                  fault_hook=fault_hook)
+        out = tr.run(params, num_steps=TRAINER_STEPS)
+        tr.ckpt.close()
+        saved = sorted(d for d in os.listdir(ckpt) if d.startswith("step_"))
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    seen = {}
+    for step, loss in out["metrics"]:
+        seen.setdefault(step, []).append(loss)
+    replayed = {s: v for s, v in seen.items() if len(v) > 1}
+    log(f"[train] trainer: phi3-mini-3.8b {cfg.n_layers} layers, seq "
+        f"{shape.seq_len} batch {shape.global_batch}, bf16 remat; "
+        f"{out['restarts']} restart(s), ended at step {out['step']} in "
+        f"{time.time() - t0:.1f} s; checkpoints {saved}; losses "
+        + ", ".join(f"{s}: " + " / ".join(f"{x:.9g}" for x in v)
+                    for s, v in sorted(seen.items())))
+    want = list(range(TRAINER_EVERY, TRAINER_FAULT))
+    if out["restarts"] != 1 or out["step"] != TRAINER_STEPS or \
+            sorted(replayed) != want:
+        raise AssertionError(f"trainer: {out['restarts']} restarts, ended "
+                             f"at {out['step']}, replayed {sorted(replayed)}"
+                             f" (want 1, {TRAINER_STEPS}, {want})")
+    for s, v in replayed.items():
+        if v[0] != v[1] or not math.isfinite(v[0]):
+            raise AssertionError(f"trainer: step {s}'s replayed loss {v[1]!r}"
+                                 f" is not the first pass's {v[0]!r}")
+    log(f"[train] trainer: replayed steps {want} give the first pass's "
+        f"losses bit for bit")
+    del out, params, tr
+    free_card()
+
+
+def phase_train_full() -> dict:
+    """phi3-mini-3.8b at full width and depth, ``RunConfig`` defaults (bf16
+    compute, fp32 parameters, remat), AdamW, seq 512 and batch 2:
+    ``FULL_STEPS`` steps of ``make_train_step`` on ``SyntheticLMStream``,
+    the launch counts set to 0 just before and read just after.  Every
+    loss must be finite and each kernel of the path launched.  Then a
+    profile of one more step: kernel time by kernel and the device's idle
+    share.  Returns the launches by kernel."""
+    from repro_torch.config import RunConfig, ShapeConfig
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMStream
+    from repro_torch.models import init_model_params
+    from repro_torch.optim import init_opt_state
+    from repro_torch.train import make_train_step
+    cfg = get_config("phi3-mini-3.8b")
+    shape = ShapeConfig("smoke_full", 512, 2, "train")
+    t0 = time.time()
+    params = init_model_params(SEED, cfg, device="cuda")
+    opt = init_opt_state(params)
+    torch.cuda.synchronize()
+    state_gib = torch.cuda.memory_allocated() / 2**30
+    log(f"[train] phi3-mini-3.8b full width ({cfg.n_layers} layers, "
+        f"{cfg.n_params() / 1e9:.3f} B parameters): fp32 parameters and "
+        f"AdamW state drawn in {time.time() - t0:.1f} s, {state_gib:.2f} GiB")
+    step = make_train_step(cfg, shape, RunConfig(), device="cuda")
+    stream = SyntheticLMStream(cfg.vocab, shape.seq_len, shape.global_batch,
+                               seed=SEED)
+    counters = launch_counters()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.launches = 0
+    walls, losses = [], []
+    for i in range(FULL_STEPS):
+        t1 = time.time()
+        params, opt, m = step(params, opt, stream.batch_at(i))
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        walls.append(time.time() - t1)
+    counts = {k: c.launches for k, c in counters.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    tokens = shape.seq_len * shape.global_batch
+    steady = walls[1:]
+    wall = sum(steady) / len(steady)
+    log(f"[train] full width: losses {[f'{x:.6f}' for x in losses]}; step "
+        f"walls {[f'{w:.3f}' for w in walls]} s (first includes set-up); "
+        f"steady {wall:.3f} s = {tokens / wall:.0f} tokens/s; peak memory "
+        f"{peak:.2f} GiB; launches {counts} "
+        f"({ {k: v // FULL_STEPS for k, v in counts.items() if v} } a step)")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"full-width training: losses {losses}")
+    for name in ("queue_matmul", "flash_attention", "flash_attention_bwd"):
+        if counts[name] <= 0:
+            raise AssertionError(f"{name} never launched on the training "
+                                 f"path")
+    profile_train_step(step, params, opt, stream.batch_at(FULL_STEPS), wall)
+    del params, opt
+    free_card()
+    return counts
+
+
+def profile_train_step(step, params, opt, batch, wall: float) -> None:
+    """Kernel time of one more step by kernel and by phase (torch.profiler,
+    CUDA activity): the forward to the loss, the backward (remat's
+    recomputed forward, dX and dW, the attention backward) and the AdamW
+    update, each profiled alone, as ``train_step`` runs them; the
+    device's idle share is one minus their sum over the steady step wall.
+    The kernels are grouped as ``queue_matmul``, ``flash_attention``,
+    ``flash_attention_bwd`` and PyTorch's own."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models.layers import tree_leaves, tree_unflatten
+    from repro_torch.optim import adamw_update
+    from repro_torch.train.step import loss_fn
+    cfg, rc = step.cfg, step.rc
+    b = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+    ps = tree_leaves(params)
+    groups = ("flash_attention_bwd", "flash_attention", "queue_matmul")
+    phases, top = {}, {}
+
+    def record(name, fn):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            out = fn()
+            torch.cuda.synchronize()
+        dev = {e.key: e.self_device_time_total / 1e3
+               for e in prof.key_averages() if e.self_device_time_total > 0}
+        sums = dict.fromkeys(groups + ("other",), 0.0)
+        for key, ms in dev.items():
+            sums[next((g for g in groups if g in key), "other")] += ms
+            top[key] = top.get(key, 0.0) + ms
+        phases[name] = sums
+        return out
+
+    for p in ps:
+        p.requires_grad_(True)
+    try:
+        loss, _ = record("forward", lambda: loss_fn(params, b, cfg, rc))
+        grads = record("backward", lambda: torch.autograd.grad(loss, ps))
+    finally:
+        for p in ps:
+            p.requires_grad_(False)
+    grads = tree_unflatten(params, [g.contiguous() for g in grads])
+    record("optimizer", lambda: adamw_update(params, opt, grads, rc))
+    busy = sum(sum(v.values()) for v in phases.values())
+    if busy == 0:
+        log("[profile] training step idle share: not measured (the profiler "
+            "saw no device time)")
+        return
+    for name, sums in phases.items():
+        log(f"[profile] training step {name}: {sum(sums.values()):.2f} ms "
+            "in kernels (" + ", ".join(f"{v:.2f} {k}" for k, v in
+                                       sums.items()) + ")")
+    log(f"[profile] phi3-mini-3.8b training step: {busy:.1f} ms in kernels "
+        f"over a {wall * 1e3:.1f} ms step; device idle share "
+        f"{1 - busy / (wall * 1e3):.3f}")
+    for k, v in sorted(top.items(), key=lambda kv: -kv[1])[:12]:
+        log(f"[profile]   {v:9.3f} ms  {k[:90]}")
 
 
 def routed_mask(gen, tokens: int, experts: int, k: int) -> torch.Tensor:
@@ -896,7 +1324,9 @@ def free_card() -> None:
 def launch_counters():
     from repro_torch.kernels import (flash_attention, moe_gemm, queue_matmul,
                                      rglru_scan, ssm_scan)
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
     return {"queue_matmul": queue_matmul, "flash_attention": flash_attention,
+            "flash_attention_bwd": flash_attention_bwd,
             "moe_gemm": moe_gemm, "ssm_scan": ssm_scan,
             "rglru_scan": rglru_scan}
 
@@ -1053,8 +1483,11 @@ def main() -> int:
     ap.add_argument("--phases", default=",".join(PHASES),
                     help=f"comma-separated subset of {PHASES}")
     ap.add_argument("--cases-out", default=None,
-                    help="write every kernel case of phase 2 to this JSON "
-                         "file")
+                    help="write every kernel case of phases 2 and 5 to this "
+                         "JSON file")
+    ap.add_argument("--train-parts", default=",".join(TRAIN_PARTS),
+                    help=f"comma-separated subset of phase 5's parts "
+                         f"{TRAIN_PARTS}")
     args = ap.parse_args()
     phases = args.phases.split(",")
     sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -1071,22 +1504,17 @@ def main() -> int:
         f"{torch.get_num_threads()} threads")
     t_start = time.time()
     kernels = []
+    report = []
     if "build" in phases:
         phase_build()
     if "kernels" in phases:
         gen = torch.Generator(device="cuda").manual_seed(SEED)
-        report = []
         kernels = [("queue_matmul", check_queue_matmul(gen, report)),
                    ("flash_attention", check_flash_attention(gen, report)),
                    ("moe_gemm", check_moe_gemm(gen, report)),
                    ("ssm_scan", check_ssm_scan(gen, report)),
                    ("rglru_scan", check_rglru_scan(gen, report))]
         free_card()
-        if args.cases_out:
-            os.makedirs(os.path.dirname(os.path.abspath(args.cases_out)),
-                        exist_ok=True)
-            with open(args.cases_out, "w") as f:
-                json.dump({"card": smi, "cases": report}, f, indent=1)
     if "parity" in phases:
         failures = []
         for arch, scale, hold in PARITY:
@@ -1100,6 +1528,31 @@ def main() -> int:
                 launches[name] = launches.get(name, 0) + n
         log(f"[serve] launches over the {len(SERVED)} main paths: "
             f"{launches}")
+    if "train" in phases:
+        parts = args.train_parts.split(",")
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+        if "a" in parts:
+            kernels.append(("flash_attention_bwd",
+                            check_flash_attention_bwd(gen, report)))
+            check_queue_matmul_grads(gen, report)
+        if "b" in parts:
+            failures = []
+            for arch in GRAD_PARITY:
+                phase_grad_parity(arch, failures)
+            if failures:
+                raise AssertionError("phase 5 (b) failed:\n"
+                                     + "\n".join(failures))
+        if "c" in parts:
+            phase_trainer()
+        if "d" in parts:
+            for name, n in phase_train_full().items():
+                launches[name] = launches.get(name, 0) + n
+            log(f"[train] launches over every main path run: {launches}")
+    if args.cases_out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.cases_out)),
+                    exist_ok=True)
+        with open(args.cases_out, "w") as f:
+            json.dump({"card": smi, "cases": report}, f, indent=1)
     log(f"[done] {time.time() - t_start:.1f} s")
 
     line = []

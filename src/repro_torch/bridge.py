@@ -1,7 +1,10 @@
 """Carry parameter and cache trees between the JAX package and the port.
 
 Both packages keep the same pytree layout (nested dicts of arrays), so the
-bridge is a tree map over numpy arrays.  The JAX side converts its arrays to
+bridge is a tree map over numpy arrays.  Gradient trees have the
+parameters' layout and cross the same way; an optimizer state crosses as
+its three fields, ``(step, mu, nu)``, in the field order both packages'
+``OptState`` share.  The JAX side converts its arrays to
 numpy itself (``jax.tree_util.tree_map(np.asarray, tree)``) — this module
 imports no JAX.  bfloat16 arrays travel bit for bit: numpy's ``bfloat16``
 dtype (registered by ``ml_dtypes``, which JAX imports) is reinterpreted as
@@ -9,7 +12,7 @@ dtype (registered by ``ml_dtypes``, which JAX imports) is reinterpreted as
 """
 from __future__ import annotations
 
-from typing import Any, Optional
+from typing import Any, Optional, Tuple
 
 import numpy as np
 import torch
@@ -51,3 +54,20 @@ def to_numpy_tree(tree: Pytree) -> Pytree:
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.dtype("bfloat16"))
     return t.numpy()
+
+
+def opt_state_from_numpy(opt: Any, device: DeviceLike = None):
+    """An ``OptState`` (the JAX package's, with numpy leaves, or any
+    ``(step, mu, nu)`` triple) -> the port's
+    :class:`~repro_torch.optim.OptState` on ``device``."""
+    from .optim import OptState
+    step, mu, nu = opt
+    dev = resolve_device(device)
+    return OptState(_to_tensor(step, dev, None), from_numpy_tree(mu, dev),
+                    from_numpy_tree(nu, dev))
+
+
+def opt_state_to_numpy(opt: Any) -> Tuple[np.ndarray, Pytree, Pytree]:
+    """The port's ``OptState`` -> ``(step, mu, nu)`` numpy trees, ready for
+    the JAX package's ``OptState(*...)``."""
+    return tuple(to_numpy_tree(x) for x in opt)

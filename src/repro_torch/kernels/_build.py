@@ -1,14 +1,15 @@
 """Build and load the hand-written CUDA kernels.
 
 Each kernel's source is one ``.cu`` file with a plain C interface
-(``kernels/<name>/csrc/<name>.cu``), which may include the shared headers
-under ``kernels/_csrc/``.  It is compiled with ``nvcc`` for ``sm_90a`` into
-a shared library under ``build/kernels/`` at the root of the checkout, at
-first use, and loaded with :mod:`ctypes`.  The library's name carries a
-hash of the source, of every ``.cuh`` header of the package and of the
-flags, so an edited source or header is rebuilt and a stale library is
-never loaded.  :func:`build_all` starts one
-``nvcc`` per source at once, which is how ``chip_smoke.py`` builds.
+(``kernels/<package>/csrc/<name>.cu``, the package named as the kernel but
+for a second source of one package, :data:`PACKAGE`), which may include the
+shared headers under ``kernels/_csrc/``.  It is compiled with ``nvcc`` for
+``sm_90a`` into a shared library under ``build/kernels/`` at the root of
+the checkout, at first use, and loaded with :mod:`ctypes`.  The library's
+name carries a hash of the source, of every ``.cuh`` header of the
+package and of the flags, so an edited source or header is rebuilt and a
+stale library is never loaded.  :func:`build_all` starts one ``nvcc`` per
+source at once, which is how ``chip_smoke.py`` builds.
 """
 from __future__ import annotations
 
@@ -26,11 +27,14 @@ BUILD_DIR = REPO_ROOT / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
+#: the package of a kernel whose source sits beside another kernel's
+PACKAGE = {"flash_attention_bwd": "flash_attention"}
+
 _LOADED: Dict[str, ctypes.CDLL] = {}
 
 
 def source_path(name: str) -> Path:
-    return KERNELS_DIR / name / "csrc" / f"{name}.cu"
+    return KERNELS_DIR / PACKAGE.get(name, name) / "csrc" / f"{name}.cu"
 
 
 def nvcc_path() -> str:

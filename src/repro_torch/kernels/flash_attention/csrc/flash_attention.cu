@@ -14,7 +14,12 @@
 // acc / max(l, 1e-30) in the input type.  GQA is expanded by index: query
 // head h reads KV head h / (Hq / Hkv), with no copy of K or V.  k tiles that
 // the causal or window mask covers entirely for every row of the block are
-// skipped, and a row with no key in range gives 0.
+// skipped, and a row with no key in range gives 0 (its probabilities stay
+// 0 while no key in range has been seen, in both paths).  When an lse
+// pointer is passed (training: flash_attention_bwd.cu recomputes the
+// probabilities from it), each row's log-sum-exp of its scaled scores is
+// written there in fp32, +inf for a row with no key in range; the output's
+// bits do not depend on it.
 //
 // What bounds it on an H100: at the serve path's shapes (S of a few hundred
 // to a few thousand, D = 96 to 256) attention does 4 S^2 D operations per
@@ -95,6 +100,7 @@ template <typename T, int kCols>
 __global__ void __launch_bounds__(kThreads)
     flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            const T* __restrict__ v, T* __restrict__ out,
+                           float* __restrict__ lse,
                            int Hq, int Hkv, int Sq, int Sk, int D, int causal,
                            int has_window, int window, int q_offset,
                            float scale) {
@@ -166,7 +172,9 @@ __global__ void __launch_bounds__(kThreads)
       if (has_window) valid = valid && kpos > qpos - window;
       s = valid ? s : kNegInf;
       const float m_new = fmaxf(m[i], warp_max(s));
-      const float p = expf(s - m_new);
+      // every key so far masked: p = 0, so the row ends at 0 if none is
+      // in range (a later key in range scales what came before by 0)
+      const float p = m_new <= kNegInf ? 0.f : expf(s - m_new);
       const float corr = expf(m[i] - m_new);
       l[i] = l[i] * corr + warp_sum(p);
       m[i] = m_new;
@@ -196,13 +204,16 @@ __global__ void __launch_bounds__(kThreads)
       if (d < D)
         from_float(ob + static_cast<size_t>(q0 + r) * D + d, acc[i][c] * inv);
     }
+    if (lse != nullptr && lane == 0)
+      lse[static_cast<size_t>(bh) * Sq + q0 + r] =
+          l[i] > 0.f ? m[i] + logf(l[i]) : INFINITY;
   }
 }
 
 template <typename T, int kCols>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   int B, int Hq, int Hkv, int Sq, int Sk, int D, int causal,
-                   int has_window, int window, int q_offset,
+                   float* lse, int B, int Hq, int Hkv, int Sq, int Sk, int D,
+                   int causal, int has_window, int window, int q_offset,
                    cudaStream_t stream) {
   const size_t smem = smem_bytes(D);
   auto kernel = flash_attention_kernel<T, kCols>;
@@ -213,8 +224,9 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   const dim3 grid((Sq + kBQ - 1) / kBQ, B * Hq);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), Hq, Hkv, Sq, Sk, D,
-      causal, has_window, window, q_offset, 1.f / sqrtf(static_cast<float>(D)));
+      static_cast<const T*>(v), static_cast<T*>(out), lse, Hq, Hkv, Sq, Sk,
+      D, causal, has_window, window, q_offset,
+      1.f / sqrtf(static_cast<float>(D)));
   return cudaGetLastError();
 }
 
@@ -258,9 +270,10 @@ __device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int R,
 template <int kDMax, int kD16>
 __global__ void __launch_bounds__(kThreads)
     flash_attention_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
-           const bf16* __restrict__ v, bf16* __restrict__ out, int Hq,
-           int Hkv, int Sq, int Sk, int D, int ld, int causal, int has_window,
-           int window, int q_offset, float scale_log2) {
+           const bf16* __restrict__ v, bf16* __restrict__ out,
+           float* __restrict__ lse, int Hq, int Hkv, int Sq, int Sk, int D,
+           int ld, int causal, int has_window, int window, int q_offset,
+           float scale_log2) {
   using G = Geom<kDMax>;
   constexpr int kBK = G::kBK, kLd = G::kLd, kStages = G::kStages;
   constexpr int kNT = kBK / 8, kDT = kDMax / 8;
@@ -437,6 +450,10 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (row[r] >= Sq) continue;
+    // m is in log2 units; the log-sum-exp is stored in natural ones
+    if (lse != nullptr && tq == 0)
+      lse[static_cast<size_t>(bh) * Sq + row[r]] =
+          l[r] > 0.f ? (m[r] + log2f(l[r])) * 0.6931471805599453f : INFINITY;
     const float inv = 1.f / fmaxf(l[r], 1e-30f);
     bf16* orow = ob + static_cast<size_t>(row[r]) * ld;
 #pragma unroll
@@ -451,9 +468,9 @@ __global__ void __launch_bounds__(kThreads)
 
 template <int kDMax, int kD16>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   int B, int Hq, int Hkv, int Sq, int Sk, int D, int ld,
-                   int causal, int has_window, int window, int q_offset,
-                   cudaStream_t stream) {
+                   float* lse, int B, int Hq, int Hkv, int Sq, int Sk, int D,
+                   int ld, int causal, int has_window, int window,
+                   int q_offset, cudaStream_t stream) {
   const size_t smem = Geom<kDMax>::kSmem;
   auto kern = flash_attention_tc<kDMax, kD16>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -465,8 +482,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   const float scale_log2 = 1.4426950408889634f / sqrtf(static_cast<float>(D));
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(out), Hq, Hkv, Sq, Sk,
-      D, ld, causal, has_window, window, q_offset, scale_log2);
+      static_cast<const bf16*>(v), static_cast<bf16*>(out), lse, Hq, Hkv,
+      Sq, Sk, D, ld, causal, has_window, window, q_offset, scale_log2);
   return cudaGetLastError();
 }
 
@@ -478,9 +495,10 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16.  window is read only when has_window.
 // ld is the row length of q, k, v and out in memory: D for fp32, D rounded
-// up to a multiple of 8 for bf16.
+// up to a multiple of 8 for bf16.  lse, (B, Hq, Sq) fp32, may be null.
 int flash_attention_launch(const void* q, const void* k, const void* v,
-                           void* out, int B, int Hq, int Hkv, int Sq, int Sk,
+                           void* out, void* lse, int B, int Hq, int Hkv,
+                           int Sq, int Sk,
                            int D, int ld, int causal, int has_window,
                            int window, int q_offset, int dtype,
                            void* stream) {
@@ -492,8 +510,8 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
     if (ld != D) return cudaErrorInvalidValue;
     const bool wide = D > 128;  // 8 output columns a lane, else 4
     return (wide ? launch<float, 8> : launch<float, 4>)(
-        q, k, v, out, B, Hq, Hkv, Sq, Sk, D, causal, has_window, window,
-        q_offset, s);
+        q, k, v, out, static_cast<float*>(lse), B, Hq, Hkv, Sq, Sk, D,
+        causal, has_window, window, q_offset, s);
   }
   if (dtype == 1) {
     if (ld % 8 != 0 || ld < D || ld > (D + 7) / 8 * 8)
@@ -511,8 +529,8 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
       case 16: run = tc::launch<256, 16>; break;
       default: break;
     }
-    return run(q, k, v, out, B, Hq, Hkv, Sq, Sk, D, ld, causal, has_window,
-               window, q_offset, s);
+    return run(q, k, v, out, static_cast<float*>(lse), B, Hq, Hkv, Sq, Sk,
+               D, ld, causal, has_window, window, q_offset, s);
   }
   return cudaErrorInvalidValue;
 }

@@ -16,7 +16,9 @@ Where it runs: a CPU tensor goes to the plain version (:func:`moe_gemm_ref`);
 a CUDA tensor launches a kernel of ``csrc/moe_gemm.cu`` on the current
 stream, except under ``ExecutionPolicy.BASELINE``, which is the plain
 version on any device and launches nothing.  COPIFT forces the ring to
-depth 1.  ``moe_gemm.launches`` counts kernel launches.
+depth 1.  ``moe_gemm.launches`` counts kernel launches.  It has no
+backward kernel yet: a CUDA launch whose operands require grad raises
+``NotImplementedError`` (:func:`.._grad.refuse_grad`).
 
 Three kernels, chosen here by C and the dtype (:func:`regime`; each is the
 kernel for its shapes, not a fallback).  bf16 with C <= 16 (``THIN_MAX_C``,
@@ -54,6 +56,7 @@ import torch.nn.functional as F
 
 from ...core.policy import ExecutionPolicy, OperatingPoint, default_table
 from .. import _build
+from .._grad import refuse_grad
 from .ref import moe_gemm_ref
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -228,6 +231,7 @@ def moe_gemm(x: torch.Tensor, w: torch.Tensor, *, bc: int = 128,
     if x.device.type != "cuda":
         raise ValueError(f"moe_gemm runs on CUDA or CPU tensors, got "
                          f"{x.device}")
+    refuse_grad("moe_gemm", "MoE training", x, w)
     if policy is ExecutionPolicy.COPIFT:
         depth = 1
     return _launch(x, w, depth, active)

@@ -35,6 +35,13 @@ memory (``MAX_SMEM`` = 232448 bytes, :func:`smem_bytes`) raises
 Every pair up to (8, 8) fits in every kernel; (16, 16) fits none but the
 fp32 kernel at M <= 16.
 
+Gradients: when x or w requires grad (and grad mode is on), the product
+goes through :class:`_QueueMatmulFn`, whose forward is the same launch (the
+same bits) and whose backward is two more products through the same path,
+at the same depths and policy: dX = dY @ W^T and dW = X^T @ dY, the
+transposes copied contiguous.  dW's rows are the forward's K, so in bf16
+it always takes the wide kernel; dX's rows are the forward's M.
+
 ``block`` and ``unroll`` are the Pallas kernel's tile and K-loop unroll.
 The CUDA kernels' tiles are compiled in and their K loops are unrolled at
 compile time, so on the card neither changes what runs; both are kept so
@@ -218,20 +225,49 @@ def _launch(x: torch.Tensor, w: torch.Tensor, depth_x: int,
     return out[:, :n] if n_pad != n else out
 
 
+def _product(x: torch.Tensor, w: torch.Tensor, depth_x: int, depth_w: int,
+             policy: ExecutionPolicy) -> torch.Tensor:
+    if policy is ExecutionPolicy.BASELINE or x.device.type == "cpu":
+        return matmul_ref(x, w).to(x.dtype)
+    if policy is ExecutionPolicy.COPIFT:
+        depth_x = depth_w = 1
+    return _launch(x, w, depth_x, depth_w)
+
+
+class _QueueMatmulFn(torch.autograd.Function):
+    """x @ w with a gradient: both products of the backward run through
+    :func:`_product` at the forward's depths and policy."""
+
+    @staticmethod
+    def forward(ctx, x, w, depth_x, depth_w, policy):
+        ctx.save_for_backward(x, w)
+        ctx.knobs = (depth_x, depth_w, policy)
+        return _product(x, w, depth_x, depth_w, policy)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dy = dy.to(x.dtype)
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = _product(dy, w.t().contiguous(), *ctx.knobs)
+        if ctx.needs_input_grad[1]:
+            dw = _product(x.t().contiguous(), dy, *ctx.knobs)
+        return dx, dw, None, None, None
+
+
 def _queue_matmul(x: torch.Tensor, w: torch.Tensor, *,
                   block: Tuple[int, int, int], depth_x: int, depth_w: int,
                   unroll: int, policy: ExecutionPolicy) -> torch.Tensor:
     if x.ndim != 2 or w.ndim != 2 or x.shape[1] != w.shape[0]:
         raise ValueError(f"queue_matmul takes x (M, K) and w (K, N), got "
                          f"{tuple(x.shape)} and {tuple(w.shape)}")
-    if policy is ExecutionPolicy.BASELINE or x.device.type == "cpu":
-        return matmul_ref(x, w).to(x.dtype)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"queue_matmul runs on CUDA or CPU tensors, got "
                          f"{x.device}")
-    if policy is ExecutionPolicy.COPIFT:
-        depth_x = depth_w = 1
-    return _launch(x, w, depth_x, depth_w)
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return _QueueMatmulFn.apply(x, w, depth_x, depth_w, policy)
+    return _product(x, w, depth_x, depth_w, policy)
 
 
 def queue_matmul(x: torch.Tensor, w: torch.Tensor, *,

@@ -11,7 +11,9 @@ the plain version's sequential walk (composed decays, one FMA a step).
 Where it runs: a CPU tensor goes to the plain version
 (:func:`rglru_scan_ref`); a CUDA tensor launches the kernel in
 ``csrc/rglru_scan.cu`` on the current stream.  ``rglru_scan.launches``
-counts kernel launches.
+counts kernel launches.  It has no backward kernel yet: a CUDA launch
+whose operands require grad raises ``NotImplementedError``
+(:func:`.._grad.refuse_grad`).
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ import functools
 import torch
 
 from .. import _build
+from .._grad import refuse_grad
 from .ref import rglru_scan_ref
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -72,6 +75,7 @@ def rglru_scan(a: torch.Tensor, bx: torch.Tensor) -> torch.Tensor:
     if a.device.type != "cuda":
         raise ValueError(f"rglru_scan runs on CUDA or CPU tensors, got "
                          f"{a.device}")
+    refuse_grad("rglru_scan", "hybrid training", a, bx)
     return _launch(a, bx)
 
 

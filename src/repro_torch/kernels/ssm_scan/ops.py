@@ -9,7 +9,9 @@ nothing is padded.
 
 Where it runs: a CPU tensor goes to the plain version (:func:`ssm_scan_ref`);
 a CUDA tensor launches the kernel in ``csrc/ssm_scan.cu`` on the current
-stream.  ``ssm_scan.launches`` counts kernel launches.
+stream.  ``ssm_scan.launches`` counts kernel launches.  It has no backward
+kernel yet: a CUDA launch whose operands require grad raises
+``NotImplementedError`` (:func:`.._grad.refuse_grad`).
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ import functools
 import torch
 
 from .. import _build
+from .._grad import refuse_grad
 from .ref import ssm_scan_ref
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -83,6 +86,7 @@ def ssm_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"ssm_scan runs on CUDA or CPU tensors, got "
                          f"{x.device}")
+    refuse_grad("ssm_scan", "SSM training", x, dt, A, Bm, C)
     return _launch(x, dt, A, Bm, C)
 
 

@@ -71,6 +71,39 @@ def tree_map(fn, tree: Pytree) -> Pytree:
     return fn(tree)
 
 
+def tree_leaves(tree: Pytree) -> list:
+    """The leaves in ``jax.tree_util.tree_flatten``'s order: dicts by sorted
+    key, tuples, lists and ``NamedTuple`` s by position, ``None`` holding no
+    leaf.  The optimizers walk parameters, moments and gradients in this
+    order, and checkpoints store leaves in it."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [x for t in tree for x in tree_leaves(t)]
+    return [tree]
+
+
+def tree_unflatten(like: Pytree, leaves: list) -> Pytree:
+    """``like``'s structure (its dicts' key order kept) holding ``leaves``,
+    given in :func:`tree_leaves`'s order."""
+    it = iter(leaves)
+
+    def build(t):
+        if t is None:
+            return None
+        if isinstance(t, dict):
+            out = {k: build(t[k]) for k in sorted(t)}
+            return {k: out[k] for k in t}
+        if isinstance(t, tuple) and hasattr(t, "_fields"):
+            return type(t)(*(build(x) for x in t))
+        if isinstance(t, (tuple, list)):
+            return type(t)(build(x) for x in t)
+        return next(it)
+    return build(like)
+
+
 # ---------------------------------------------------------------------------
 # numerics
 # ---------------------------------------------------------------------------

@@ -18,6 +18,15 @@ attention expanded in ``forward`` (through ``flash_attention`` with a v
 head dim below q's) and absorbed in decode, over a cache of latent and
 rope-key rows.
 
+``forward`` honours ``rc.remat`` as the reference's ``_stack_scan`` does
+with ``jax.checkpoint``: when a gradient is taken (grad mode on and a
+parameter requiring grad), each layer (each macro block of the hybrid
+family) runs under ``torch.utils.checkpoint``, so its activations are
+recomputed in the backward instead of kept.  A stacked leaf is taken
+apart once per ``forward`` with ``unbind(0)``, whose backward is one
+``stack``, where indexing it layer by layer would give every layer a
+full-size zero gradient to add into.
+
 Two departures from the functional JAX code, both invisible in the
 numbers:
 
@@ -33,10 +42,11 @@ with their families in a later slice.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Iterator, Optional, Tuple
+from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..config import ModelConfig, RunConfig
 from ..device import (DeviceLike, resolve_device, torch_dtype, upcast,
@@ -46,7 +56,7 @@ from . import moe as moe_mod
 from . import rglru as rglru_mod
 from . import ssm as ssm_mod
 from .layers import (ParamSpec, ffn_apply, ffn_specs, init_params, matmul,
-                     rms_norm, tree_map)
+                     rms_norm, tree_leaves, tree_map)
 
 Pytree = Any
 
@@ -199,6 +209,16 @@ def _layers(params: Pytree, cfg: ModelConfig,
         yield kind, _cast(params[f"tail_{j}_{kind}"], dtype)
 
 
+def _unstack(tree: Pytree) -> List[Pytree]:
+    """A stacked tree as one uncast tree per layer, every leaf taken apart
+    once with ``unbind(0)``."""
+    parts = tree_map(lambda a: a.unbind(0), tree)
+    first = parts
+    while isinstance(first, dict):
+        first = next(iter(first.values()))
+    return [tree_map(lambda t: t[i], parts) for i in range(len(first))]
+
+
 def _window(cfg: ModelConfig) -> Optional[int]:
     """The attention layers' local window: the hybrid family's, else
     none."""
@@ -252,23 +272,50 @@ def _ssm_block_apply(p, x, cfg: ModelConfig, rc: RunConfig):
     return x + ssm_mod.mamba_apply(p["mamba"], h, cfg, rc.policy)
 
 
+def _block_apply(kind: str, p, x, cfg: ModelConfig, rc: RunConfig):
+    if kind == "ssm":
+        return _ssm_block_apply(p, x, cfg, rc)
+    if kind == "rec":
+        return _rec_block_apply(p, x, cfg, rc)
+    return _dense_block_apply(p, x, cfg, rc, window=_window(cfg))
+
+
 def forward(params: Pytree, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
             rc: RunConfig) -> torch.Tensor:
     """Full-sequence forward -> logits (B, S, vocab) in the compute dtype.
     Attention runs through ``flash_attention`` (with the hybrid family's
-    local window; MLA's expanded form with its v head dim), the SSM scan through ``ssm_scan``, the RG-LRU recurrence
-    through ``rglru_scan``."""
+    local window; MLA's expanded form with its v head dim), the SSM scan
+    through ``ssm_scan``, the RG-LRU recurrence through ``rglru_scan``.
+    With ``rc.remat``, when a gradient is taken (grad mode on and a
+    parameter requiring grad), each stacked layer (each hybrid macro
+    block; not the hybrid tail, as in the reference) is checkpointed."""
     _check_family(cfg)
     dtype = torch_dtype(rc.dtype)
     x = embed_inputs(params, batch, cfg, dtype)
-    window = _window(cfg)
-    for kind, bp in _layers(params, cfg, dtype):
-        if kind == "ssm":
-            x = _ssm_block_apply(bp, x, cfg, rc)
-        elif kind == "rec":
-            x = _rec_block_apply(bp, x, cfg, rc)
-        else:
-            x = _dense_block_apply(bp, x, cfg, rc, window=window)
+    # only when a gradient is taken: serving never checkpoints
+    remat = rc.remat and torch.is_grad_enabled() and any(
+        p.requires_grad for p in tree_leaves(params))
+
+    def run(fn, *args):
+        return (checkpoint(fn, *args, use_reentrant=False) if remat
+                else fn(*args))
+
+    if cfg.family == "hybrid":
+        def macro(h, mp):
+            mp = _cast(mp, dtype)
+            for j, kind in enumerate(cfg.rglru.pattern):
+                h = _block_apply(kind, mp[f"{j}_{kind}"], h, cfg, rc)
+            return h
+        for mp in _unstack(params["macros"]):
+            x = run(macro, x, mp)
+        for j, kind in enumerate(_hybrid_layout(cfg)[1]):
+            x = _block_apply(kind, _cast(params[f"tail_{j}_{kind}"], dtype),
+                             x, cfg, rc)
+    else:
+        kind = "ssm" if cfg.family == "ssm" else "attn"
+        for bp in _unstack(params["blocks"]):
+            x = run(lambda h, p: _block_apply(kind, _cast(p, dtype), h, cfg,
+                                              rc), x, bp)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return matmul(x, _head_t(params, cfg, dtype), rc.policy)
 

@@ -16,7 +16,12 @@ sequential walk and is held to the same tolerances, at the edges of its
 chunks (16 steps) and segments (256).
 bf16 ``queue_matmul`` has two kernels, thin (M <= 16) and wide; each must
 give the same bits at every depth pair and for a row whatever rows come
-with it."""
+with it.  Training: ``flash_attention_bwd`` against its plain version on
+the same inputs (fp32 2e-4, bf16 2e-2) and equal to itself across calls,
+rows that see no key with zero gradients; the autograd Functions run the
+kernels in their backward; ``moe_gemm``, ``ssm_scan`` and ``rglru_scan``
+raise under ``requires_grad``; a train step on the card agrees with the
+CPU's (loss 2e-3, weights after one AdamW step within 3 lr)."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -28,6 +33,8 @@ from repro_torch.configs import get_reduced
 from repro_torch.core.policy import ExecutionPolicy as EP
 from repro_torch.kernels import (flash_attention, moe_gemm, queue_matmul,
                                  rglru_scan, ssm_scan)
+from repro_torch.kernels.flash_attention import flash_attention_bwd
+from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ops import _plain
 from repro_torch.kernels.moe_gemm import ops as mg_ops
 from repro_torch.kernels.moe_gemm.ref import moe_gemm_ref
@@ -556,3 +563,118 @@ def test_mla_decode_past_max_len_matches_the_cpu(card):
         _close(a, b, 2e-3)
     for k, v in out["cpu"][1].items():
         _close(out["cuda"][1][k], v, 2e-3)
+
+
+# --- training -----------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,d,dv,causal,window", [
+    (2, 4, 2, 100, 100, 96, 96, True, None),
+    (1, 4, 4, 70, 70, 80, 80, False, None),
+    (1, 4, 1, 130, 130, 128, 128, True, 48),
+    (1, 2, 1, 90, 90, 256, 256, True, 40),
+    (1, 2, 2, 65, 65, 200, 200, False, 30),
+    (2, 4, 4, 77, 77, 96, 64, True, None),     # MLA: v under q/k
+    (1, 2, 2, 33, 33, 36, 36, True, None),     # bf16 pads D to 40
+    (1, 2, 1, 120, 40, 64, 64, False, 16),     # rows 55.. see no key
+])
+def test_flash_attention_bwd_kernel_against_plain(card, b, hq, hkv, sq, sk,
+                                                  d, dv, causal, window,
+                                                  dtype):
+    def rnd(*shape):
+        return torch.randn(shape, generator=card, device="cuda").to(dtype)
+    q, k, v, do = rnd(b, hq, sq, d), rnd(b, hkv, sk, d), rnd(b, hkv, sk, dv), \
+        rnd(b, hq, sq, dv)
+    o, lse = fa_ops._launch(q, k, v, causal, window, 0, with_lse=True)
+    _close(lse, fa_ops._plain_lse(q, k, causal, window, 0), 2e-4 if dtype
+           == torch.float32 else 2e-2)
+    before = flash_attention_bwd.launches
+    got = flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                              window=window)
+    again = flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                window=window)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.launches == before + 2
+    ref = fa_ops._plain_bwd(q, k, v, o, lse, do, causal, window)
+    for x, y, r, t in zip(got, again, ref, (q, k, v)):
+        assert x.dtype == dtype and x.shape == t.shape
+        assert torch.equal(x, y)                 # no atomics
+        assert bool(torch.isfinite(x).all())
+        _close(x, r, TOL[dtype])
+    i = torch.arange(sq, device="cuda")[:, None]
+    j = torch.arange(sk, device="cuda")[None]
+    keep = (j > i - window) if window else torch.ones_like(i == j)
+    keep = keep & (j <= i) if causal else keep
+    empty = ~keep.any(-1)
+    assert bool((got[0][:, :, empty] == 0).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_autograd_runs_the_backward_kernels(card, dtype):
+    """A loss through ``flash_attention`` and ``queue_matmul`` on the card:
+    the backward launches ``flash_attention_bwd`` once and
+    ``queue_matmul`` twice (dX and dW), and the gradients match the CPU's
+    plain path."""
+    def rnd(*shape):
+        return torch.randn(shape, generator=card, device="cuda").to(dtype)
+    q, k, v = rnd(1, 4, 64, 32), rnd(1, 2, 64, 32), rnd(1, 2, 64, 32)
+    w = (rnd(128, 48) / 12).requires_grad_()
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        leaves = [t.detach().to(dev).requires_grad_() for t in (q, k, v, w)]
+        fa0, fb0, qm0 = (flash_attention.launches,
+                         flash_attention_bwd.launches, queue_matmul.launches)
+        o = flash_attention(*leaves[:3], causal=True)
+        y = queue_matmul(o.transpose(1, 2).reshape(64, 128), leaves[3])
+        grads[dev] = torch.autograd.grad(y.float().square().sum(), leaves)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert flash_attention.launches == fa0 + 1
+            assert flash_attention_bwd.launches == fb0 + 1
+            assert queue_matmul.launches == qm0 + 3
+    for a, b in zip(grads["cuda"], grads["cpu"]):
+        _close(a.cpu(), b, 2e-3 if dtype == torch.float32 else 5e-2)
+
+
+def test_kernels_without_backward_raise_under_requires_grad(card):
+    x = torch.randn((2, 4, 64), device="cuda", requires_grad=True)
+    w = torch.randn((2, 64, 32), device="cuda")
+    with pytest.raises(NotImplementedError, match="moe_gemm"):
+        moe_gemm(x, w)
+    a = torch.rand((1, 8, 16), device="cuda", requires_grad=True)
+    with pytest.raises(NotImplementedError, match="rglru_scan"):
+        rglru_scan(a, torch.randn((1, 8, 16), device="cuda"))
+    xs = torch.randn((1, 8, 32), device="cuda", requires_grad=True)
+    with pytest.raises(NotImplementedError, match="ssm_scan"):
+        ssm_scan(xs, torch.rand((1, 8, 32), device="cuda"),
+                 -torch.rand((32, 4), device="cuda"),
+                 torch.randn((1, 8, 4), device="cuda"),
+                 torch.randn((1, 8, 4), device="cuda"))
+    with torch.no_grad():                      # serving is unaffected
+        assert moe_gemm(x, w).shape == (2, 4, 32)
+
+
+def test_train_step_on_the_card_matches_the_cpu(card):
+    """phi3-smoke, fp32, remat on: one AdamW step on the card and on the
+    CPU from the same weights and batch."""
+    from repro_torch.data import SyntheticLMStream
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.optim import init_opt_state
+    from repro_torch.train import train_step
+    cfg = get_reduced("phi3-mini-3.8b")
+    rc = RunConfig(dtype="float32", remat=True, lr=1e-3)
+    batch = SyntheticLMStream(cfg.vocab, 32, 2, seed=3).batch_at(0)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        p = init_model_params(4, cfg, device="cpu")
+        p = tree_map(lambda a: a.to(dev), p)
+        b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        before = flash_attention_bwd.launches
+        p, opt, m = train_step(p, init_opt_state(p), b, cfg, rc)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert flash_attention_bwd.launches == before + cfg.n_layers
+        out[dev] = (float(m["loss"]), [t.cpu() for t in tree_leaves(p)])
+    assert abs(out["cuda"][0] - out["cpu"][0]) <= 2e-3
+    for a, b in zip(out["cuda"][1], out["cpu"][1]):
+        assert float((a - b).abs().max()) <= 3 * rc.lr
