@@ -7,8 +7,9 @@
 Phases, each of which raises on failure (the run then exits non-zero and
 prints no result):
 
-1. build   — compile the six CUDA sources in the checkout (the five
-   kernels and ``flash_attention_bwd``), one ``nvcc`` each, all at once.
+1. build   — compile the seven CUDA sources in the checkout (the five
+   kernels, ``flash_attention_bwd`` and ``ssm_scan_bwd``), one ``nvcc``
+   each, all at once.
 2. kernels — each kernel against its plain PyTorch version on the card at
    the serve paths' shapes, with its device time (``cuda_ms``), its bound
    and the time of one library call that computes the same function where
@@ -22,10 +23,14 @@ prints no result):
    top-8 routing of 4 tokens (the active experts' bits equal to the
    unmasked call's, the others zeros), and at C = 130 and 512 (wide),
    ``flash_attention`` also at head dims 80 and 200, with minicpm3's v
-   head dim 64 below its q/k head dim 96, and on a query chunk at the end
-   of a longer key sequence (Sk != Sq, ``q_offset``), ``rglru_scan`` (a
-   chunked scan, whose rounding differs from the plain version's
-   sequential walk) also at 4096 steps, where it walks T in segments.
+   head dim 64 below its q/k head dim 96, granite-moe-3b-a800m's heads
+   (24 over 8, D 64), and on a query chunk at the end of a longer key
+   sequence (Sk != Sq, ``q_offset``), ``ssm_scan`` also with its chunk
+   states written (y's bits unchanged), ``rglru_scan`` (a chunked scan,
+   whose rounding differs from the plain version's sequential walk) also
+   at 4096 steps, where it walks T in segments.  The products are those
+   of the served models and of granite-moe-3b-a800m (trained in phase 5;
+   its vocab of 49155 is not a multiple of 8).
 3. parity  — phi3-mini-3.8b, olmoe-1b-7b, falcon-mamba-7b and minicpm3-4b
    at full width, depth cut to 2 layers, and recurrentgemma-2b cut to 5
    (one (rec, rec, attn) macro block and the full model's (rec, rec) tail):
@@ -50,22 +55,28 @@ prints no result):
    decode body: launches, kernel time by kernel, the device's idle share,
    and for olmoe the experts each layer's mask keeps.
 5. train   — the training path (``--train-parts`` picks among a-d):
-   (a) ``flash_attention_bwd`` against its plain backward on the same q,
-   k, v, o, lse and dO (o and lse from the forward kernel) at
-   ``BWD_CASES``, fp32 and bf16, equal to itself across two calls, rows
-   that see no key with zero gradients, timed beside SDPA's backward;
-   ``queue_matmul``'s dX and dW against ``matmul_ref``'s autograd at
-   phi3's products over 1024 tokens; (b) the loss and every gradient leaf
-   of phi3-mini-3.8b and minicpm3-4b at full width and 2 layers, fp32 on
-   the card, fp32 on the CPU and fp64 on the CPU, each leaf held to
-   ``FP64_RATIO`` as phase 3 holds logits, the loss to 2e-3 of fp64; (c)
-   ``FaultTolerantTrainer`` on 2-layer phi3 at full width, a fault
+   (a) each backward against its plain backward on the same inputs, fp32
+   and bf16, equal to itself across two calls, timed with its bound and
+   its library yardstick: ``flash_attention_bwd`` (o and lse from the
+   forward kernel) at ``BWD_CASES``, rows that see no key with zero
+   gradients, beside SDPA's backward; ``queue_matmul``'s dX and dW at
+   phi3's products and granite's head over 1024 tokens; ``moe_gemm``'s
+   (``MOE_BWD``: a shared and a per-expert x, with and without an expert
+   mask, beside ``torch.bmm``), and ``moe_apply``'s gradients equal with
+   the mask and without; ``rglru_scan``'s reverse walk at 2 x 512 x 2560
+   and ``ssm_scan_bwd`` at 2 x 512 x 8192 x 16, on the chunk states its
+   forward writes; (b) the loss and every gradient leaf of
+   ``GRAD_PARITY``'s models at full width and cut depth (phase 3's cut),
+   fp32 on the card, fp32 on the CPU and fp64 on the CPU, each leaf held
+   to ``FP64_RATIO`` as phase 3 holds logits, the loss to 2e-3 of fp64;
+   (c) ``FaultTolerantTrainer`` on 2-layer phi3 at full width, a fault
    injected after the first checkpoint, the replayed losses equal bit for
-   bit; (d) phi3-mini-3.8b at full width and depth, bf16 with remat and
-   AdamW, ``FULL_STEPS`` steps of ``make_train_step``: its own main path,
-   the launch counts set to 0 just before it and read just after, every
-   loss finite and ``queue_matmul``, ``flash_attention`` and
-   ``flash_attention_bwd`` launched; then a profile of one step.
+   bit; (d) ``TRAIN_FULL``'s models at full width (falcon-mamba-7b's depth
+   cut to fit), bf16 with remat and AdamW, ``FULL_STEPS`` steps of
+   ``make_train_step`` each: each its own main path, the launch counts set
+   to 0 just before it and read just after, every loss finite and every
+   forward and backward kernel of its family (``TRAIN_KERNELS``)
+   launched; then a profile of one step.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  It imports nothing of JAX.
@@ -132,6 +143,16 @@ PATH_KERNELS = {"dense": ("queue_matmul", "flash_attention"),
                 "moe": ("queue_matmul", "flash_attention", "moe_gemm"),
                 "ssm": ("queue_matmul", "ssm_scan"),
                 "hybrid": ("queue_matmul", "flash_attention", "rglru_scan")}
+#: the forward and backward launches each family's training path makes
+#: (``moe_gemm_bwd`` and ``rglru_scan_bwd`` count backward calls through
+#: their forward kernels' sources)
+TRAIN_KERNELS = {
+    "dense": ("queue_matmul", "flash_attention", "flash_attention_bwd"),
+    "moe": ("queue_matmul", "flash_attention", "flash_attention_bwd",
+            "moe_gemm", "moe_gemm_bwd"),
+    "ssm": ("queue_matmul", "ssm_scan", "ssm_scan_bwd"),
+    "hybrid": ("queue_matmul", "flash_attention", "flash_attention_bwd",
+               "rglru_scan", "rglru_scan_bwd")}
 WHERE = {
     "queue_matmul": ("src/repro_torch/kernels/queue_matmul/csrc/"
                      "queue_matmul.cu",
@@ -150,6 +171,10 @@ WHERE = {
     "flash_attention_bwd": ("src/repro_torch/kernels/flash_attention/csrc/"
                             "flash_attention_bwd.cu",
                             "src/repro/models/attention.py:51"),
+    # no Pallas kernel: the JAX train path differentiates the plain
+    # associative scan of the Mamba block with XLA's autodiff
+    "ssm_scan_bwd": ("src/repro_torch/kernels/ssm_scan/csrc/ssm_scan_bwd.cu",
+                     "src/repro/models/ssm.py:96"),
 }
 
 
@@ -337,8 +362,9 @@ QM_DEPTHS = ((1, 1), (2, 2), (4, 4), (2, 4), (8, 8), (1, 8))
 
 
 def check_queue_matmul(gen, report) -> dict:
-    """Every product of the served models at M = 4 (decode over 4 slots)
-    and M = 512 (``forward``; MLA's wuk/wuv there only), and phi3's q/k/v/o
+    """Every product of the served models and of granite-moe-3b-a800m at
+    M = 4 (decode over 4 slots) and M = 512 (``forward``; MLA's wuk/wuv
+    there only), and phi3's q/k/v/o
     and ffn products also at M = 64 and 128 (the wide kernel's smallest
     tiles), bit-identical across the ring depths of ``QM_DEPTHS``."""
     from repro_torch.kernels.queue_matmul import ops
@@ -346,9 +372,13 @@ def check_queue_matmul(gen, report) -> dict:
     rep = None
     log("[kernels] queue_matmul  model product  M     K     N    dtype  "
         "max_abs_err  ms  plain_ms  library_ms  bound_ms")
-    cases = [(arch, name, k, n, dtype) for arch in SERVED
+    cases = [(arch, name, k, n, dtype)
+             for arch in SERVED + ("granite-moe-3b-a800m",)
              for name, k, n, dtypes in matmul_shapes(arch)
              for dtype in dtypes]
+    # the trained-only model draws from a generator of its own, so the
+    # served models' cases (and every later check's) keep their inputs
+    extra = torch.Generator(device="cuda").manual_seed(SEED + 11)
     seen = set()                      # a shape two models share runs once
     for arch, name, k, n, dtype in cases:
         ms_ = (4, 512)
@@ -360,8 +390,9 @@ def check_queue_matmul(gen, report) -> dict:
             if (m, k, n, dtype) in seen:
                 continue
             seen.add((m, k, n, dtype))
-            x = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
-            w = (torch.randn((k, n), generator=gen, device="cuda")
+            g = gen if arch in SERVED else extra
+            x = torch.randn((m, k), generator=g, device="cuda").to(dtype)
+            w = (torch.randn((k, n), generator=g, device="cuda")
                  / math.sqrt(k)).to(dtype)
             ref = matmul_ref(x, w).to(dtype)
             outs = {d: ops.queue_matmul(x, w, depth_x=d[0], depth_w=d[1])
@@ -443,7 +474,8 @@ def check_flash_attention(gen, report) -> dict:
         "bound_ms")
     # phi3's heads (32 of 96), olmoe's (16 of 128) and recurrentgemma's (10
     # of 256 over one KV head, window 2048), at the 512 tokens of phase 4's
-    # ``forward`` and the 128 of phase 3's; windows, GQA, longer and ragged
+    # ``forward`` and the 128 of phase 3's; granite's (24 of 64 over 8) at
+    # 512; windows, GQA, longer and ragged
     # sequences at phi3's width, and recurrentgemma's at 4096 tokens, where
     # its window bites; head dims 80 and 200 (padded to 16 in the kernel);
     # a query chunk at the end of a longer key sequence (Sk != Sq,
@@ -471,11 +503,17 @@ def check_flash_attention(gen, report) -> dict:
     cases = [c + (c[4],) for c in cases] + [
         (40, 40, 512, 512, 96, True, None, 0, 64),
         (40, 40, 128, 128, 96, True, None, 0, 64)]
+    # granite's heads draw from a generator of their own (see
+    # check_queue_matmul)
+    extra = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    trained = [(24, 8, 512, 512, 64, True, None, 0, 64)]
     for dtype in (torch.float32, torch.bfloat16):
-        for hq, hkv, sq, sk, d, causal, window, q_off, dv in cases:
-            q = torch.randn((1, hq, sq, d), generator=gen, device="cuda").to(dtype)
-            k = torch.randn((1, hkv, sk, d), generator=gen, device="cuda").to(dtype)
-            v = torch.randn((1, hkv, sk, dv), generator=gen, device="cuda").to(dtype)
+        for case in cases + trained:
+            hq, hkv, sq, sk, d, causal, window, q_off, dv = case
+            g = extra if case in trained else gen
+            q = torch.randn((1, hq, sq, d), generator=g, device="cuda").to(dtype)
+            k = torch.randn((1, hkv, sk, d), generator=g, device="cuda").to(dtype)
+            v = torch.randn((1, hkv, sk, dv), generator=g, device="cuda").to(dtype)
 
             def run():
                 return ops.flash_attention(q, k, v, causal=causal,
@@ -518,11 +556,13 @@ def check_flash_attention(gen, report) -> dict:
 # ---------------------------------------------------------------------------
 
 #: phase 5's backward cases: (B, Hq, Hkv, Sq, Sk, D, Dv, causal, window):
-#: phi3's heads at 2 x 512 tokens (the slice's main path), GQA 32 over 8,
-#: recurrentgemma-like heads of 256 with window 128, minicpm3's MLA heads
-#: (v 64 under q/k 96), and a non-causal window over fewer keys than
-#: queries, so that the rows from Sk - 1 + window on see no key
+#: phi3's heads at 2 x 512 tokens (the slice's main path), granite's (24
+#: over 8 of 64) there too, GQA 32 over 8, recurrentgemma-like heads of
+#: 256 with window 128, minicpm3's MLA heads (v 64 under q/k 96), and a
+#: non-causal window over fewer keys than queries, so that the rows from
+#: Sk - 1 + window on see no key
 BWD_CASES = ((2, 32, 32, 512, 512, 96, 96, True, None),
+             (2, 24, 8, 512, 512, 64, 64, True, None),
              (1, 32, 8, 512, 512, 128, 128, True, None),
              (1, 10, 1, 512, 512, 256, 256, True, 128),
              (1, 40, 40, 512, 512, 96, 64, True, None),
@@ -615,7 +655,8 @@ def check_flash_attention_bwd(gen, report) -> dict:
 def check_queue_matmul_grads(gen, report) -> None:
     """``queue_matmul``'s backward (dX = dY W^T and dW = X^T dY, both
     through the kernel) against the autograd of :func:`matmul_ref`, at
-    phi3's products over 2 x 512 tokens, fp32 and bf16; dW's rows are K,
+    phi3's products and granite's head (49155 columns, not a multiple of
+    8) over 2 x 512 tokens, fp32 and bf16; dW's rows are K,
     so in bf16 both products take the wide kernel.  Times: the two
     products with their transposes, and ``torch.matmul``'s two."""
     from repro_torch.kernels.queue_matmul import ops
@@ -625,7 +666,7 @@ def check_queue_matmul_grads(gen, report) -> None:
     m = 1024
     for dtype in (torch.float32, torch.bfloat16):
         for k, n in ((3072, 3072), (3072, 8192), (8192, 3072),
-                     (3072, 32064)):
+                     (3072, 32064), (1536, 49155)):
             x = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
             w = (torch.randn((k, n), generator=gen, device="cuda")
                  / math.sqrt(k)).to(dtype)
@@ -660,26 +701,296 @@ def check_queue_matmul_grads(gen, report) -> None:
         free_card()
 
 
+#: phase 5 (a)'s expert products at 2 x 512 tokens: (model, E, d, f); the
+#: shared x is wi/wg's (C, d) against (E, d, f), the per-expert x wo's
+#: (E, C, f) against (E, f, d)
+MOE_BWD = (("granite-moe-3b-a800m", 40, 1536, 512),
+           ("olmoe-1b-7b", 64, 2048, 1024))
+
+
+def check_moe_gemm_bwd(gen, report) -> None:
+    """``moe_gemm_bwd`` (dX and dW, two grouped products through the
+    forward's kernels) against :func:`moe_gemm_bwd_ref` on the same x, w
+    and dY at ``MOE_BWD``'s products over 1024 tokens, fp32 and bf16, with
+    every expert and with the mask of a top-8 routing of 4 tokens (the
+    active experts' dW and per-expert dX equal to the unmasked call's, the
+    others zeros); equal across two calls.  The yardstick is ``torch.bmm``
+    on the same two products (and the sum over experts for a shared x)."""
+    from repro_torch.kernels.moe_gemm import ops
+    from repro_torch.kernels.moe_gemm.ref import moe_gemm_bwd_ref
+    depth = ops.operating_point().effective_depths()[1]
+    c = 1024
+    log(f"[train] moe_gemm_bwd  model  E     C     K     N  x  masked  dtype  "
+        f"max_abs_err  ms  plain_ms  library_ms  bound_ms  (depth {depth})")
+    for dtype in (torch.float32, torch.bfloat16):
+        for arch, e, d, f in MOE_BWD:
+            for shared in (True, False):
+                k, n = (d, f) if shared else (f, d)
+                x = torch.randn((c, k) if shared else (e, c, k),
+                                generator=gen, device="cuda").to(dtype)
+                w = (torch.randn((e, k, n), generator=gen, device="cuda")
+                     / math.sqrt(k)).to(dtype)
+                dy = torch.randn((e, c, n), generator=gen, device="cuda"
+                                 ).to(dtype)
+                full = None
+                for masked in (False, True):
+                    active = routed_mask(gen, 4, e, 8) if masked else None
+                    n_act = int(active.sum()) if masked else e
+
+                    def run():
+                        return ops.moe_gemm_bwd(x, w, dy, depth=depth,
+                                                active=active)
+                    got, again = run(), run()
+                    ref = moe_gemm_bwd_ref(x, w, dy, active)
+                    torch.cuda.synchronize()
+                    for name, a, b in zip(("dx", "dw"), got, again):
+                        if not torch.equal(a, b):
+                            raise AssertionError(f"moe_gemm_bwd {name} "
+                                                 f"differs between two calls")
+                    err = max(within(a, r, TOL[dtype])
+                              for a, r in zip(got, ref))
+                    if masked:
+                        # dW's blocks, and a per-expert x's dX blocks (a
+                        # shared x's dX is their sum)
+                        on = active != 0
+                        pairs = [(got[1], full[1])] + (
+                            [] if shared else [(got[0], full[0])])
+                        if not all(torch.equal(a[on], b[on]) and
+                                   bool((a[~on] == 0).all())
+                                   for a, b in pairs):
+                            raise AssertionError(
+                                f"moe_gemm_bwd's mask changed an active "
+                                f"expert's bits or left an inactive one "
+                                f"nonzero ({arch} {dtype})")
+                    else:
+                        full = got
+                    del again, ref
+                    ms = cuda_ms(run)
+                    plain = cuda_ms(lambda: moe_gemm_bwd_ref(x, w, dy,
+                                                             active),
+                                    iters=3, warmup=1)
+                    lib = None
+                    if not masked:
+                        xe = x.expand(e, c, k) if shared else x
+
+                        def library():
+                            gx = torch.bmm(dy, w.transpose(1, 2))
+                            return (gx.sum(0) if shared else gx,
+                                    torch.bmm(xe.transpose(1, 2), dy))
+                        lib = cuda_ms(library)
+                    es = x.element_size()
+                    flops = 2 * 2.0 * n_act * c * k * n
+                    nbytes = ((c * k if shared else n_act * c * k) * es
+                              + n_act * (k * n + c * n) * es
+                              + (c * k if shared else e * c * k) * 4
+                              + e * k * n * 4)
+                    b_ms, b_by = bound(flops, nbytes, dtype)
+                    kind = ops.regime(c, dtype)
+                    log(f"[train] moe_gemm_bwd {arch.split('-')[0]:>7s} "
+                        f"{e:3d} {c:5d} {k:5d} {n:5d} "
+                        f"{'b' if shared else 'e'} {int(masked):6d} "
+                        f"{str(dtype)[6:]:>8s} {err:10.3e} {ms:8.4f} "
+                        f"{plain:8.4f} "
+                        f"{'    none' if lib is None else f'{lib:8.4f}'} "
+                        f"{b_ms:8.4f} ({b_by}; {kind}; {n_act} of {e} "
+                        f"experts; {flops / ms / 1e9:.1f} TFLOP/s"
+                        + (f"; {ms / lib:.2f}x library" if lib else "")
+                        + "; deterministic)")
+                    report.append({
+                        "kernel": "moe_gemm_bwd", "model": arch, "E": e,
+                        "C": c, "K": k, "N": n, "shared_x": shared,
+                        "masked": masked, "active": n_act,
+                        "dtype": str(dtype)[6:], "max_abs_err": err,
+                        "ms": ms, "plain_ms": plain, "library_ms": lib,
+                        "bound_ms": b_ms, "bound_by": b_by})
+                    del got
+                del x, w, dy, full
+                free_card()
+
+
+def check_moe_apply_grad_mask() -> None:
+    """``moe_apply``'s gradients (x and every leaf of the layer) on
+    granite-moe-3b-a800m's first layer at full width, bf16, over 4 tokens
+    (about half the experts routed): the same bits with the expert mask as
+    with every expert computed."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_model_params, moe
+    cfg = dataclasses.replace(get_config("granite-moe-3b-a800m"), n_layers=1)
+    p = init_model_params(SEED, cfg, device="cuda")["blocks"]["ffn"]
+    p = {k: v[0].to(torch.bfloat16).requires_grad_() for k, v in p.items()}
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    x = (torch.randn((1, 4, cfg.d_model), generator=gen, device="cuda")
+         * 0.3).bfloat16().requires_grad_()
+    dout = torch.randn((1, 4, cfg.d_model), generator=gen,
+                       device="cuda").bfloat16()
+    leaves = [x, *p.values()]
+    routed = torch.autograd.grad(moe.moe_apply(p, x, cfg), leaves, dout)
+    real = moe.moe_gemm
+    moe.moe_gemm = lambda *a, active=None, **k: real(*a, **k)
+    try:
+        every = torch.autograd.grad(moe.moe_apply(p, x, cfg), leaves, dout)
+    finally:
+        moe.moe_gemm = real
+    torch.cuda.synchronize()
+    for name, a, b in zip(["x", *p], routed, every):
+        if not torch.equal(a, b):
+            raise AssertionError(f"moe_apply's gradient of {name} changes "
+                                 f"with the expert mask")
+    log(f"[train] moe_apply gradients (granite layer 0, 4 tokens, bf16): "
+        f"the same bits with the expert mask as with every expert, on "
+        f"x and {', '.join(p)}")
+    del p, x, routed, every
+    free_card()
+
+
+def check_rglru_scan_bwd(gen, report) -> dict:
+    """``rglru_scan_bwd`` (the kernel's reverse walk) against
+    :func:`rglru_scan_bwd_ref` on the forward kernel's h at
+    recurrentgemma's 2 x 512 x 2560, a in fp32 and bf16, g fp32; equal
+    across two calls.  No single PyTorch call computes it."""
+    from repro_torch.kernels.rglru_scan import ops
+    from repro_torch.kernels.rglru_scan.ref import rglru_scan_bwd_ref
+    rep = None
+    log("[train] rglru_scan_bwd  B    T     w  dtype  max_abs_err  ms  "
+        "plain_ms  bound_ms")
+    b, t, w = 2, 512, 2560
+    for dtype in (torch.float32, torch.bfloat16):
+        def rnd(*shape):
+            return torch.randn(shape, generator=gen, device="cuda")
+        a = torch.exp(-8.0 * math.log1p(math.e)
+                      * torch.sigmoid(rnd(b, t, w)))
+        bx = (torch.sqrt(1.0 - a * a) * rnd(b, t, w)).to(dtype)
+        a, g = a.to(dtype), rnd(b, t, w)
+        h = ops.rglru_scan(a, bx)
+
+        def run():
+            return ops.rglru_scan_bwd(a, h, g)
+        got, again = run(), run()
+        ref = rglru_scan_bwd_ref(a, h, g)
+        torch.cuda.synchronize()
+        for name, x, y in zip(("da", "dbx"), got, again):
+            if not torch.equal(x, y):
+                raise AssertionError(f"rglru_scan_bwd {name} differs "
+                                     f"between two calls")
+        err = max(within(x, r, TOL[dtype]) for x, r in zip(got, ref))
+        ms = cuda_ms(run)
+        plain = cuda_ms(lambda: rglru_scan_bwd_ref(a, h, g), iters=3,
+                        warmup=1)
+        # a (its dtype), g and h in, da and dbx out (fp32); an FMA and a
+        # multiply an element
+        b_ms, b_by = bound(3.0 * b * t * w,
+                           b * t * w * (a.element_size() + 16),
+                           torch.float32)
+        log(f"[train] rglru_scan_bwd {b:2d} {t:4d} {w:5d} "
+            f"{str(dtype)[6:]:>8s} {err:10.3e} {ms:8.4f} {plain:8.4f} "
+            f"{b_ms:8.4f} ({b_by}; {b_ms / ms:.2f} of the bound; "
+            f"deterministic)")
+        row = {"B": b, "T": t, "w": w, "dtype": str(dtype)[6:],
+               "max_abs_err": err, "ms": ms, "plain_ms": plain,
+               "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+        report.append({"kernel": "rglru_scan_bwd", **row})
+        if dtype == torch.float32:            # the model's inputs
+            rep = row
+        del got, again, ref
+    return rep
+
+
+def check_ssm_scan_bwd(gen, report) -> dict:
+    """``ssm_scan_bwd`` against :func:`ssm_scan_bwd_ref` at falcon-mamba's
+    2 x 512 x 8192 x 16 on the chunk states the forward writes (whose y
+    must keep its bits), fp32 and bf16 inputs, dy fp32; equal across two
+    calls.  No single PyTorch call computes it."""
+    from repro_torch.kernels.ssm_scan import ops
+    from repro_torch.kernels.ssm_scan.ref import ssm_scan_bwd_ref
+    rep = None
+    log("[train] ssm_scan_bwd  B    T     d   N  dtype  max_abs_err  ms  "
+        "plain_ms  bound_ms")
+    b, t, d, n = 2, 512, 8192, 16
+    for dtype in (torch.float32, torch.bfloat16):
+        def rnd(*shape):
+            return torch.randn(shape, generator=gen, device="cuda")
+        x = (rnd(b, t, d) * 0.5).to(dtype)
+        dt = torch.nn.functional.softplus(rnd(b, t, d) - 1.0).to(dtype)
+        A = -torch.exp(rnd(d, n) * 0.5)
+        Bm, C, dy = rnd(b, t, n).to(dtype), rnd(b, t, n).to(dtype), \
+            rnd(b, t, d)
+        y, states = ops.ssm_scan_states(x, dt, A, Bm, C)
+        if not torch.equal(y, ops.ssm_scan(x, dt, A, Bm, C)):
+            raise AssertionError("ssm_scan: writing the chunk states "
+                                 "changed y")
+
+        def run():
+            return ops.ssm_scan_bwd(x, dt, A, Bm, C, dy, states)
+        got, again = run(), run()
+        ref = ssm_scan_bwd_ref(x, dt, A, Bm, C, dy)
+        torch.cuda.synchronize()
+        for name, u, v in zip(("dx", "ddt", "dA", "dB", "dC"), got, again):
+            if not torch.equal(u, v):
+                raise AssertionError(f"ssm_scan_bwd {name} differs between "
+                                     f"two calls")
+        errs = [within(u, r, TOL[dtype]) for u, r in zip(got, ref)]
+        ms = cuda_ms(run)
+        plain = cuda_ms(lambda: ssm_scan_bwd_ref(x, dt, A, Bm, C, dy),
+                        iters=2, warmup=1)
+        es = x.element_size()
+        # per (b, t, channel, n): the state h_t (dt*A, exp, two products,
+        # an add: 5) and the gradient terms (dh, the dC and dB products,
+        # the B and A sums, e h_{t-1}, dA's update and the carry: 14); the
+        # reads once (x, dt, B, C, dy, A, the chunk states), the gradients
+        # written once
+        flops = 19.0 * b * t * d * n
+        nbytes = (2 * b * t * d * es + 2 * b * t * n * es + b * t * d * 4
+                  + d * n * 4 + states.numel() * 4
+                  + 2 * b * t * d * 4 + d * n * 4 + 2 * b * t * n * 4)
+        b_ms, b_by = bound(flops, nbytes, torch.float32)
+        log(f"[train] ssm_scan_bwd {b:2d} {t:4d} {d:5d} {n:3d} "
+            f"{str(dtype)[6:]:>8s} {max(errs):10.3e} {ms:8.4f} "
+            f"{plain:8.4f} {b_ms:8.4f} ({b_by}; errors dx, ddt, dA, dB, dC "
+            + ", ".join(f"{e:.2e}" for e in errs)
+            + f"; {b_ms / ms:.3f} of the bound; deterministic)")
+        row = {"B": b, "T": t, "d": d, "N": n, "dtype": str(dtype)[6:],
+               "max_abs_err": max(errs), "ms": ms, "plain_ms": plain,
+               "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+        report.append({"kernel": "ssm_scan_bwd", **row})
+        if dtype == torch.bfloat16:           # the model's inputs
+            rep = row
+        del got, again, ref, states
+        free_card()
+    return rep
+
+
 # ---------------------------------------------------------------------------
 # phase 5 (b)-(d): gradients at cut depth, the trainer, the slice at full
 # width
 # ---------------------------------------------------------------------------
 
-#: the models phase 5 (b) takes gradients of at full width and 2 layers
-GRAD_PARITY = ("phi3-mini-3.8b", "minicpm3-4b")
+#: the models phase 5 (b) takes gradients of at full width and phase 3's
+#: cut depth (2 layers; recurrentgemma one macro block and its (rec, rec)
+#: tail, so the tail runs outside remat), and the scale their kept layers
+#: are drawn at (see ``PARITY``: at olmoe's depth scale fp32 itself misses
+#: fp64, so its fan-in draw carries the check)
+GRAD_PARITY = (("phi3-mini-3.8b", "depth"), ("minicpm3-4b", "depth"),
+               ("olmoe-1b-7b", "fan_in"), ("falcon-mamba-7b", "depth"),
+               ("recurrentgemma-2b", "depth"))
 #: phase 5 (c): steps, checkpoint interval and the step an injected fault
 #: hits (so steps 5-7 run twice); phase 5 (d): steps at full width
 TRAINER_STEPS, TRAINER_EVERY, TRAINER_FAULT = 12, 5, 8
 FULL_STEPS = 6
+#: phase 5 (d)'s models: (arch, layers or None for the full depth).
+#: falcon-mamba-7b's 64 layers (7.27 B parameters, 108 GiB of fp32
+#: parameters, gradients and AdamW moments) do not fit one 80 GB card; 32
+#: layers (3.90 B) do
+TRAIN_FULL = (("phi3-mini-3.8b", None), ("granite-moe-3b-a800m", None),
+              ("recurrentgemma-2b", None), ("falcon-mamba-7b", 32))
 
 
-def phase_grad_parity(arch: str, failures: list) -> None:
-    """The loss and every gradient leaf of 2 layers at full width (drawn as
-    phase 3 draws them, at the full-depth scale), remat on, in fp32 on the
-    card (the kernels and their backward kernels), in fp32 on the CPU and
-    in fp64 on the CPU (the witness).  Each leaf's RMS distance from fp64
-    on the card must be at most ``FP64_RATIO`` times the CPU fp32 run's,
-    and the loss within 2e-3 of fp64."""
+def phase_grad_parity(arch: str, scale: str, failures: list) -> None:
+    """The loss and every gradient leaf of phase 3's cut depth at full
+    width (drawn as phase 3 draws them, at ``scale``), remat on, in fp32 on
+    the card (the kernels and their backward kernels), in fp32 on the CPU
+    and in fp64 on the CPU (the witness).  Each leaf's RMS distance from
+    fp64 on the card must be at most ``FP64_RATIO`` times the CPU fp32
+    run's, and the loss within 2e-3 of fp64."""
     from repro_torch.config import RunConfig
     from repro_torch.configs import get_config
     from repro_torch.models import init_model_params
@@ -690,7 +1001,7 @@ def phase_grad_parity(arch: str, failures: list) -> None:
     cfg = cut_depth(full)
     t0 = time.time()
     p_cpu = init_model_params(SEED, cfg, device="cpu")
-    redraw_scale(p_cpu, cfg, full, "depth")
+    redraw_scale(p_cpu, cfg, full, scale)
     rng = np.random.default_rng(SEED + 2)
     toks = torch.from_numpy(rng.integers(0, cfg.vocab, (1, 129)))
     batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
@@ -706,7 +1017,7 @@ def phase_grad_parity(arch: str, failures: list) -> None:
         del p, g
         free_card()
     names = _leaf_names(p_cpu)
-    what = f"{arch} ({cfg.n_layers} layers, depth scale) gradients"
+    what = f"{arch} ({cfg.n_layers} layers, {scale} scale) gradients"
     loss = {k: v[0] for k, v in runs.items()}
     log(f"[train] {what}: loss card {loss['card']:.7f}, CPU fp32 "
         f"{loss['cpu']:.7f}, fp64 {loss['fp64']:.7f} (card off fp64 by "
@@ -801,30 +1112,34 @@ def phase_trainer() -> None:
     free_card()
 
 
-def phase_train_full() -> dict:
-    """phi3-mini-3.8b at full width and depth, ``RunConfig`` defaults (bf16
-    compute, fp32 parameters, remat), AdamW, seq 512 and batch 2:
-    ``FULL_STEPS`` steps of ``make_train_step`` on ``SyntheticLMStream``,
-    the launch counts set to 0 just before and read just after.  Every
-    loss must be finite and each kernel of the path launched.  Then a
-    profile of one more step: kernel time by kernel and the device's idle
-    share.  Returns the launches by kernel."""
+def phase_train_full(arch: str, layers=None) -> dict:
+    """``arch`` at full width (and full depth, or ``layers``),
+    ``RunConfig`` defaults (bf16 compute, fp32 parameters, remat), AdamW,
+    seq 512 and batch 2: ``FULL_STEPS`` steps of ``make_train_step`` on
+    ``SyntheticLMStream``, the launch counts set to 0 just before and read
+    just after.  Every loss must be finite and each kernel of the family's
+    training path (``TRAIN_KERNELS``) launched.  Then a profile of one more
+    step: kernel time by kernel and the device's idle share.  Returns the
+    launches by kernel."""
     from repro_torch.config import RunConfig, ShapeConfig
     from repro_torch.configs import get_config
     from repro_torch.data import SyntheticLMStream
     from repro_torch.models import init_model_params
     from repro_torch.optim import init_opt_state
     from repro_torch.train import make_train_step
-    cfg = get_config("phi3-mini-3.8b")
+    cfg = get_config(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
     shape = ShapeConfig("smoke_full", 512, 2, "train")
     t0 = time.time()
     params = init_model_params(SEED, cfg, device="cuda")
     opt = init_opt_state(params)
     torch.cuda.synchronize()
     state_gib = torch.cuda.memory_allocated() / 2**30
-    log(f"[train] phi3-mini-3.8b full width ({cfg.n_layers} layers, "
-        f"{cfg.n_params() / 1e9:.3f} B parameters): fp32 parameters and "
-        f"AdamW state drawn in {time.time() - t0:.1f} s, {state_gib:.2f} GiB")
+    name = f"{arch} ({cfg.n_layers} layers)"
+    log(f"[train] {name} full width ({cfg.n_params() / 1e9:.3f} B "
+        f"parameters): fp32 parameters and AdamW state drawn in "
+        f"{time.time() - t0:.1f} s, {state_gib:.2f} GiB")
     step = make_train_step(cfg, shape, RunConfig(), device="cuda")
     stream = SyntheticLMStream(cfg.vocab, shape.seq_len, shape.global_batch,
                                seed=SEED)
@@ -844,31 +1159,34 @@ def phase_train_full() -> dict:
     tokens = shape.seq_len * shape.global_batch
     steady = walls[1:]
     wall = sum(steady) / len(steady)
-    log(f"[train] full width: losses {[f'{x:.6f}' for x in losses]}; step "
-        f"walls {[f'{w:.3f}' for w in walls]} s (first includes set-up); "
-        f"steady {wall:.3f} s = {tokens / wall:.0f} tokens/s; peak memory "
+    log(f"[train] {name} full width: losses "
+        f"{[f'{x:.6f}' for x in losses]}; step walls "
+        f"{[f'{w:.3f}' for w in walls]} s (first includes set-up); steady "
+        f"{wall:.3f} s = {tokens / wall:.0f} tokens/s; peak memory "
         f"{peak:.2f} GiB; launches {counts} "
         f"({ {k: v // FULL_STEPS for k, v in counts.items() if v} } a step)")
     if not all(math.isfinite(x) for x in losses):
-        raise AssertionError(f"full-width training: losses {losses}")
-    for name in ("queue_matmul", "flash_attention", "flash_attention_bwd"):
-        if counts[name] <= 0:
-            raise AssertionError(f"{name} never launched on the training "
-                                 f"path")
-    profile_train_step(step, params, opt, stream.batch_at(FULL_STEPS), wall)
+        raise AssertionError(f"{name} full-width training: losses {losses}")
+    for kernel in TRAIN_KERNELS[cfg.family]:
+        if counts[kernel] <= 0:
+            raise AssertionError(f"{kernel} never launched on {name}'s "
+                                 f"training path")
+    profile_train_step(step, params, opt, stream.batch_at(FULL_STEPS), wall,
+                       name)
     del params, opt
     free_card()
     return counts
 
 
-def profile_train_step(step, params, opt, batch, wall: float) -> None:
+def profile_train_step(step, params, opt, batch, wall: float,
+                       name: str) -> None:
     """Kernel time of one more step by kernel and by phase (torch.profiler,
     CUDA activity): the forward to the loss, the backward (remat's
-    recomputed forward, dX and dW, the attention backward) and the AdamW
+    recomputed forward, dX and dW, the backward kernels) and the AdamW
     update, each profiled alone, as ``train_step`` runs them; the
     device's idle share is one minus their sum over the steady step wall.
-    The kernels are grouped as ``queue_matmul``, ``flash_attention``,
-    ``flash_attention_bwd`` and PyTorch's own."""
+    The kernels are grouped by the port's kernel (``PROFILE_GROUPS``) and
+    PyTorch's own."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.models.layers import tree_leaves, tree_unflatten
     from repro_torch.optim import adamw_update
@@ -876,7 +1194,7 @@ def profile_train_step(step, params, opt, batch, wall: float) -> None:
     cfg, rc = step.cfg, step.rc
     b = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
     ps = tree_leaves(params)
-    groups = ("flash_attention_bwd", "flash_attention", "queue_matmul")
+    groups = PROFILE_GROUPS
     phases, top = {}, {}
 
     def record(name, fn):
@@ -889,6 +1207,7 @@ def profile_train_step(step, params, opt, batch, wall: float) -> None:
         for key, ms in dev.items():
             sums[next((g for g in groups if g in key), "other")] += ms
             top[key] = top.get(key, 0.0) + ms
+        sums = {k: v for k, v in sums.items() if v > 0}
         phases[name] = sums
         return out
 
@@ -907,15 +1226,23 @@ def profile_train_step(step, params, opt, batch, wall: float) -> None:
         log("[profile] training step idle share: not measured (the profiler "
             "saw no device time)")
         return
-    for name, sums in phases.items():
-        log(f"[profile] training step {name}: {sum(sums.values()):.2f} ms "
-            "in kernels (" + ", ".join(f"{v:.2f} {k}" for k, v in
-                                       sums.items()) + ")")
-    log(f"[profile] phi3-mini-3.8b training step: {busy:.1f} ms in kernels "
+    for part, sums in phases.items():
+        log(f"[profile] {name} training step {part}: "
+            f"{sum(sums.values()):.2f} ms in kernels ("
+            + ", ".join(f"{v:.2f} {k}" for k, v in sums.items()) + ")")
+    log(f"[profile] {name} training step: {busy:.1f} ms in kernels "
         f"over a {wall * 1e3:.1f} ms step; device idle share "
         f"{1 - busy / (wall * 1e3):.3f}")
     for k, v in sorted(top.items(), key=lambda kv: -kv[1])[:12]:
-        log(f"[profile]   {v:9.3f} ms  {k[:90]}")
+        log(f"[profile]   {v:9.3f} ms  {k[:160]}")
+
+
+#: the kernel-name groups of a training step's profile, each matched as a
+#: substring of the CUDA kernel's name in this order (the reverse walk of
+#: ``rglru_scan`` is its kernel's ``true`` instantiation)
+PROFILE_GROUPS = ("flash_attention_bwd", "flash_attention", "queue_matmul",
+                  "moe_gemm", "ssm_scan_bwd", "ssm_scan",
+                  "rglru_scan_kernel<float, float, true>", "rglru_scan")
 
 
 def routed_mask(gen, tokens: int, experts: int, k: int) -> torch.Tensor:
@@ -1019,8 +1346,9 @@ def check_moe_gemm(gen, report) -> dict:
 
 def check_ssm_scan(gen, report) -> dict:
     """falcon-mamba-7b's scan: d_inner 8192, state 16, over the 512 tokens
-    of phase 4's ``forward`` and the 128 of phase 3's.  No single PyTorch
-    call computes it, so there is no library time."""
+    of phase 4's ``forward`` and the 128 of phase 3's; with the chunk
+    states written (what a gradient takes), y must keep its bits.  No
+    single PyTorch call computes it, so there is no library time."""
     from repro_torch.kernels.ssm_scan import ops
     from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
     rep = None
@@ -1037,7 +1365,12 @@ def check_ssm_scan(gen, report) -> dict:
             Bm, C = rnd(b, t, n).to(dtype), rnd(b, t, n).to(dtype)
             out = ops.ssm_scan(x, dt, A, Bm, C)
             ref = ssm_scan_ref(x, dt, A, Bm, C)
+            y_st, states = ops.ssm_scan_states(x, dt, A, Bm, C)
             torch.cuda.synchronize()
+            if not torch.equal(y_st, out):
+                raise AssertionError(f"ssm_scan: writing the chunk states "
+                                     f"changed y at T={t} {dtype}")
+            del y_st, states
             err = within(out, ref, TOL[dtype])
             ms = cuda_ms(lambda: ops.ssm_scan(x, dt, A, Bm, C))
             plain = cuda_ms(lambda: ssm_scan_ref(x, dt, A, Bm, C), iters=2,
@@ -1051,7 +1384,8 @@ def check_ssm_scan(gen, report) -> dict:
             b_ms, b_by = bound(flops, nbytes, torch.float32)
             log(f"[kernels] ssm_scan {b:2d} {t:4d} {d:5d} {n:3d} "
                 f"{str(dtype)[6:]:>8s} {err:10.3e} {ms:8.4f} {plain:8.4f} "
-                f"{b_ms:8.4f} ({b_by})")
+                f"{b_ms:8.4f} ({b_by}; y equal with the chunk states "
+                f"written)")
             row = {"B": b, "T": t, "d": d, "N": n, "dtype": str(dtype)[6:],
                    "max_abs_err": err, "ms": ms, "plain_ms": plain,
                    "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
@@ -1325,10 +1659,14 @@ def launch_counters():
     from repro_torch.kernels import (flash_attention, moe_gemm, queue_matmul,
                                      rglru_scan, ssm_scan)
     from repro_torch.kernels.flash_attention import flash_attention_bwd
+    from repro_torch.kernels.moe_gemm import moe_gemm_bwd
+    from repro_torch.kernels.rglru_scan import rglru_scan_bwd
+    from repro_torch.kernels.ssm_scan import ssm_scan_bwd
     return {"queue_matmul": queue_matmul, "flash_attention": flash_attention,
             "flash_attention_bwd": flash_attention_bwd,
-            "moe_gemm": moe_gemm, "ssm_scan": ssm_scan,
-            "rglru_scan": rglru_scan}
+            "moe_gemm": moe_gemm, "moe_gemm_bwd": moe_gemm_bwd,
+            "ssm_scan": ssm_scan, "ssm_scan_bwd": ssm_scan_bwd,
+            "rglru_scan": rglru_scan, "rglru_scan_bwd": rglru_scan_bwd}
 
 
 def phase_serve(arch: str) -> dict:
@@ -1535,18 +1873,23 @@ def main() -> int:
             kernels.append(("flash_attention_bwd",
                             check_flash_attention_bwd(gen, report)))
             check_queue_matmul_grads(gen, report)
+            check_moe_gemm_bwd(gen, report)
+            check_moe_apply_grad_mask()
+            check_rglru_scan_bwd(gen, report)
+            kernels.append(("ssm_scan_bwd", check_ssm_scan_bwd(gen, report)))
         if "b" in parts:
             failures = []
-            for arch in GRAD_PARITY:
-                phase_grad_parity(arch, failures)
+            for arch, scale in GRAD_PARITY:
+                phase_grad_parity(arch, scale, failures)
             if failures:
                 raise AssertionError("phase 5 (b) failed:\n"
                                      + "\n".join(failures))
         if "c" in parts:
             phase_trainer()
         if "d" in parts:
-            for name, n in phase_train_full().items():
-                launches[name] = launches.get(name, 0) + n
+            for arch, layers in TRAIN_FULL:
+                for name, n in phase_train_full(arch, layers).items():
+                    launches[name] = launches.get(name, 0) + n
             log(f"[train] launches over every main path run: {launches}")
     if args.cases_out:
         os.makedirs(os.path.dirname(os.path.abspath(args.cases_out)),

@@ -8,7 +8,7 @@ from .ssm_scan import ssm_scan
 
 #: every kernel this package builds, by source name
 KERNELS = ("queue_matmul", "flash_attention", "flash_attention_bwd",
-           "moe_gemm", "ssm_scan", "rglru_scan")
+           "moe_gemm", "ssm_scan", "ssm_scan_bwd", "rglru_scan")
 
 __all__ = ["KERNELS", "flash_attention", "moe_gemm", "queue_matmul",
            "rglru_scan", "ssm_scan"]

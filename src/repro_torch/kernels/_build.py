@@ -28,7 +28,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 #: the package of a kernel whose source sits beside another kernel's
-PACKAGE = {"flash_attention_bwd": "flash_attention"}
+PACKAGE = {"flash_attention_bwd": "flash_attention",
+           "ssm_scan_bwd": "ssm_scan"}
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 

@@ -1,3 +1,3 @@
-from .ops import moe_gemm
+from .ops import moe_gemm, moe_gemm_bwd
 
-__all__ = ["moe_gemm"]
+__all__ = ["moe_gemm", "moe_gemm_bwd"]

@@ -12,13 +12,29 @@ are never read; ``None`` means every expert (the Pallas kernel's own
 semantics).  The kernel reads the mask itself, so nothing is copied to the
 host and the caller stays free of synchronisation.
 
-Where it runs: a CPU tensor goes to the plain version (:func:`moe_gemm_ref`);
-a CUDA tensor launches a kernel of ``csrc/moe_gemm.cu`` on the current
-stream, except under ``ExecutionPolicy.BASELINE``, which is the plain
-version on any device and launches nothing.  COPIFT forces the ring to
-depth 1.  ``moe_gemm.launches`` counts kernel launches.  It has no
-backward kernel yet: a CUDA launch whose operands require grad raises
-``NotImplementedError`` (:func:`.._grad.refuse_grad`).
+Where it runs: a CPU tensor goes to the plain version (:func:`moe_gemm_ref`),
+which autograd differentiates; a CUDA tensor launches a kernel of
+``csrc/moe_gemm.cu`` on the current stream, except under
+``ExecutionPolicy.BASELINE``, which is the plain version on any device and
+launches nothing.  COPIFT forces the ring to depth 1.
+``moe_gemm.launches`` counts kernel launches, the backward's included.
+
+Gradients: on the card, when x or w requires grad (and grad mode is on),
+the product goes through :class:`_MoeGemmFn`, whose forward is the same
+launch (the same bits) and whose backward, :func:`moe_gemm_bwd`, is two
+more grouped products through the same kernels at the same depth and
+mask: ``dX[e] = dY[e] W[e]^T`` and ``dW[e] = X[e]^T dY[e]``, the
+transposes copied contiguous.  For a shared x (the dense dispatch) dW is
+one launch with Xᵀ (d, C) seen by every expert, and dX is the (E, C, d)
+per-expert products summed over the experts in a fixed order (no
+atomics).  An expert outside ``active`` gets a dW block of exact zeros
+and adds nothing to dX, and its weights are not read by the kernels (the
+Wᵀ copy reads every expert).  dX's rows are the forward's C and dW's rows
+its d, so at training shapes (1024 tokens, or the grouped dispatch's
+capacity, and d of 1024 or more) bf16 takes the wide kernel for both.
+``moe_gemm_bwd.launches`` counts backward calls (two launches each, one
+when only one operand needs a gradient).  Its plain version is
+:func:`moe_gemm_bwd_ref`.
 
 Three kernels, chosen here by C and the dtype (:func:`regime`; each is the
 kernel for its shapes, not a fallback).  bf16 with C <= 16 (``THIN_MAX_C``,
@@ -36,9 +52,10 @@ operand rings; a depth whose rings need more than 227 KB of shared memory
 (``MAX_SMEM``, :func:`smem_bytes`) raises ``ValueError`` naming the bytes
 it needed, before anything launches.
 
-``x`` may be a broadcast view whose expert stride is 0 (``x2d.expand(E, C,
-d)``, the dense dispatch): the kernels then read the one (C, d) matrix for
-every expert and nothing is copied E times.  Only what the kernels need is
+``x`` may be one (C, d) matrix seen by every expert (the dense dispatch),
+given as it is or as a broadcast view whose expert stride is 0
+(``x2d.expand(E, C, d)``): the kernels then read the one matrix for every
+expert and nothing is copied E times.  Only what the kernels need is
 padded: d and f up to 16 bytes' worth of elements (never on the model
 path's shapes); ragged C and f tiles are masked inside the kernels.
 
@@ -49,15 +66,14 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from ...core.policy import ExecutionPolicy, OperatingPoint, default_table
 from .. import _build
-from .._grad import refuse_grad
-from .ref import moe_gemm_ref
+from .ref import moe_gemm_bwd_ref, moe_gemm_ref
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MASK_DTYPES = (torch.bool, torch.int8, torch.uint8)
@@ -160,14 +176,23 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def _check_active(active: Optional[torch.Tensor], x: torch.Tensor) -> None:
+def _check_active(active: Optional[torch.Tensor], x: torch.Tensor,
+                  e: int) -> None:
     if active is None:
         return
-    if active.shape != (x.shape[0],) or active.dtype not in _MASK_DTYPES:
-        raise ValueError(f"active must be an ({x.shape[0]},) bool or int8 "
+    if active.shape != (e,) or active.dtype not in _MASK_DTYPES:
+        raise ValueError(f"active must be an ({e},) bool or int8 "
                          f"tensor, got {tuple(active.shape)} {active.dtype}")
     if active.device != x.device:
         raise ValueError(f"active on {active.device}, x on {x.device}")
+
+
+def _shared(x: torch.Tensor) -> Optional[torch.Tensor]:
+    """The one (C, d) matrix every expert sees, if x is one (2-D, or a
+    view whose expert stride is 0), else None."""
+    if x.ndim == 2:
+        return x
+    return x[0] if x.stride(0) == 0 else None
 
 
 def _launch(x: torch.Tensor, w: torch.Tensor, depth: int,
@@ -177,13 +202,14 @@ def _launch(x: torch.Tensor, w: torch.Tensor, depth: int,
                         f"of one dtype, got {x.dtype} and {w.dtype}")
     if w.device != x.device:
         raise ValueError(f"operands on {x.device} and {w.device}")
-    E, C, d = x.shape
-    f = w.shape[2]
+    E, d, f = w.shape
+    C = x.shape[-2]
     vec = 16 // x.element_size()
     pk, pf = (-d) % vec, (-f) % vec
     split = _plan(C <= THIN_MAX_C, E, d + pk, f + pf, depth, x.dtype)
-    if x.stride(0) == 0:                 # one matrix seen by every expert
-        xp = (F.pad(x[0], (0, pk)) if pk else x[0]).contiguous()
+    one = _shared(x)
+    if one is not None:                  # one matrix seen by every expert
+        xp = (F.pad(one, (0, pk)) if pk else one).contiguous()
         x_stride = 0
     else:
         xp = (F.pad(x, (0, pk)) if pk else x).contiguous()
@@ -212,30 +238,91 @@ def _launch(x: torch.Tensor, w: torch.Tensor, depth: int,
     return out[..., :f] if pf else out
 
 
+def _launch_bwd(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
+                depth: int, active: Optional[torch.Tensor],
+                need: Tuple[bool, bool]):
+    g = dy.to(x.dtype)
+    one = _shared(x)
+    dx = dw = None
+    if need[0]:
+        dx = _launch(g, w.transpose(1, 2).contiguous(), depth, active)
+        if x.ndim == 2:              # every expert's share, in expert order
+            dx = dx.sum(0)
+    if need[1]:
+        xt = (one.t() if one is not None else x.transpose(1, 2)).contiguous()
+        dw = _launch(xt, g, depth, active)
+    moe_gemm_bwd.launches += 1
+    return dx, dw
+
+
+def moe_gemm_bwd(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor, *,
+                 depth: int = 2, active: Optional[torch.Tensor] = None,
+                 need: Tuple[bool, bool] = (True, True)):
+    """The gradient of :func:`moe_gemm` from its operands and the gradient
+    ``dy`` (E, C, f) on its output: returns (dx, dw) in fp32, dx of x's
+    shape (a 2-D x gets the sum over the experts), ``None`` for an operand
+    whose ``need`` is false.  A CPU tensor takes the plain version; a CUDA
+    tensor launches the two products at ring depth ``depth``."""
+    if x.device.type == "cpu":
+        dx, dw = moe_gemm_bwd_ref(x, w, dy, active)
+        return dx if need[0] else None, dw if need[1] else None
+    if x.device.type != "cuda":
+        raise ValueError(f"moe_gemm_bwd runs on CUDA or CPU tensors, got "
+                         f"{x.device}")
+    return _launch_bwd(x, w, dy, depth, active, need)
+
+
+class _MoeGemmFn(torch.autograd.Function):
+    """moe_gemm with a gradient: the backward is :func:`moe_gemm_bwd` at the
+    forward's depth and mask."""
+
+    @staticmethod
+    def forward(ctx, x, w, depth, active):
+        ctx.save_for_backward(x, w, active)
+        ctx.depth = depth
+        if x.device.type == "cpu":
+            return moe_gemm_ref(x, w, active)
+        return _launch(x, w, depth, active)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, active = ctx.saved_tensors
+        dx, dw = moe_gemm_bwd(x, w, dy, depth=ctx.depth, active=active,
+                              need=tuple(ctx.needs_input_grad[:2]))
+        return (None if dx is None else dx.to(x.dtype),
+                None if dw is None else dw.to(w.dtype), None, None)
+
+
 def moe_gemm(x: torch.Tensor, w: torch.Tensor, *, bc: int = 128,
              bf: int = 128, bk: int = 128, depth: int = 2,
              policy: Optional[ExecutionPolicy] = None,
              active: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """x: (E, C, d); w: (E, d, f) -> (E, C, f) fp32.
+    """x: (E, C, d), or (C, d) seen by every expert; w: (E, d, f) ->
+    (E, C, f) fp32.
 
     ``policy``: BASELINE is the plain version, COPIFT forces depth 1,
     COPIFTV2 (and ``None``) keep ``depth``.  ``active``: the experts to
     compute (``None``: all); the others' blocks are zeros."""
-    if x.ndim != 3 or w.ndim != 3 or x.shape[0] != w.shape[0] or \
-            x.shape[2] != w.shape[1]:
-        raise ValueError(f"moe_gemm takes x (E, C, d) and w (E, d, f), got "
-                         f"{tuple(x.shape)} and {tuple(w.shape)}")
-    _check_active(active, x)
+    if x.ndim not in (2, 3) or w.ndim != 3 or x.shape[-1] != w.shape[1] or \
+            (x.ndim == 3 and x.shape[0] != w.shape[0]):
+        raise ValueError(f"moe_gemm takes x (E, C, d) or (C, d) and w "
+                         f"(E, d, f), got {tuple(x.shape)} and "
+                         f"{tuple(w.shape)}")
+    _check_active(active, x, w.shape[0])
     if policy is ExecutionPolicy.BASELINE or x.device.type == "cpu":
         return moe_gemm_ref(x, w, active)
     if x.device.type != "cuda":
         raise ValueError(f"moe_gemm runs on CUDA or CPU tensors, got "
                          f"{x.device}")
-    refuse_grad("moe_gemm", "MoE training", x, w)
     if policy is ExecutionPolicy.COPIFT:
         depth = 1
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return _MoeGemmFn.apply(x, w, depth, active)
     return _launch(x, w, depth, active)
 
 
 #: kernel launches since the count was last set to 0
 moe_gemm.launches = 0
+#: backward calls (their products count in ``moe_gemm.launches`` too)
+#: since the count was last set to 0
+moe_gemm_bwd.launches = 0

@@ -1,3 +1,3 @@
-from .ops import rglru_scan
+from .ops import rglru_scan, rglru_scan_bwd
 
-__all__ = ["rglru_scan"]
+__all__ = ["rglru_scan", "rglru_scan_bwd"]

@@ -47,8 +47,19 @@
 // start state composes the decays of the chunks before it, and each step
 // is one FMA.
 //
-// C interface: rglru_scan_launch(...) returns cudaGetLastError().
-// a, bx and h contiguous; a and bx of one dtype; h fp32.
+// The backward (rglru_scan_bwd_launch) is the same recurrence run in
+// reverse: with g the gradient on h,
+//   dh_t = g_t + a_{t+1} dh_{t+1} (from dh_T = 0),  dbx_t = dh_t,
+//   da_t = dh_t h_{t-1} (h_{-1} = 0).
+// The kernel's kRev instantiation walks the logical step s = T-1-t, reading
+// a shifted by one step (a_{t+1}, 0 at s = 0) and g in place of bx, and its
+// finish also reads h_{t-1} and writes da beside dh.  It reads a, g and h
+// once and writes dh and da once.  The forward instantiation is the code it
+// was, operation for operation, so its bits do not change.
+//
+// C interface: rglru_scan_launch(...) and rglru_scan_bwd_launch(...) return
+// cudaGetLastError().  Every operand contiguous; a and bx of one dtype; h
+// fp32; in the backward g, h, dh and da fp32 and a fp32 or bf16.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -68,27 +79,37 @@ __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
 }
 
 // Chunk `j`'s kL steps of segment `t0` for channel `c` of the batch row at
-// `a` and `bx`, as stored (zeros past T or past w, never used).
-template <typename T>
-__device__ __forceinline__ void fetch(T (&ra)[kL], T (&rb)[kL],
-                                      const T* __restrict__ a,
-                                      const T* __restrict__ bx, int t0,
+// `a` and `bx`, as stored (zeros past T or past w, never used).  kRev: step
+// s is time T-1-s, and its a is the next time's (zero at s = 0).
+template <bool kRev, typename Ta, typename Tb>
+__device__ __forceinline__ void fetch(Ta (&ra)[kL], Tb (&rb)[kL],
+                                      const Ta* __restrict__ a,
+                                      const Tb* __restrict__ bx, int t0,
                                       int j, int c, bool live, int T_len,
                                       int W) {
 #pragma unroll
   for (int u = 0; u < kL; ++u) {
     const int t = t0 + j * kL + u;
     const bool in = live && t < T_len;
-    const size_t off = static_cast<size_t>(t) * W + c;
-    ra[u] = in ? __ldg(a + off) : T(0.f);
-    rb[u] = in ? __ldg(bx + off) : T(0.f);
+    if constexpr (kRev) {
+      const size_t off = static_cast<size_t>(T_len - 1 - t) * W + c;
+      ra[u] = in && t > 0 ? __ldg(a + off + W) : Ta(0.f);
+      rb[u] = in ? __ldg(bx + off) : Tb(0.f);
+    } else {
+      const size_t off = static_cast<size_t>(t) * W + c;
+      ra[u] = in ? __ldg(a + off) : Ta(0.f);
+      rb[u] = in ? __ldg(bx + off) : Tb(0.f);
+    }
   }
 }
 
-template <typename T>
+// kRev: bx is g, h_out receives dh, and h_in (h) and da are used.
+template <typename Ta, typename Tb, bool kRev>
 __global__ void __launch_bounds__(kTile * kMaxChunks, 2)
-    rglru_scan_kernel(const T* __restrict__ a, const T* __restrict__ bx,
-                      float* __restrict__ h_out, int T_len, int W, int nch) {
+    rglru_scan_kernel(const Ta* __restrict__ a, const Tb* __restrict__ bx,
+                      float* __restrict__ h_out,
+                      const float* __restrict__ h_in, float* __restrict__ da,
+                      int T_len, int W, int nch) {
   __shared__ float sP[kMaxChunks][kTile];  // a chunk's decay P_L
   __shared__ float sH[kMaxChunks][kTile];  // its end state, then its start
   const int lane = threadIdx.x % kTile;
@@ -99,17 +120,23 @@ __global__ void __launch_bounds__(kTile * kMaxChunks, 2)
   a += row;
   bx += row;
   h_out += row;
+  if constexpr (kRev) {
+    h_in += row;
+    da += row;
+  }
   const int seg = nch * kL;
   // fp32 keeps P_t and h_t in the input registers, bf16 in fP and fH
-  constexpr bool kInPlace = std::is_same<T, float>::value;
+  constexpr bool kInPlace =
+      std::is_same<Ta, float>::value && std::is_same<Tb, float>::value;
 
-  T ra[kL], rb[kL], na[kL], nb[kL];
+  Ta ra[kL], na[kL];
+  Tb rb[kL], nb[kL];
   float fP[kL], fH[kL];
-  fetch(ra, rb, a, bx, 0, j, c, live, T_len, W);
+  fetch<kRev>(ra, rb, a, bx, 0, j, c, live, T_len, W);
   float carry = 0.f;  // the state the last segment ended in (tid < kTile)
   for (int t0 = 0; t0 < T_len; t0 += seg) {
     const bool more = t0 + seg < T_len;
-    if (more) fetch(na, nb, a, bx, t0 + seg, j, c, live, T_len, W);
+    if (more) fetch<kRev>(na, nb, a, bx, t0 + seg, j, c, live, T_len, W);
     float hl = 0.f, P = 1.f;
 #pragma unroll
     for (int u = 0; u < kL; ++u) {
@@ -143,8 +170,17 @@ __global__ void __launch_bounds__(kTile * kMaxChunks, 2)
       const int t = t0 + j * kL + u;
       const float pu = kInPlace ? to_float(ra[u]) : fP[u];
       const float hu = kInPlace ? to_float(rb[u]) : fH[u];
-      if (live && t < T_len)
-        h_out[static_cast<size_t>(t) * W + c] = fmaf(pu, h0, hu);
+      if (live && t < T_len) {
+        const float v = fmaf(pu, h0, hu);
+        if constexpr (kRev) {
+          const int tt = T_len - 1 - t;  // the time of logical step t
+          const size_t off = static_cast<size_t>(tt) * W + c;
+          h_out[off] = v;
+          da[off] = tt > 0 ? v * h_in[off - W] : 0.f;
+        } else {
+          h_out[static_cast<size_t>(t) * W + c] = v;
+        }
+      }
     }
     if (more) {
 #pragma unroll
@@ -158,15 +194,16 @@ __global__ void __launch_bounds__(kTile * kMaxChunks, 2)
   }
 }
 
-template <typename T>
-cudaError_t launch(const void* a, const void* bx, void* h, int B, int T_len,
-                   int W, cudaStream_t stream) {
+template <typename Ta, typename Tb, bool kRev>
+cudaError_t launch(const void* a, const void* bx, void* h, const void* h_in,
+                   void* da, int B, int T_len, int W, cudaStream_t stream) {
   int nch = (T_len + kL - 1) / kL;
   if (nch > kMaxChunks) nch = kMaxChunks;
   const dim3 grid((W + kTile - 1) / kTile, B);
-  rglru_scan_kernel<T><<<grid, kTile * nch, 0, stream>>>(
-      static_cast<const T*>(a), static_cast<const T*>(bx),
-      static_cast<float*>(h), T_len, W, nch);
+  rglru_scan_kernel<Ta, Tb, kRev><<<grid, kTile * nch, 0, stream>>>(
+      static_cast<const Ta*>(a), static_cast<const Tb*>(bx),
+      static_cast<float*>(h), static_cast<const float*>(h_in),
+      static_cast<float*>(da), T_len, W, nch);
   return cudaGetLastError();
 }
 
@@ -179,8 +216,28 @@ int rglru_scan_launch(const void* a, const void* bx, void* h, int B,
                       int T_len, int W, int dtype, void* stream) {
   if (B < 1 || B > 65535 || T_len < 1 || W < 1) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(a, bx, h, B, T_len, W, s);
-  if (dtype == 1) return launch<__nv_bfloat16>(a, bx, h, B, T_len, W, s);
+  if (dtype == 0)
+    return launch<float, float, false>(a, bx, h, nullptr, nullptr, B, T_len,
+                                       W, s);
+  if (dtype == 1)
+    return launch<__nv_bfloat16, __nv_bfloat16, false>(a, bx, h, nullptr,
+                                                       nullptr, B, T_len, W,
+                                                       s);
+  return cudaErrorInvalidValue;
+}
+
+// The backward: dh and da (B, T, w) fp32 from a (dtype: 0 = float32,
+// 1 = bfloat16), g and h (B, T, w) fp32.
+int rglru_scan_bwd_launch(const void* a, const void* g, const void* h,
+                          void* dh, void* da, int B, int T_len, int W,
+                          int dtype, void* stream) {
+  if (B < 1 || B > 65535 || T_len < 1 || W < 1) return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch<float, float, true>(a, g, dh, h, da, B, T_len, W, s);
+  if (dtype == 1)
+    return launch<__nv_bfloat16, float, true>(a, g, dh, h, da, B, T_len, W,
+                                              s);
   return cudaErrorInvalidValue;
 }
 

@@ -1,3 +1,3 @@
-from .ops import ssm_scan
+from .ops import ssm_scan, ssm_scan_bwd, ssm_scan_states
 
-__all__ = ["ssm_scan"]
+__all__ = ["ssm_scan", "ssm_scan_bwd", "ssm_scan_states"]

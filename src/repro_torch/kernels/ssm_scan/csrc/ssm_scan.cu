@@ -46,7 +46,12 @@
 // Rounding differs from the sequential walk in a chunk's start state,
 // which composes the decays of the chunks before it, and in the exp.
 //
-// C interface: ssm_scan_launch(...) returns cudaGetLastError().
+// For the backward (ssm_scan_bwd.cu), pass 2 also writes every chunk's
+// start state to `hs` ((B, nch, N, D) fp32, chunk 0's zeros) when the
+// caller gives it one: stores beside the carry, so y keeps its bits.
+//
+// C interface: ssm_scan_launch(...) returns cudaGetLastError(); hs may be
+// null.  ssm_scan_chunks(T) is the number of chunks a call cuts T into.
 // All operands contiguous; x, dt, B, C of one dtype; A fp32; y fp32.
 
 #include <cuda_bf16.h>
@@ -170,7 +175,7 @@ __global__ void __launch_bounds__(kLanes * kMaxChunks, NS <= 16 ? 2 : 1)
     ssm_scan_kernel(const T* __restrict__ x, const T* __restrict__ dt,
                     const float* __restrict__ A, const T* __restrict__ Bm,
                     const T* __restrict__ Cm, float* __restrict__ y,
-                    int T_len, int D, int N, int L) {
+                    float* __restrict__ hs, int T_len, int D, int N, int L) {
   extern __shared__ float smem[];
   const int nch = blockDim.x / kLanes;
   const int warp = threadIdx.x / kLanes, lane = threadIdx.x % kLanes;
@@ -218,13 +223,28 @@ __global__ void __launch_bounds__(kLanes * kMaxChunks, NS <= 16 ? 2 : 1)
   __syncthreads();
 
   // pass 2: start states, carried across the chunks in order; slot k then
-  // holds the start state of chunk k (k >= 1)
+  // holds the start state of chunk k (k >= 1), also written to hs if given
+  float* hsb = hs == nullptr ? nullptr
+                             : hs + static_cast<size_t>(b) * nch * N * D + c;
+  auto keep = [&](int k, const float(&st)[NS]) {
+    if (hsb == nullptr || !live) return;
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+      if (n < N) hsb[(static_cast<size_t>(k) * N + n) * D] = st[n];
+  };
+  if (warp == 0) {
+    float zero[NS];
+#pragma unroll
+    for (int n = 0; n < NS; ++n) zero[n] = 0.f;
+    keep(0, zero);
+  }
   if (warp == 0 && last > 0) {
     float st[NS];  // the start state of chunk 1: chunk 0's end
 #pragma unroll
     for (int n = 0; n < NS; ++n) st[n] = mine[n];
     for (int k = 1; k <= last; ++k) {
       float* slot = slots + (k * kLanes + lane) * (NS + 1);
+      keep(k, st);
       if (k == last) {
 #pragma unroll
         for (int n = 0; n < NS; ++n) slot[n] = st[n];
@@ -250,12 +270,16 @@ __global__ void __launch_bounds__(kLanes * kMaxChunks, NS <= 16 ? 2 : 1)
   }
 }
 
+int chunks(int T_len) {
+  const int nch = (T_len + kMinChunk - 1) / kMinChunk;
+  return nch > kMaxChunks ? kMaxChunks : nch;
+}
+
 template <typename T, int NS>
 cudaError_t launch(const void* x, const void* dt, const void* A,
-                   const void* Bm, const void* Cm, void* y, int B, int T_len,
-                   int D, int N, cudaStream_t stream) {
-  int nch = (T_len + kMinChunk - 1) / kMinChunk;
-  if (nch > kMaxChunks) nch = kMaxChunks;
+                   const void* Bm, const void* Cm, void* y, void* hs, int B,
+                   int T_len, int D, int N, cudaStream_t stream) {
+  const int nch = chunks(T_len);
   const int L = (T_len + nch - 1) / nch;
   const size_t smem = smem_bytes(NS, nch);
   auto kernel = ssm_scan_kernel<T, NS>;
@@ -269,38 +293,45 @@ cudaError_t launch(const void* x, const void* dt, const void* A,
   kernel<<<grid, kLanes * nch, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(dt),
       static_cast<const float*>(A), static_cast<const T*>(Bm),
-      static_cast<const T*>(Cm), static_cast<float*>(y), T_len, D, N, L);
+      static_cast<const T*>(Cm), static_cast<float*>(y),
+      static_cast<float*>(hs), T_len, D, N, L);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_n(const void* x, const void* dt, const void* A,
-                     const void* Bm, const void* Cm, void* y, int B,
+                     const void* Bm, const void* Cm, void* y, void* hs, int B,
                      int T_len, int D, int N, cudaStream_t stream) {
-  if (N <= 4) return launch<T, 4>(x, dt, A, Bm, Cm, y, B, T_len, D, N, stream);
-  if (N <= 8) return launch<T, 8>(x, dt, A, Bm, Cm, y, B, T_len, D, N, stream);
+  if (N <= 4)
+    return launch<T, 4>(x, dt, A, Bm, Cm, y, hs, B, T_len, D, N, stream);
+  if (N <= 8)
+    return launch<T, 8>(x, dt, A, Bm, Cm, y, hs, B, T_len, D, N, stream);
   if (N <= 16)
-    return launch<T, 16>(x, dt, A, Bm, Cm, y, B, T_len, D, N, stream);
-  return launch<T, 32>(x, dt, A, Bm, Cm, y, B, T_len, D, N, stream);
+    return launch<T, 16>(x, dt, A, Bm, Cm, y, hs, B, T_len, D, N, stream);
+  return launch<T, 32>(x, dt, A, Bm, Cm, y, hs, B, T_len, D, N, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype of x, dt, B, C: 0 = float32, 1 = bfloat16.  A and y are float32.
+// dtype of x, dt, B, C: 0 = float32, 1 = bfloat16.  A, y and hs are
+// float32; hs ((B, ssm_scan_chunks(T), N, D)) may be null.
 int ssm_scan_launch(const void* x, const void* dt, const void* A,
-                    const void* Bm, const void* Cm, void* y, int B, int T_len,
-                    int D, int N, int dtype, void* stream) {
+                    const void* Bm, const void* Cm, void* y, void* hs, int B,
+                    int T_len, int D, int N, int dtype, void* stream) {
   if (B < 1 || B > 65535 || T_len < 1 || D < 1 || N < 1 || N > 32)
     return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_n<float>(x, dt, A, Bm, Cm, y, B, T_len, D, N, s);
+    return launch_n<float>(x, dt, A, Bm, Cm, y, hs, B, T_len, D, N, s);
   if (dtype == 1)
-    return launch_n<__nv_bfloat16>(x, dt, A, Bm, Cm, y, B, T_len, D, N, s);
+    return launch_n<__nv_bfloat16>(x, dt, A, Bm, Cm, y, hs, B, T_len, D, N,
+                                   s);
   return cudaErrorInvalidValue;
 }
+
+int ssm_scan_chunks(int T_len) { return T_len < 1 ? 0 : chunks(T_len); }
 
 const char* ssm_scan_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

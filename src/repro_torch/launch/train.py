@@ -1,14 +1,24 @@
 """Training launcher: end-to-end driver over the fault-tolerant runtime, on
 the card unless ``--device cpu`` is given.  The JAX package's
-``launch/train.py`` flags and printed lines, on one device (no mesh).
-Training on the card takes the dense family (the MoE, SSM and hybrid
-kernels have no backward yet and raise); the CPU trains every family
-through the plain versions.  Examples:
+``launch/train.py`` flags and printed lines, on one device (no mesh),
+plus ``--dtype`` and ``--remat``.  Every family trains: on the card
+through the kernels and their backward passes (``queue_matmul``,
+``flash_attention`` and ``flash_attention_bwd``; ``moe_gemm``,
+``ssm_scan`` and ``ssm_scan_bwd``, ``rglru_scan``), on the CPU through
+the plain versions.  Examples:
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch phi3-mini-3.8b \\
       --reduced --device cpu --steps 20
-  PYTHONPATH=src python -m repro_torch.launch.train --arch phi3-mini-3.8b \\
-      --layers 2 --steps 10 --batch 2 --seq 512
+  PYTHONPATH=src python -m repro_torch.launch.train \\
+      --arch granite-moe-3b-a800m --steps 10 --batch 2 --seq 512 \\
+      --dtype bfloat16 --remat
+  PYTHONPATH=src python -m repro_torch.launch.train --arch falcon-mamba-7b \\
+      --layers 32 --steps 10 --batch 2 --seq 512 --dtype bfloat16 --remat
+
+At full width a model's fp32 parameters, gradients and AdamW moments take
+16 bytes a parameter: phi3-mini-3.8b, granite-moe-3b-a800m and
+recurrentgemma-2b fit one 80 GB card at full depth, olmoe-1b-7b and
+falcon-mamba-7b with ``--layers`` cut (falcon-mamba-7b at 32 of 64).
 
 Weights are random, drawn from ``--seed``; batches come from the seeded
 synthetic stream.  Checkpoints go to ``--ckpt-dir`` (default: a directory
@@ -40,6 +50,12 @@ def main() -> None:
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--lr", type=float, default=3e-3)
+    ap.add_argument("--dtype", default="float32",
+                    choices=("float32", "bfloat16"),
+                    help="compute dtype (parameters stay fp32)")
+    ap.add_argument("--remat", action="store_true",
+                    help="recompute each layer's activations in the "
+                         "backward")
     ap.add_argument("--policy", default=None,
                     help="pin the execution policy (default: resolve the "
                          "'train' workload from the policy table)")
@@ -64,7 +80,8 @@ def main() -> None:
     op = (default_table().resolve(
               "train", policy=ExecutionPolicy.parse(args.policy))
           if args.policy else None)
-    rc = RunConfig(dtype="float32", param_dtype="float32", remat=False,
+    rc = RunConfig(dtype=args.dtype, param_dtype="float32",
+                   remat=args.remat,
                    lr=args.lr, warmup_steps=max(args.steps // 10, 1),
                    total_steps=args.steps, microbatch=args.microbatch,
                    seed=args.seed)

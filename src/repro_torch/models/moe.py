@@ -8,8 +8,9 @@ in fp32.
 
 * :func:`moe_apply` is the reference's dense dispatch: every token goes
   through every expert and a one-hot combine keeps the routed ones.  x is
-  handed to ``moe_gemm`` as one (T, d) matrix seen by every expert (expert
-  stride 0), so row t of every expert's product is token t.  That keeps a
+  handed to ``moe_gemm`` as one (T, d) matrix seen by every expert (read
+  with expert stride 0; in training its gradient is the experts' shares
+  summed), so row t of every expert's product is token t.  That keeps a
   token's result independent of its neighbours' routing, which is what
   makes chunked prefill bit-exact with token prefill on the card.  The
   experts no token routes to are masked out (``active``, built on the
@@ -83,8 +84,9 @@ def _expert_gemm(x: torch.Tensor, w: torch.Tensor,
 def _expert_ffn(p, buf: torch.Tensor, act: str,
                 policy: Optional[ExecutionPolicy],
                 active: Optional[torch.Tensor]) -> torch.Tensor:
-    """The experts' FFN over (E, C, d) rows -> (E, C, d) in ``buf.dtype``;
-    an expert outside ``active`` (``None``: every expert) gives zeros."""
+    """The experts' FFN over (E, C, d) rows, or one (C, d) matrix seen by
+    every expert, -> (E, C, d) in ``buf.dtype``; an expert outside
+    ``active`` (``None``: every expert) gives zeros."""
     h = _expert_gemm(buf, p["wi"], policy, active)
     if act == "swiglu":
         h = F.silu(_expert_gemm(buf, p["wg"], policy, active)) * h
@@ -110,7 +112,7 @@ def moe_apply(p, x: torch.Tensor, cfg: ModelConfig,
     # the experts some token routes to, on the device (no host copy)
     active = torch.zeros(e.num_experts, dtype=torch.int8, device=x.device)
     active.scatter_(0, idx.reshape(-1), 1)
-    xe = x.reshape(T, d).expand(e.num_experts, T, d)     # expert stride 0
+    xe = x.reshape(T, d)                     # seen by every expert
     y = _expert_ffn(p, xe, cfg.ffn_act, policy, active)   # (E, T, d)
     return torch.einsum("etd,te->td", y, combine).reshape(B, S, d)
 

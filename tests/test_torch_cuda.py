@@ -18,10 +18,15 @@ bf16 ``queue_matmul`` has two kernels, thin (M <= 16) and wide; each must
 give the same bits at every depth pair and for a row whatever rows come
 with it.  Training: ``flash_attention_bwd`` against its plain version on
 the same inputs (fp32 2e-4, bf16 2e-2) and equal to itself across calls,
-rows that see no key with zero gradients; the autograd Functions run the
-kernels in their backward; ``moe_gemm``, ``ssm_scan`` and ``rglru_scan``
-raise under ``requires_grad``; a train step on the card agrees with the
-CPU's (loss 2e-3, weights after one AdamW step within 3 lr)."""
+rows that see no key with zero gradients; so are the backward passes of
+``rglru_scan`` (its kernel's reverse walk), ``ssm_scan`` (its backward
+kernel, on the chunk states its forward writes without changing y's bits)
+and ``moe_gemm`` (two grouped products through its kernels, an inactive
+expert's dW exact zeros); the autograd Functions run the kernels in their
+backward; ``moe_apply``'s gradients keep their bits with the expert mask,
+and remat's recomputed router picks the same experts; a train step on the
+card agrees with the CPU's for every family (loss 2e-3, weights after one
+AdamW step within 3 lr)."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -34,6 +39,12 @@ from repro_torch.core.policy import ExecutionPolicy as EP
 from repro_torch.kernels import (flash_attention, moe_gemm, queue_matmul,
                                  rglru_scan, ssm_scan)
 from repro_torch.kernels.flash_attention import flash_attention_bwd
+from repro_torch.kernels.moe_gemm import moe_gemm_bwd
+from repro_torch.kernels.moe_gemm.ref import moe_gemm_bwd_ref
+from repro_torch.kernels.rglru_scan import rglru_scan_bwd
+from repro_torch.kernels.rglru_scan.ref import rglru_scan_bwd_ref
+from repro_torch.kernels.ssm_scan import ssm_scan_bwd, ssm_scan_states
+from repro_torch.kernels.ssm_scan.ref import ssm_scan_bwd_ref
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ops import _plain
 from repro_torch.kernels.moe_gemm import ops as mg_ops
@@ -636,22 +647,177 @@ def test_autograd_runs_the_backward_kernels(card, dtype):
         _close(a.cpu(), b, 2e-3 if dtype == torch.float32 else 5e-2)
 
 
-def test_kernels_without_backward_raise_under_requires_grad(card):
-    x = torch.randn((2, 4, 64), device="cuda", requires_grad=True)
-    w = torch.randn((2, 64, 32), device="cuda")
-    with pytest.raises(NotImplementedError, match="moe_gemm"):
-        moe_gemm(x, w)
-    a = torch.rand((1, 8, 16), device="cuda", requires_grad=True)
-    with pytest.raises(NotImplementedError, match="rglru_scan"):
-        rglru_scan(a, torch.randn((1, 8, 16), device="cuda"))
-    xs = torch.randn((1, 8, 32), device="cuda", requires_grad=True)
-    with pytest.raises(NotImplementedError, match="ssm_scan"):
-        ssm_scan(xs, torch.rand((1, 8, 32), device="cuda"),
-                 -torch.rand((32, 4), device="cuda"),
-                 torch.randn((1, 8, 4), device="cuda"),
-                 torch.randn((1, 8, 4), device="cuda"))
-    with torch.no_grad():                      # serving is unaffected
-        assert moe_gemm(x, w).shape == (2, 4, 32)
+def _grad_inputs(card, kind, dtype, shape):
+    """Seeded operands of one backward case on the card."""
+    def rnd(*s):
+        return torch.randn(s, generator=card, device="cuda")
+    if kind == "rglru":
+        b, t, w = shape
+        a = torch.sigmoid(rnd(b, t, w) + 2.0).to(dtype)
+        return a, rnd(b, t, w).to(dtype), rnd(b, t, w)
+    b, t, d, n = shape
+    x = (rnd(b, t, d) * 0.5).to(dtype)
+    dt = torch.nn.functional.softplus(rnd(b, t, d) - 1.0).to(dtype)
+    A = -torch.exp(rnd(d, n) * 0.5)
+    return (x, dt, A, rnd(b, t, n).to(dtype), rnd(b, t, n).to(dtype),
+            rnd(b, t, d))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,w", [(1, 1, 16), (2, 37, 20), (1, 16, 32),
+                                   (1, 17, 32), (3, 257, 37), (1, 700, 64),
+                                   (2, 512, 2560)])
+def test_rglru_scan_bwd_kernel_against_plain(card, b, t, w, dtype):
+    """The reverse walk against the plain backward on the forward kernel's
+    h, at the chunk (16) and segment (256) edges; equal across calls."""
+    a, bx, g = _grad_inputs(card, "rglru", dtype, (b, t, w))
+    h = rglru_scan(a, bx)
+    before = (rglru_scan.launches, rglru_scan_bwd.launches)
+    got, again = rglru_scan_bwd(a, h, g), rglru_scan_bwd(a, h, g)
+    torch.cuda.synchronize()
+    assert (rglru_scan.launches, rglru_scan_bwd.launches) == \
+        (before[0], before[1] + 2)
+    for x, y, r in zip(got, again, rglru_scan_bwd_ref(a, h, g)):
+        assert x.dtype == torch.float32 and x.shape == (b, t, w)
+        assert torch.equal(x, y)
+        _close(x, r, TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,d,n", [(2, 37, 20, 4), (1, 150, 70, 16),
+                                     (2, 1, 33, 5), (1, 65, 64, 1),
+                                     (2, 200, 40, 32), (2, 512, 96, 16)])
+def test_ssm_scan_bwd_kernel_against_plain(card, b, t, d, n, dtype):
+    """The forward with its chunk states keeps y's bits; the backward
+    kernel against the plain backward, equal across calls."""
+    x, dt, A, Bm, C, dy = _grad_inputs(card, "ssm", dtype, (b, t, d, n))
+    y, states = ssm_scan_states(x, dt, A, Bm, C)
+    assert torch.equal(y, ssm_scan(x, dt, A, Bm, C))
+    before = ssm_scan_bwd.launches
+    got = ssm_scan_bwd(x, dt, A, Bm, C, dy, states)
+    again = ssm_scan_bwd(x, dt, A, Bm, C, dy, states)
+    torch.cuda.synchronize()
+    assert ssm_scan_bwd.launches == before + 2
+    ref = ssm_scan_bwd_ref(x, dt, A, Bm, C, dy)
+    for g, h, r, t_ in zip(got, again, ref, (x, dt, A, Bm, C)):
+        assert g.dtype == torch.float32 and g.shape == t_.shape
+        assert torch.equal(g, h)
+        _close(g, r, TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shared", [False, True])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("e,c,d,f", [(3, 40, 64, 48), (4, 8, 96, 64),
+                                     (2, 130, 100, 130)])
+def test_moe_gemm_bwd_against_plain(card, e, c, d, f, shared, masked,
+                                    dtype):
+    """dX and dW against the plain backward, per-expert and shared x, with
+    and without a mask (an inactive expert's dW exact zeros); equal across
+    calls."""
+    x = torch.randn((c, d) if shared else (e, c, d), generator=card,
+                    device="cuda").to(dtype)
+    w = (torch.randn((e, d, f), generator=card, device="cuda")
+         / d ** 0.5).to(dtype)
+    dy = torch.randn((e, c, f), generator=card, device="cuda").to(dtype)
+    active = (torch.arange(e, device="cuda") % 2 == 0).to(torch.int8) \
+        if masked else None
+    before = (moe_gemm.launches, moe_gemm_bwd.launches)
+    got = mg_ops.moe_gemm_bwd(x, w, dy, active=active)
+    again = mg_ops.moe_gemm_bwd(x, w, dy, active=active)
+    torch.cuda.synchronize()
+    assert (moe_gemm.launches, moe_gemm_bwd.launches) == \
+        (before[0] + 4, before[1] + 2)
+    for g, h, r, t in zip(got, again, moe_gemm_bwd_ref(x, w, dy, active),
+                          (x, w)):
+        assert g.dtype == torch.float32 and g.shape == t.shape
+        assert torch.equal(g, h)
+        _close(g, r, TOL[dtype])
+    if masked:
+        assert bool((got[1][1::2] == 0).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_autograd_runs_the_scan_and_expert_backward_kernels(card, dtype):
+    """Losses through ``rglru_scan``, ``ssm_scan`` and ``moe_gemm`` on the
+    card: each backward launches its kernel, and the gradients match the
+    CPU's autograd of the plain versions."""
+    a, bx, _ = _grad_inputs(card, "rglru", dtype, (2, 40, 24))
+    x, dt, A, Bm, C, _ = _grad_inputs(card, "ssm", dtype, (2, 70, 40, 16))
+    xm = torch.randn((20, 32), generator=card, device="cuda").to(dtype)
+    wm = (torch.randn((3, 32, 16), generator=card, device="cuda") / 6
+          ).to(dtype)
+    cases = ((rglru_scan, (a, bx), rglru_scan_bwd),
+             (ssm_scan, (x, dt, A, Bm, C), ssm_scan_bwd),
+             (moe_gemm, (xm, wm), moe_gemm_bwd))
+    for fn, args, bwd in cases:
+        grads = {}
+        for dev in ("cuda", "cpu"):
+            leaves = [t.detach().to(dev).requires_grad_() for t in args]
+            before = bwd.launches
+            y = fn(*leaves)
+            grads[dev] = torch.autograd.grad(y.square().sum(), leaves)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                assert bwd.launches == before + 1
+        for g, r, t in zip(grads["cuda"], grads["cpu"], args):
+            assert g.dtype == t.dtype
+            _close(g.cpu(), r, 2e-3 if dtype == torch.float32 else 5e-2)
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "granite-moe-3b-a800m"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_apply_gradients_keep_the_bits_with_the_mask(card, monkeypatch,
+                                                        arch, dtype):
+    """The gradients of the routed dense dispatch equal those with every
+    expert computed: an unrouted expert's dY is zeros, so its dW is zeros
+    and it adds nothing to dX either way."""
+    cfg = get_reduced(arch)
+    p = tree_map(lambda a: a.cuda().to(dtype),
+                 init_model_params(0, cfg, device="cpu")["blocks"]["ffn"])
+    p = {k: v[0].clone().requires_grad_() for k, v in p.items()}
+    x = (torch.randn((1, 3, cfg.d_model), generator=card, device="cuda")
+         * 0.3).to(dtype).requires_grad_()
+    dout = torch.randn((1, 3, cfg.d_model), generator=card, device="cuda"
+                       ).to(dtype)
+    leaves = [x, *p.values()]
+
+    def grads():
+        return torch.autograd.grad(moe_mod.moe_apply(p, x, cfg), leaves,
+                                   dout)
+    before = moe_gemm_bwd.launches
+    routed = grads()
+    assert moe_gemm_bwd.launches == before + 3
+    real = moe_mod.moe_gemm
+    monkeypatch.setattr(moe_mod, "moe_gemm",
+                        lambda *a, active=None, **k: real(*a, **k))
+    for g, h in zip(routed, grads()):
+        assert torch.equal(g, h)
+
+
+def test_remat_recomputes_the_same_experts(card, monkeypatch):
+    """Under remat every MoE layer's router runs twice, in the forward and
+    in the recomputed one; both must pick the same experts (the checkpoint
+    checks only shapes)."""
+    from repro_torch.train.step import _grads
+    cfg = get_reduced("olmoe-1b-7b")
+    p = tree_map(lambda a: a.cuda(), init_model_params(5, cfg, device="cpu"))
+    toks = torch.randint(0, cfg.vocab, (2, 33), generator=card,
+                         device="cuda")
+    seen = []
+    real = moe_mod.router_probs
+
+    def spy(*args, **kwargs):
+        w, idx = real(*args, **kwargs)
+        seen.append(idx.clone())
+        return w, idx
+    monkeypatch.setattr(moe_mod, "router_probs", spy)
+    _grads(p, {"tokens": toks[:, :-1], "labels": toks[:, 1:]}, cfg,
+           RunConfig(dtype="bfloat16", remat=True))
+    assert len(seen) == 2 * cfg.n_layers
+    first, again = seen[:cfg.n_layers], seen[cfg.n_layers:]
+    for i in range(cfg.n_layers):          # the recompute runs in reverse
+        assert torch.equal(first[i], again[cfg.n_layers - 1 - i])
 
 
 def test_train_step_on_the_card_matches_the_cpu(card):
@@ -674,6 +840,38 @@ def test_train_step_on_the_card_matches_the_cpu(card):
         if dev == "cuda":
             torch.cuda.synchronize()
             assert flash_attention_bwd.launches == before + cfg.n_layers
+        out[dev] = (float(m["loss"]), [t.cpu() for t in tree_leaves(p)])
+    assert abs(out["cuda"][0] - out["cpu"][0]) <= 2e-3
+    for a, b in zip(out["cuda"][1], out["cpu"][1]):
+        assert float((a - b).abs().max()) <= 3 * rc.lr
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "falcon-mamba-7b",
+                                  "recurrentgemma-2b"])
+def test_train_step_on_the_card_matches_the_cpu_for_every_family(card,
+                                                                 arch):
+    """The MoE, SSM and hybrid families' reduced configs, fp32, remat on:
+    one AdamW step on the card (every backward kernel of the path) and on
+    the CPU from the same weights and batch."""
+    from repro_torch.data import SyntheticLMStream
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.optim import init_opt_state
+    from repro_torch.train import train_step
+    cfg = get_reduced(arch)
+    rc = RunConfig(dtype="float32", remat=True, lr=1e-3)
+    batch = SyntheticLMStream(cfg.vocab, 32, 2, seed=3).batch_at(0)
+    counters = {"moe": moe_gemm_bwd, "ssm": ssm_scan_bwd,
+                "hybrid": rglru_scan_bwd}
+    out = {}
+    for dev in ("cuda", "cpu"):
+        p = init_model_params(4, cfg, device="cpu")
+        p = tree_map(lambda a: a.to(dev), p)
+        b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        before = counters[cfg.family].launches
+        p, opt, m = train_step(p, init_opt_state(p), b, cfg, rc)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert counters[cfg.family].launches > before
         out[dev] = (float(m["loss"]), [t.cpu() for t in tree_leaves(p)])
     assert abs(out["cuda"][0] - out["cpu"][0]) <= 2e-3
     for a, b in zip(out["cuda"][1], out["cpu"][1]):

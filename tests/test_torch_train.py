@@ -313,17 +313,22 @@ def test_trainer_recovers_from_injected_fault_with_equal_losses(tmp_path):
     tr.ckpt.close()
 
 
-def test_launch_train_reduced_on_the_cpu(tmp_path):
+@pytest.mark.parametrize("arch,name,flags", [
+    ("phi3-mini-3.8b", "phi3-mini-smoke", ()),
+    ("granite-moe-3b-a800m", "granite-moe-smoke", ("--remat",)),
+    ("falcon-mamba-7b", "falcon-mamba-7b-smoke", ("--remat",)),
+    ("recurrentgemma-2b", "recurrentgemma-smoke", ("--dtype", "bfloat16"))])
+def test_launch_train_reduced_on_the_cpu(tmp_path, arch, name, flags):
     """``python -m repro_torch.launch.train --reduced --device cpu`` trains
-    and prints the reference launcher's lines."""
+    one model of each family and prints the reference launcher's lines."""
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     out = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.train", "--arch",
-         "phi3-mini-3.8b", "--reduced", "--device", "cpu", "--steps", "4",
+         arch, "--reduced", "--device", "cpu", "--steps", "4",
          "--batch", "2", "--seq", "16", "--ckpt-every", "2", "--ckpt-dir",
-         str(tmp_path)], capture_output=True, text=True, env=env,
+         str(tmp_path), *flags], capture_output=True, text=True, env=env,
         timeout=300, check=True).stdout.splitlines()
-    assert out[0].startswith("arch=phi3-mini-smoke params=")
+    assert out[0].startswith(f"arch={name} params=")
     assert out[1].startswith("policy=copiftv2 (source=default")
     assert out[2].startswith("finished 4 steps in")
     assert out[3].startswith("loss: first~")
