@@ -29,29 +29,39 @@ prints no result):
    states written (y's bits unchanged), ``rglru_scan`` (a chunked scan,
    whose rounding differs from the plain version's sequential walk) also
    at 4096 steps, where it walks T in segments.  The products are those
-   of the served models and of granite-moe-3b-a800m (trained in phase 5;
-   its vocab of 49155 is not a multiple of 8).
-3. parity  — phi3-mini-3.8b, olmoe-1b-7b, falcon-mamba-7b and minicpm3-4b
-   at full width, depth cut to 2 layers, and recurrentgemma-2b cut to 5
-   (one (rec, rec, attn) macro block and the full model's (rec, rec) tail):
-   ``forward`` and 4 ``decode_step``s in fp32 on the card (kernels) and on
-   the CPU (plain versions), and in fp64 on the CPU, on the same seeded
-   weights.  The card must be no farther from fp64 than the CPU's fp32 run
-   (within ``FP64_RATIO``) and, where ``PARITY`` holds it, within 2e-3 of
-   the fp64 run; for olmoe every layer's top-k experts are compared first.
+   of the served models (nemotron-4-340b's at full width: a head weight of
+   4.72e9 elements, an ffn wo summing K = 73728), of granite-moe-3b-a800m
+   (trained in phase 5; its vocab of 49155 is not a multiple of 8) and of
+   hubert-xlarge, each held to its plain version over the whole output;
+   ``flash_attention`` also at pixtral's (32 over 8 of 128), hubert's (16
+   of 80, non-causal) and nemotron's heads (96 over 8 of 192).
+3. parity  — phi3-mini-3.8b, olmoe-1b-7b, falcon-mamba-7b, minicpm3-4b,
+   pixtral-12b (with 256 patch rows, over 512 positions) and
+   hubert-xlarge (on frames) at full width, depth cut to 2 layers, and
+   recurrentgemma-2b cut to 5 (one (rec, rec, attn) macro block and the
+   full model's (rec, rec) tail): ``forward`` and, for the decoders, 4
+   ``decode_step``s in fp32 on the card (kernels) and on the CPU (plain
+   versions), and in fp64 on the CPU, on the same seeded weights
+   (nemotron-4-340b has no fp64 witness: one layer is 96 GB in fp64).
+   The card must be no farther from fp64 than the CPU's fp32 run (within
+   ``FP64_RATIO``) and, where ``PARITY`` holds it, within 2e-3 of the fp64
+   run; for olmoe every layer's top-k experts are compared first.
    recurrentgemma also prefills and decodes with its window cut to
    ``RING_WINDOW``, so that its K/V ring wraps.  The kept layers are drawn
    at the full-depth model's scale, and olmoe's also at the fan-in scale
    (see ``PARITY``).
 4. serve   — phi3-mini-3.8b (32 layers), olmoe-1b-7b (16),
-   falcon-mamba-7b (64), recurrentgemma-2b (26) and minicpm3-4b (62, MLA)
-   at full width, bf16, one after the other: the chunked-prefill engine
-   serves 6 seeded requests, a token-prefill engine must give the same
-   tokens, and one ``forward`` over 512 tokens runs ``flash_attention``
-   (and ``ssm_scan`` for falcon-mamba, ``rglru_scan`` for
-   recurrentgemma).  Each model's run is its own main
-   path: the launch counts are set to 0 just before it and read just after
-   it, and every kernel of that path must have run.  Then a profile of a
+   falcon-mamba-7b (64), recurrentgemma-2b (26), minicpm3-4b (62, MLA),
+   pixtral-12b (40) and nemotron-4-340b (2 of 96, ``SERVE_LAYERS``) at full
+   width, bf16, one after the other: the chunked-prefill engine serves 6
+   seeded requests, a token-prefill engine must give the same tokens, and
+   one ``forward`` over 512 tokens (pixtral's with its 256 patch rows) runs
+   ``flash_attention`` (and ``ssm_scan`` for falcon-mamba, ``rglru_scan``
+   for recurrentgemma); then hubert-xlarge (48 layers), whose engine must
+   refuse it, runs one non-causal ``forward`` over 512 frames.  Each
+   model's run is its own main path: the launch counts are set to 0 just
+   before it and read just after it, and every kernel of that path must
+   have run.  Then a profile of a
    decode body: launches, kernel time by kernel, the device's idle share,
    and for olmoe the experts each layer's mask keeps.
 5. train   — the training path (``--train-parts`` picks among a-d):
@@ -71,8 +81,9 @@ prints no result):
    to ``FP64_RATIO`` as phase 3 holds logits, the loss to 2e-3 of fp64;
    (c) ``FaultTolerantTrainer`` on 2-layer phi3 at full width, a fault
    injected after the first checkpoint, the replayed losses equal bit for
-   bit; (d) ``TRAIN_FULL``'s models at full width (falcon-mamba-7b's depth
-   cut to fit), bf16 with remat and AdamW, ``FULL_STEPS`` steps of
+   bit; (d) ``TRAIN_FULL``'s models at full width (falcon-mamba-7b's and
+   pixtral-12b's depth cut to fit; hubert-xlarge on frames, pixtral with
+   patches), bf16 with remat and AdamW, ``FULL_STEPS`` steps of
    ``make_train_step`` each: each its own main path, the launch counts set
    to 0 just before it and read just after, every loss finite and every
    forward and backward kernel of its family (``TRAIN_KERNELS``)
@@ -107,7 +118,20 @@ TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
 SLEEP_CYCLES_PER_S, MAX_SLEEP_S = 1.98e9, 0.2
 SEED = 20261016
 SERVED = ("phi3-mini-3.8b", "olmoe-1b-7b", "falcon-mamba-7b",
-          "recurrentgemma-2b", "minicpm3-4b")
+          "recurrentgemma-2b", "minicpm3-4b", "pixtral-12b",
+          "nemotron-4-340b")
+#: served models cut in depth: nemotron-4-340b's embedding and head alone
+#: are 18.9 GB in bf16 and each of its layers 6.9 GB, so 2 of its 96
+#: layers are served (phase 2 holds every product at its full shape)
+SERVE_LAYERS = {"nemotron-4-340b": 2}
+#: the encoder: phase 4 runs its ``forward`` only, and its engine must
+#: refuse it (no autoregressive decode, as in the reference)
+ENCODERS = ("hubert-xlarge",)
+#: models whose phase 2 products draw their inputs from a generator of
+#: their own (``SEED`` + the offset), so that adding them left the inputs
+#: of every case before them as they were
+OWN_DRAWS = {"granite-moe-3b-a800m": 11, "pixtral-12b": 13,
+             "nemotron-4-340b": 13, "hubert-xlarge": 13}
 #: phase 3's draws of the kept layers: (arch, scale, whether the card is
 #: held to 2e-3 of the CPU's fp64 run).  "depth" is the full-depth model's
 #: scale, as the reference's initializer gives it (std 1/sqrt(n_layers));
@@ -129,7 +153,28 @@ PARITY = (("phi3-mini-3.8b", "depth", True),
           ("olmoe-1b-7b", "fan_in", True),
           ("falcon-mamba-7b", "depth", True),
           ("recurrentgemma-2b", "depth", True),
-          ("minicpm3-4b", "depth", True))
+          ("minicpm3-4b", "depth", True),
+          ("pixtral-12b", "fan_in", True),
+          ("hubert-xlarge", "depth", True))
+#: draws whose decode ``PARITY`` cannot hold to ``FP64_RATIO``, logged by
+#: :func:`decode_spread`, not held.  At pixtral-12b's depth scale (std
+#: 1/sqrt(40) over widths of 5120-14336) a decode step's softmax sits near
+#: a tie in some slots and amplifies rounding: the CPU's own fp32 distance
+#: from fp64 moves about 2x with its thread count alone, and the card's
+#: plain versions (cuBLAS) land farther than its kernels, so a ratio to
+#: one CPU run cannot tell a kernel fault from luck there.  Its fan-in
+#: draw carries the phase 3 checks (its forward at the depth scale, and
+#: phase 5 (b)'s gradients, hold them)
+SPREAD = (("pixtral-12b", "depth"),)
+#: the CPU thread count :func:`decode_spread` adds to the default
+SPREAD_THREADS = (1,)
+#: phase 3's and 5 (b)'s sequence: 128 tokens, but 512 for the vision
+#: model, whose 256 patch rows replace the first 256 token embeddings (at
+#: S <= 256 the reference's concatenation gives the patches' 256 rows, not
+#: S).  nemotron-4-340b has no CPU witness: one of its layers in fp64 is
+#: 96 GB of host memory, so phase 2's products at its full shapes and phase
+#: 4's gates hold it
+PARITY_SEQ = {"pixtral-12b": 512}
 #: recurrentgemma's ring check: window, cache length and prompt length
 #: (the prompt passes the window, so the ring has wrapped before the 4
 #: decode steps)
@@ -142,7 +187,9 @@ FP64_RATIO = 2.0
 PATH_KERNELS = {"dense": ("queue_matmul", "flash_attention"),
                 "moe": ("queue_matmul", "flash_attention", "moe_gemm"),
                 "ssm": ("queue_matmul", "ssm_scan"),
-                "hybrid": ("queue_matmul", "flash_attention", "rglru_scan")}
+                "hybrid": ("queue_matmul", "flash_attention", "rglru_scan"),
+                "vlm": ("queue_matmul", "flash_attention"),
+                "audio": ("queue_matmul", "flash_attention")}
 #: the forward and backward launches each family's training path makes
 #: (``moe_gemm_bwd`` and ``rglru_scan_bwd`` count backward calls through
 #: their forward kernels' sources)
@@ -152,7 +199,9 @@ TRAIN_KERNELS = {
             "moe_gemm", "moe_gemm_bwd"),
     "ssm": ("queue_matmul", "ssm_scan", "ssm_scan_bwd"),
     "hybrid": ("queue_matmul", "flash_attention", "flash_attention_bwd",
-               "rglru_scan", "rglru_scan_bwd")}
+               "rglru_scan", "rglru_scan_bwd"),
+    "vlm": ("queue_matmul", "flash_attention", "flash_attention_bwd"),
+    "audio": ("queue_matmul", "flash_attention", "flash_attention_bwd")}
 WHERE = {
     "queue_matmul": ("src/repro_torch/kernels/queue_matmul/csrc/"
                      "queue_matmul.cu",
@@ -180,6 +229,36 @@ WHERE = {
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def host_memory() -> str:
+    """The host's total and available memory (phase 3's and 5 (b)'s fp64
+    witnesses of the wider models take tens of GB of it)."""
+    try:
+        with open("/proc/meminfo") as f:
+            info = {line.split(":")[0]: int(line.split()[1]) for line in f}
+        return (f"host memory {info['MemTotal'] / 2**20:.1f} GiB, "
+                f"{info['MemAvailable'] / 2**20:.1f} GiB available")
+    except (OSError, KeyError, ValueError, IndexError):
+        return "host memory unknown"
+
+
+def model_inputs(cfg, rng, batch: int, seq: int) -> dict:
+    """A model's inputs from the numpy generator ``rng``, as the
+    reference's tests/test_models.py ``_batch`` makes them: tokens, with
+    the vision frontend's patches (0.1 of a normal draw) beside them, or
+    the audio frontend's frames in their place; CPU tensors."""
+    if cfg.frontend == "audio":
+        return {"frames": torch.from_numpy(
+            (rng.standard_normal((batch, seq, cfg.d_model)) * 0.1
+             ).astype(np.float32))}
+    out = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab,
+                                                   (batch, seq)))}
+    if cfg.frontend == "vision":
+        out["patches"] = torch.from_numpy(
+            (rng.standard_normal((batch, cfg.n_frontend_tokens, cfg.d_model))
+             * 0.1).astype(np.float32))
+    return out
 
 
 def host_cpu() -> str:
@@ -362,38 +441,41 @@ QM_DEPTHS = ((1, 1), (2, 2), (4, 4), (2, 4), (8, 8), (1, 8))
 
 
 def check_queue_matmul(gen, report) -> dict:
-    """Every product of the served models and of granite-moe-3b-a800m at
-    M = 4 (decode over 4 slots) and M = 512 (``forward``; MLA's wuk/wuv
-    there only), and phi3's q/k/v/o
-    and ffn products also at M = 64 and 128 (the wide kernel's smallest
-    tiles), bit-identical across the ring depths of ``QM_DEPTHS``."""
+    """Every product of the served models, of granite-moe-3b-a800m and of
+    hubert-xlarge at M = 4 (decode over 4 slots; not the encoder's) and M =
+    512 (``forward``; MLA's wuk/wuv there only), and phi3's q/k/v/o and ffn
+    products also at M = 64 and 128 (the wide kernel's smallest tiles),
+    bit-identical across the ring depths of ``QM_DEPTHS`` and held to the
+    plain version over the whole output (nemotron-4-340b's head weight has
+    4.72e9 elements, its ffn wo sums K = 73728).  A product of more than
+    a TFLOP is timed over fewer calls."""
     from repro_torch.kernels.queue_matmul import ops
     from repro_torch.kernels.queue_matmul.ref import matmul_ref
     rep = None
     log("[kernels] queue_matmul  model product  M     K     N    dtype  "
         "max_abs_err  ms  plain_ms  library_ms  bound_ms")
     cases = [(arch, name, k, n, dtype)
-             for arch in SERVED + ("granite-moe-3b-a800m",)
+             for arch in SERVED + ("granite-moe-3b-a800m",) + ENCODERS
              for name, k, n, dtypes in matmul_shapes(arch)
              for dtype in dtypes]
-    # the trained-only model draws from a generator of its own, so the
-    # served models' cases (and every later check's) keep their inputs
-    extra = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    gens = {off: torch.Generator(device="cuda").manual_seed(SEED + off)
+            for off in set(OWN_DRAWS.values())}
     seen = set()                      # a shape two models share runs once
     for arch, name, k, n, dtype in cases:
         ms_ = (4, 512)
         if arch == "phi3-mini-3.8b" and name != "head":
             ms_ = (4, 64, 128, 512)
-        elif name == "wuk/wuv":
+        elif name == "wuk/wuv" or arch in ENCODERS:
             ms_ = (512,)
         for m in ms_:
             if (m, k, n, dtype) in seen:
                 continue
             seen.add((m, k, n, dtype))
-            g = gen if arch in SERVED else extra
+            g = gens[OWN_DRAWS[arch]] if arch in OWN_DRAWS else gen
             x = torch.randn((m, k), generator=g, device="cuda").to(dtype)
-            w = (torch.randn((k, n), generator=g, device="cuda")
-                 / math.sqrt(k)).to(dtype)
+            # scaled in place: nemotron's head is 18.9 GB in fp32
+            w = torch.randn((k, n), generator=g, device="cuda").div_(
+                math.sqrt(k)).to(dtype)
             ref = matmul_ref(x, w).to(dtype)
             outs = {d: ops.queue_matmul(x, w, depth_x=d[0], depth_w=d[1])
                     for d in QM_DEPTHS}
@@ -405,18 +487,23 @@ def check_queue_matmul(gen, report) -> dict:
                         f"queue_matmul depths {d} differ from depth 1 at "
                         f"{arch} {name} M={m} K={k} N={n} {dtype}")
             err = within(base, ref, TOL[dtype])
+            del outs, ref
             copies = max(2, math.ceil(100e6 / (w.numel() * w.element_size())))
-            args = [(x.clone(), w.clone()) for _ in range(copies)]
+            args = [(x, w)] + [(x.clone(), w.clone())
+                               for _ in range(copies - 1)]
             make = cycling(args)
-            ms = cuda_ms(make(lambda a, b: ops.queue_matmul(a, b)))
-            wall = wall_ms(make(lambda a, b: ops.queue_matmul(a, b)))
-            host = host_ms(make(lambda a, b: ops.queue_matmul(a, b)))
-            plain = cuda_ms(make(lambda a, b: matmul_ref(a, b).to(a.dtype)))
-            lib = cuda_ms(make(torch.matmul))
+            n_it = 3 if 2.0 * m * n * k > 1e12 else 20
+            ms = cuda_ms(make(lambda a, b: ops.queue_matmul(a, b)), n_it)
+            wall = wall_ms(make(lambda a, b: ops.queue_matmul(a, b)), n_it)
+            host = host_ms(make(lambda a, b: ops.queue_matmul(a, b)),
+                           5 * n_it)
+            plain = cuda_ms(make(lambda a, b: matmul_ref(a, b).to(a.dtype)),
+                            n_it)
+            lib = cuda_ms(make(torch.matmul), n_it)
             b_ms, b_by = bound(2.0 * m * n * k,
                                (m * k + k * n + m * n) * x.element_size(),
                                dtype)
-            del args, outs, ref
+            del args, make, w, base   # before the next draw: heads are GBs
             # the kernel this M takes (older trees have one kernel)
             kind = (ops.regime(m, dtype) if hasattr(ops, "regime")
                     else "ring")
@@ -507,10 +594,18 @@ def check_flash_attention(gen, report) -> dict:
     # check_queue_matmul)
     extra = torch.Generator(device="cuda").manual_seed(SEED + 12)
     trained = [(24, 8, 512, 512, 64, True, None, 0, 64)]
+    # pixtral's heads (32 over 8 of 128), hubert's (16 of 80, both ways)
+    # and nemotron's (96 over 8 of 192: no compiled-in case, the generic
+    # 256-wide code) at phase 4's 512 tokens, from a generator of their own
+    latest = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    registry = [(32, 8, 512, 512, 128, True, None, 0, 128),
+                (16, 16, 512, 512, 80, False, None, 0, 80),
+                (96, 8, 512, 512, 192, True, None, 0, 192)]
     for dtype in (torch.float32, torch.bfloat16):
-        for case in cases + trained:
+        for case in cases + trained + registry:
             hq, hkv, sq, sk, d, causal, window, q_off, dv = case
-            g = extra if case in trained else gen
+            g = (extra if case in trained else latest if case in registry
+                 else gen)
             q = torch.randn((1, hq, sq, d), generator=g, device="cuda").to(dtype)
             k = torch.randn((1, hkv, sk, d), generator=g, device="cuda").to(dtype)
             v = torch.randn((1, hkv, sk, dv), generator=g, device="cuda").to(dtype)
@@ -556,17 +651,24 @@ def check_flash_attention(gen, report) -> dict:
 # ---------------------------------------------------------------------------
 
 #: phase 5's backward cases: (B, Hq, Hkv, Sq, Sk, D, Dv, causal, window):
-#: phi3's heads at 2 x 512 tokens (the slice's main path), granite's (24
-#: over 8 of 64) there too, GQA 32 over 8, recurrentgemma-like heads of
-#: 256 with window 128, minicpm3's MLA heads (v 64 under q/k 96), and a
-#: non-causal window over fewer keys than queries, so that the rows from
-#: Sk - 1 + window on see no key
+#: phi3's heads at 2 x 512 tokens, granite's (24 over 8 of 64) there too,
+#: GQA 32 over 8, recurrentgemma-like heads of 256 with window 128,
+#: minicpm3's MLA heads (v 64 under q/k 96), a non-causal window over fewer
+#: keys than queries, so that the rows from Sk - 1 + window on see no key,
+#: hubert's heads (16 of 80, non-causal) and pixtral's (32 over 8 of 128)
+#: at 2 x 512 tokens
 BWD_CASES = ((2, 32, 32, 512, 512, 96, 96, True, None),
              (2, 24, 8, 512, 512, 64, 64, True, None),
              (1, 32, 8, 512, 512, 128, 128, True, None),
              (1, 10, 1, 512, 512, 256, 256, True, 128),
              (1, 40, 40, 512, 512, 96, 64, True, None),
-             (1, 4, 2, 512, 128, 96, 96, False, 64))
+             (1, 4, 2, 512, 128, 96, 96, False, 64),
+             (2, 16, 16, 512, 512, 80, 80, False, None),
+             (2, 32, 8, 512, 512, 128, 128, True, None))
+#: the cases of the models trained since the list began (hubert-xlarge,
+#: non-causal at head dim 80; pixtral-12b), drawn from a generator of their
+#: own, so the earlier cases and every later check keep their inputs
+BWD_OWN = BWD_CASES[6:]
 
 
 def _sdpa_bwd(q, k, v, do, causal, window):
@@ -588,10 +690,14 @@ def check_flash_attention_bwd(gen, report) -> dict:
     rep = None
     log("[train] flash_attention_bwd  B  Hq Hkv   Sq   Sk   D  Dv causal "
         "window  dtype  max_abs_err  ms  plain_ms  library_ms  bound_ms")
+    own = torch.Generator(device="cuda").manual_seed(SEED + 15)
     for dtype in (torch.float32, torch.bfloat16):
-        for b, hq, hkv, sq, sk, d, dv, causal, window in BWD_CASES:
+        for case in BWD_CASES:
+            b, hq, hkv, sq, sk, d, dv, causal, window = case
+            g = own if case in BWD_OWN else gen
+
             def rnd(*shape):
-                return torch.randn(shape, generator=gen, device="cuda").to(
+                return torch.randn(shape, generator=g, device="cuda").to(
                     dtype)
             q, k, v = rnd(b, hq, sq, d), rnd(b, hkv, sk, d), rnd(b, hkv, sk, dv)
             do = rnd(b, hq, sq, dv)
@@ -971,7 +1077,8 @@ def check_ssm_scan_bwd(gen, report) -> dict:
 #: fp64, so its fan-in draw carries the check)
 GRAD_PARITY = (("phi3-mini-3.8b", "depth"), ("minicpm3-4b", "depth"),
                ("olmoe-1b-7b", "fan_in"), ("falcon-mamba-7b", "depth"),
-               ("recurrentgemma-2b", "depth"))
+               ("recurrentgemma-2b", "depth"), ("pixtral-12b", "depth"),
+               ("hubert-xlarge", "depth"))
 #: phase 5 (c): steps, checkpoint interval and the step an injected fault
 #: hits (so steps 5-7 run twice); phase 5 (d): steps at full width
 TRAINER_STEPS, TRAINER_EVERY, TRAINER_FAULT = 12, 5, 8
@@ -979,9 +1086,12 @@ FULL_STEPS = 6
 #: phase 5 (d)'s models: (arch, layers or None for the full depth).
 #: falcon-mamba-7b's 64 layers (7.27 B parameters, 108 GiB of fp32
 #: parameters, gradients and AdamW moments) do not fit one 80 GB card; 32
-#: layers (3.90 B) do
+#: layers (3.90 B) do.  pixtral-12b's 40 layers need 182.5 GiB of that
+#: state; 10 layers (4.07 B parameters, 1.34 B of them its embedding and
+#: head) need 60.6 GiB, beside falcon-mamba-7b's 58.1 at 32 layers
 TRAIN_FULL = (("phi3-mini-3.8b", None), ("granite-moe-3b-a800m", None),
-              ("recurrentgemma-2b", None), ("falcon-mamba-7b", 32))
+              ("recurrentgemma-2b", None), ("falcon-mamba-7b", 32),
+              ("hubert-xlarge", None), ("pixtral-12b", 10))
 
 
 def phase_grad_parity(arch: str, scale: str, failures: list) -> None:
@@ -1003,8 +1113,16 @@ def phase_grad_parity(arch: str, scale: str, failures: list) -> None:
     p_cpu = init_model_params(SEED, cfg, device="cpu")
     redraw_scale(p_cpu, cfg, full, scale)
     rng = np.random.default_rng(SEED + 2)
-    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (1, 129)))
-    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    if cfg.frontend:
+        seq = PARITY_SEQ.get(arch, 128)
+        batch = model_inputs(cfg, rng, 1, seq)
+        batch["labels"] = torch.from_numpy(rng.integers(0, cfg.vocab,
+                                                        (1, seq)))
+        log(f"[train] {arch} gradients on {sorted(batch)} ({seq} "
+            f"positions); {host_memory()}")
+    else:
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab, (1, 129)))
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
     runs = {}
     for name, dev, dtype in (("card", "cuda", "float32"),
                              ("cpu", "cpu", "float32"),
@@ -1116,7 +1234,8 @@ def phase_train_full(arch: str, layers=None) -> dict:
     """``arch`` at full width (and full depth, or ``layers``),
     ``RunConfig`` defaults (bf16 compute, fp32 parameters, remat), AdamW,
     seq 512 and batch 2: ``FULL_STEPS`` steps of ``make_train_step`` on
-    ``SyntheticLMStream``, the launch counts set to 0 just before and read
+    ``SyntheticLMStream`` (with the frontend's patches or frames,
+    :func:`train_batch`), the launch counts set to 0 just before and read
     just after.  Every loss must be finite and each kernel of the family's
     training path (``TRAIN_KERNELS``) launched.  Then a profile of one more
     step: kernel time by kernel and the device's idle share.  Returns the
@@ -1143,6 +1262,8 @@ def phase_train_full(arch: str, layers=None) -> dict:
     step = make_train_step(cfg, shape, RunConfig(), device="cuda")
     stream = SyntheticLMStream(cfg.vocab, shape.seq_len, shape.global_batch,
                                seed=SEED)
+    if cfg.frontend:
+        log(f"[train] {name}: batches {sorted(train_batch(cfg, stream, 0))}")
     counters = launch_counters()
     torch.cuda.reset_peak_memory_stats()
     for c in counters.values():
@@ -1150,7 +1271,7 @@ def phase_train_full(arch: str, layers=None) -> dict:
     walls, losses = [], []
     for i in range(FULL_STEPS):
         t1 = time.time()
-        params, opt, m = step(params, opt, stream.batch_at(i))
+        params, opt, m = step(params, opt, train_batch(cfg, stream, i))
         losses.append(float(m["loss"]))
         torch.cuda.synchronize()
         walls.append(time.time() - t1)
@@ -1171,11 +1292,27 @@ def phase_train_full(arch: str, layers=None) -> dict:
         if counts[kernel] <= 0:
             raise AssertionError(f"{kernel} never launched on {name}'s "
                                  f"training path")
-    profile_train_step(step, params, opt, stream.batch_at(FULL_STEPS), wall,
-                       name)
+    profile_train_step(step, params, opt,
+                       train_batch(cfg, stream, FULL_STEPS), wall, name)
     del params, opt
     free_card()
     return counts
+
+
+def train_batch(cfg, stream, i: int) -> dict:
+    """The stream's batch ``i`` (numpy), with the frontend's inputs drawn
+    as :func:`model_inputs` draws them, from a generator seeded with the
+    step: pixtral's patches beside the tokens, hubert's frames in their
+    place (its loss reads the labels only)."""
+    b = stream.batch_at(i)
+    if not cfg.frontend:
+        return b
+    rng = np.random.default_rng(SEED + 100 + i)
+    drawn = model_inputs(cfg, rng, *b["labels"].shape)
+    extra = {k: v.numpy() for k, v in drawn.items() if k != "tokens"}
+    if cfg.frontend == "audio":
+        b = {"labels": b["labels"]}
+    return {**b, **extra}
 
 
 def profile_train_step(step, params, opt, batch, wall: float,
@@ -1215,11 +1352,16 @@ def profile_train_step(step, params, opt, batch, wall: float,
         p.requires_grad_(True)
     try:
         loss, _ = record("forward", lambda: loss_fn(params, b, cfg, rc))
-        grads = record("backward", lambda: torch.autograd.grad(loss, ps))
+        grads = record("backward", lambda: torch.autograd.grad(
+            loss, ps, allow_unused=True))
     finally:
         for p in ps:
             p.requires_grad_(False)
-    grads = tree_unflatten(params, [g.contiguous() for g in grads])
+    # a leaf the loss never reads (hubert's embed) gets zeros, as in
+    # train_step
+    grads = tree_unflatten(params, [torch.zeros_like(p) if g is None
+                                    else g.contiguous()
+                                    for p, g in zip(ps, grads)])
     record("optimizer", lambda: adamw_update(params, opt, grads, rc))
     busy = sum(sum(v.values()) for v in phases.values())
     if busy == 0:
@@ -1540,17 +1682,18 @@ def against_witness(what, card, cpu, exact, hold: bool,
 
 
 def phase_parity(arch: str, scale: str, hold: bool, failures: list) -> None:
-    """The cut depth (:func:`cut_depth`) at full width: ``forward`` and 4
-    ``decode_step``s on the card (fp32, kernels), on the CPU (fp32, plain
-    versions) and on the CPU in fp64 (the witness), on the same seeded
-    weights.  An MoE model's routing is compared first, every layer, so
-    that a flipped expert is reported as a flip; a hybrid model also runs
-    :func:`ring_parity`.  Failures go to ``failures``, so that one run
-    reports every model."""
+    """The cut depth (:func:`cut_depth`) at full width: ``forward`` (over
+    ``PARITY_SEQ`` tokens, with the frontend's patches or frames) and, for
+    a decoder, 4 ``decode_step``s on the card (fp32, kernels), on the CPU
+    (fp32, plain versions) and on the CPU in fp64 (the witness), on the
+    same seeded weights.  An MoE model's routing is compared first, every
+    layer, so that a flipped expert is reported as a flip; a hybrid model
+    also runs :func:`ring_parity`.  Failures go to ``failures``, so that
+    one run reports every model."""
     from repro_torch.config import RunConfig
     from repro_torch.configs import get_config
     from repro_torch.models import (decode_step, forward, init_cache,
-                                    init_model_params)
+                                    init_model_params, prepare_params)
     from repro_torch.models.layers import tree_map
     full = get_config(arch)
     cfg = cut_depth(full)
@@ -1561,46 +1704,127 @@ def phase_parity(arch: str, scale: str, hold: bool, failures: list) -> None:
     redraw_scale(p_cpu, cfg, full, scale)
     p_gpu = tree_map(lambda a: a.to("cuda"), p_cpu)
     rng = np.random.default_rng(SEED)
-    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (1, 128)))
+    seq = PARITY_SEQ.get(arch, 128)
+    inputs = model_inputs(cfg, rng, 1, seq)
     name = f"{arch} ({cfg.n_layers} layers, {scale} scale)"
+    if cfg.frontend:
+        log(f"[parity] {name}: inputs {sorted(inputs)}; {host_memory()}")
     routes = {"card": [], "cpu": [], "fp64": []}
     with routing(routes["card"]):
-        out_gpu = forward(p_gpu, {"tokens": toks.cuda()}, cfg, rc)
+        out_gpu = forward(p_gpu, {k: v.cuda() for k, v in inputs.items()},
+                          cfg, rc)
     with routing(routes["cpu"]):
-        out_cpu = forward(p_cpu, {"tokens": toks}, cfg, rc)
+        out_cpu = forward(p_cpu, inputs, cfg, rc)
     with routing(routes["fp64"]):
-        exact = forward(p_cpu, {"tokens": toks}, cfg, rc64)
+        exact = forward(p_cpu, inputs, cfg, rc64)
     if cfg.moe:
         both = flips(routes["card"], routes["cpu"])
         log(f"[parity] {name} top-{cfg.moe.top_k} experts of "
-            f"{toks.numel()} tokens, tokens flipped per layer: card vs CPU "
+            f"{seq} tokens, tokens flipped per layer: card vs CPU "
             f"{both}, card vs fp64 {flips(routes['card'], routes['fp64'])}, "
             f"CPU vs fp64 {flips(routes['cpu'], routes['fp64'])}")
         if hold and any(both):
             failures.append(f"{name}: the router flips an expert between "
                             f"card and CPU ({both} tokens)")
-    against_witness(f"{name} forward B=1 S=128", out_gpu, out_cpu, exact,
+    against_witness(f"{name} forward B=1 S={seq}", out_gpu, out_cpu, exact,
                     hold, failures)
+    del out_gpu, out_cpu, exact
+    if not cfg.causal:
+        log(f"[parity] {name}: an encoder, no decode; done in "
+            f"{time.time() - t0:.1f} s")
+        del p_gpu
+        free_card()
+        return
     caches = {"card": init_cache(cfg, 4, 16, torch.float32, device="cuda"),
               "cpu": init_cache(cfg, 4, 16, torch.float32, device="cpu"),
               "fp64": init_cache(cfg, 4, 16, torch.float64, device="cpu")}
     steps = torch.from_numpy(rng.integers(0, cfg.vocab, (4, 4)))
+    # the weights prepared once for each run, as the engine holds them
+    # (cast, the head transposed), not again at every step
+    prep = {"card": prepare_params(p_gpu, cfg, rc),
+            "cpu": prepare_params(p_cpu, cfg, rc),
+            "fp64": prepare_params(p_cpu, cfg, rc64)}
     for t in range(4):
         tok = steps[:, t:t + 1]
-        lg, caches["card"] = decode_step(p_gpu, caches["card"],
+        lg, caches["card"] = decode_step(prep["card"], caches["card"],
                                          {"tokens": tok.cuda()}, cfg, rc)
-        lc, caches["cpu"] = decode_step(p_cpu, caches["cpu"],
+        lc, caches["cpu"] = decode_step(prep["cpu"], caches["cpu"],
                                         {"tokens": tok}, cfg, rc)
-        le, caches["fp64"] = decode_step(p_cpu, caches["fp64"],
+        le, caches["fp64"] = decode_step(prep["fp64"], caches["fp64"],
                                          {"tokens": tok}, cfg, rc64)
         against_witness(f"{name} decode_step {t}", lg, lc, le, hold,
                         failures)
-    del caches
+    del caches, prep
     if cfg.family == "hybrid":
         ring_parity(p_gpu, p_cpu, cfg, rng, name, hold, failures)
     del p_gpu
     free_card()
     log(f"[parity] {name} done in {time.time() - t0:.1f} s")
+
+
+def decode_spread(arch: str, scale: str) -> None:
+    """The 4 ``decode_step``s of :func:`phase_parity` on the same draw and
+    tokens, each as its logits' RMS distance from the fp64 run, per step
+    and per slot: on the card through the kernels and through the plain
+    versions (``ExecutionPolicy.BASELINE``: cuBLAS, no TF32), and on the
+    CPU in fp32 at the default thread count and at ``SPREAD_THREADS``.
+    Logged, not held: it shows how far fp32 runs that differ only in
+    their summation order land from fp64 on a draw where ``SPREAD`` says
+    the ratio cannot be held."""
+    from repro_torch.config import RunConfig
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import ExecutionPolicy
+    from repro_torch.models import (decode_step, init_cache,
+                                    init_model_params, prepare_params)
+    from repro_torch.models.layers import tree_map
+    full = get_config(arch)
+    cfg = cut_depth(full)
+    t0 = time.time()
+    p_cpu = init_model_params(SEED, cfg, device="cpu")
+    redraw_scale(p_cpu, cfg, full, scale)
+    p_gpu = tree_map(lambda a: a.to("cuda"), p_cpu)
+    rng = np.random.default_rng(SEED)
+    model_inputs(cfg, rng, 1, PARITY_SEQ.get(arch, 128))  # phase 3's draws
+    steps = torch.from_numpy(rng.integers(0, cfg.vocab, (4, 4)))
+    rc = RunConfig(dtype="float32", remat=False)
+    plain = RunConfig(dtype="float32", remat=False,
+                      policy=ExecutionPolicy.BASELINE)
+    threads = torch.get_num_threads()
+    runs = ([("card kernels", p_gpu, "cuda", rc, threads),
+             ("card plain", p_gpu, "cuda", plain, threads)]
+            + [(f"CPU fp32 {n} threads", p_cpu, "cpu", rc, n)
+               for n in (threads,) + SPREAD_THREADS]
+            + [("fp64", p_cpu, "cpu", RunConfig(dtype="float64",
+                                                remat=False), threads)])
+    logits = {}
+    try:
+        for name, p, dev, r, n in runs:
+            torch.set_num_threads(n)
+            p = prepare_params(p, cfg, r)
+            cache = init_cache(cfg, 4, 16, r.dtype, device=dev)
+            logits[name] = []
+            for t in range(4):
+                lg, cache = decode_step(p, cache, {
+                    "tokens": steps[:, t:t + 1].to(dev)}, cfg, r)
+                logits[name].append(lg.cpu().double())
+    finally:
+        torch.set_num_threads(threads)
+    exact = logits.pop("fp64")
+    base = f"CPU fp32 {threads} threads"
+    for t in range(4):
+        for name, out in logits.items():
+            d = out[t] - exact[t]
+            r_all = d.pow(2).mean().sqrt().item()
+            r_base = (logits[base][t] - exact[t]).pow(2).mean().sqrt().item()
+            log(f"[parity] {arch} ({cfg.n_layers} layers, {scale} scale) "
+                f"decode_step {t} {name:>20s}: from fp64 rms {r_all:.3e} "
+                f"({r_all / r_base:.2f} of the {base} run's); per slot "
+                + " ".join(f"{x:.2e}"
+                           for x in d.pow(2).mean(-1).sqrt().tolist()))
+    del p_gpu
+    free_card()
+    log(f"[parity] {arch} ({scale} scale) decode spread, logged not held, "
+        f"in {time.time() - t0:.1f} s")
 
 
 def ring_parity(p_gpu, p_cpu, cfg, rng, name: str, hold: bool,
@@ -1671,12 +1895,16 @@ def launch_counters():
 
 def phase_serve(arch: str) -> dict:
     """Serve ``arch`` at full width in bf16 and return the launches of its
-    main path, by kernel.  The weights are freed before returning."""
+    main path, by kernel.  The weights are drawn leaf by leaf in bf16 (one
+    fp32 leaf alive at a time) and freed before returning; the peak counts
+    the engine's transposed copy of the head (``head_t``)."""
     from repro_torch.config import RunConfig
     from repro_torch.configs import get_config
     from repro_torch.models import forward, init_model_params
     from repro_torch.serve import ServeEngine
-    cfg = get_config(arch)
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=SERVE_LAYERS.get(
+        arch, full.n_layers))
     rc = RunConfig(dtype="bfloat16")
     counters = launch_counters()
     t0 = time.time()
@@ -1685,7 +1913,8 @@ def phase_serve(arch: str) -> dict:
     # the peak counts serving from here on, not the fp32 temporaries of
     # the random draw
     torch.cuda.reset_peak_memory_stats()
-    log(f"[serve] {arch} full width ({cfg.n_layers} layers), bf16 weights "
+    log(f"[serve] {arch} full width ({cfg.n_layers} of {full.n_layers} "
+        f"layers), bf16 weights "
         f"drawn in {time.time() - t0:.1f} s, "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     rng = np.random.default_rng(SEED + 1)
@@ -1731,10 +1960,10 @@ def phase_serve(arch: str) -> dict:
         f"steps")
     del tok_eng
 
-    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (1, 512))).cuda()
+    inputs = {k: v.cuda() for k, v in model_inputs(cfg, rng, 1, 512).items()}
     before = {k: c.launches for k, c in counters.items()}
     t0 = time.time()
-    logits = forward(eng.params, {"tokens": toks}, cfg, eng.rc)
+    logits = forward(eng.params, inputs, cfg, eng.rc)
     torch.cuda.synchronize()
     fwd_s = time.time() - t0
     if logits.shape != (1, 512, cfg.vocab) or \
@@ -1755,6 +1984,59 @@ def phase_serve(arch: str) -> dict:
     log(f"[serve] {arch} first tokens: {done[rids[0]].generated}")
     profile_decode(eng.params, eng.cache, cfg, eng.rc, arch)
     del eng
+    free_card()
+    return counts
+
+
+def phase_encode(arch: str) -> dict:
+    """An encoder at full width and depth in bf16: its engine must refuse
+    it (no autoregressive decode, as the reference's refuses it), and one
+    ``forward`` over 512 frames is its main path, the launch counts set to
+    0 just before it and read just after; every kernel of the family's
+    path must have run.  Returns the launches by kernel."""
+    from repro_torch.config import RunConfig
+    from repro_torch.configs import get_config
+    from repro_torch.models import forward, init_model_params, prepare_params
+    from repro_torch.serve import ServeEngine
+    cfg = get_config(arch)
+    rc = RunConfig(dtype="bfloat16")
+    counters = launch_counters()
+    t0 = time.time()
+    params = init_model_params(SEED, cfg, dtype=torch.bfloat16, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    log(f"[serve] {arch} full width ({cfg.n_layers} layers), bf16 weights "
+        f"drawn in {time.time() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    try:
+        ServeEngine(params, cfg, rc, batch_slots=4, max_len=256)
+    except ValueError as e:
+        log(f"[serve] {arch}: the engine refuses it ({e})")
+    else:
+        raise AssertionError(f"{arch}: the engine accepted an encoder")
+    params = prepare_params(params, cfg, rc)
+    inputs = model_inputs(cfg, np.random.default_rng(SEED + 1), 1, 512)
+    inputs = {k: v.cuda() for k, v in inputs.items()}
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.time()
+    logits = forward(params, inputs, cfg, rc)
+    torch.cuda.synchronize()
+    fwd_s = time.time() - t0
+    counts = {k: c.launches for k, c in counters.items()}
+    if logits.shape != (1, 512, cfg.vocab) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{arch}: forward logits {tuple(logits.shape)} "
+                             f"not finite")
+    for name in PATH_KERNELS[cfg.family]:
+        if counts[name] <= 0:
+            raise AssertionError(f"{name} never launched on {arch}'s main "
+                                 f"path")
+    log(f"[serve] {arch} forward B=1 S=512 ({', '.join(sorted(inputs))}; "
+        f"non-causal): {fwd_s:.3f} s wall; launches on the main path "
+        f"{counts}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del params, logits, inputs
     free_card()
     return counts
 
@@ -1857,6 +2139,8 @@ def main() -> int:
         failures = []
         for arch, scale, hold in PARITY:
             phase_parity(arch, scale, hold, failures)
+        for arch, scale in SPREAD:
+            decode_spread(arch, scale)
         if failures:
             raise AssertionError("phase 3 failed:\n" + "\n".join(failures))
     launches = {}
@@ -1864,8 +2148,11 @@ def main() -> int:
         for arch in SERVED:
             for name, n in phase_serve(arch).items():
                 launches[name] = launches.get(name, 0) + n
-        log(f"[serve] launches over the {len(SERVED)} main paths: "
-            f"{launches}")
+        for arch in ENCODERS:
+            for name, n in phase_encode(arch).items():
+                launches[name] = launches.get(name, 0) + n
+        log(f"[serve] launches over the {len(SERVED) + len(ENCODERS)} main "
+            f"paths: {launches}")
     if "train" in phases:
         parts = args.train_parts.split(",")
         gen = torch.Generator(device="cuda").manual_seed(SEED + 5)

@@ -2,15 +2,15 @@
 variants.
 
 The port's own copy of ``repro.config`` (the JAX package's module of the
-same name): the dataclasses, ``SHAPES`` and :func:`resolve_run_config`
-behave exactly as there, resolving through the port's
+same name): the dataclasses, ``SHAPES``, :func:`resolve_run_config` and
+:func:`supported_shapes` behave exactly as there, resolving through the port's
 :mod:`repro_torch.core.policy`.  ``RunConfig.dtype`` names a torch dtype
 (see :func:`repro_torch.device.torch_dtype`)."""
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 from .core.policy import (ExecutionPolicy, OperatingPoint, PolicyTable,
                           default_table)
@@ -220,3 +220,15 @@ def resolve_run_config(rc: RunConfig, workload: str,
         op = table.resolve(workload, queue_latency=queue_latency,
                            traffic=traffic)
     return dataclasses.replace(rc, policy=op.policy), op
+
+
+def supported_shapes(cfg: ModelConfig) -> List[str]:
+    """Which of the four canonical shapes an architecture runs:
+    long_500k needs sub-quadratic attention; encoder-only archs have no
+    autoregressive decode."""
+    out = ["train_4k", "prefill_32k"]
+    if cfg.causal:
+        out.append("decode_32k")
+        if cfg.family in ("ssm", "hybrid"):
+            out.append("long_500k")
+    return out

@@ -9,6 +9,12 @@ the card unless ``--device cpu`` is given.
       --reduced --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-2b
   PYTHONPATH=src python -m repro_torch.launch.serve --arch minicpm3-4b
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch pixtral-12b \
+      --reduced --device cpu
+
+``--arch`` takes every architecture of the registry; pixtral-12b decodes
+tokens (its patches enter only a full-sequence ``forward``, as in the
+reference) and hubert-xlarge, an encoder, exits: it has no decode.
 
 Weights are random, drawn from ``--seed``; prompts come from a numpy
 generator seeded with ``--seed + 1``.

@@ -21,8 +21,10 @@ recurrentgemma-2b fit one 80 GB card at full depth, olmoe-1b-7b and
 falcon-mamba-7b with ``--layers`` cut (falcon-mamba-7b at 32 of 64).
 
 Weights are random, drawn from ``--seed``; batches come from the seeded
-synthetic stream.  Checkpoints go to ``--ckpt-dir`` (default: a directory
-under the system's temporary directory).
+synthetic stream, which gives tokens and labels only, as the reference's
+does: pixtral-12b (patches) and hubert-xlarge (frames) exit with an error
+that names the input the stream lacks.  Checkpoints go to ``--ckpt-dir``
+(default: a directory under the system's temporary directory).
 """
 import argparse
 import dataclasses
@@ -34,7 +36,7 @@ from ..config import RunConfig, ShapeConfig
 from ..configs import ARCHS, get_config, get_reduced
 from ..core.policy import ExecutionPolicy, default_table
 from ..device import resolve_device
-from ..models import init_model_params
+from ..models import init_model_params, input_specs
 from ..runtime import FaultTolerantTrainer
 
 
@@ -86,6 +88,11 @@ def main() -> None:
                    total_steps=args.steps, microbatch=args.microbatch,
                    seed=args.seed)
     shape = ShapeConfig("cli", args.seq, args.batch, "train")
+    lacking = sorted(set(input_specs(cfg, shape, rc)) - {"tokens", "labels"})
+    if lacking:
+        raise SystemExit(f"{cfg.name} trains on {lacking}, which the "
+                         f"synthetic stream (tokens and labels) does not "
+                         f"give")
 
     n = cfg.n_params()
     print(f"arch={cfg.name} params={n/1e6:.1f}M layers={cfg.n_layers} "

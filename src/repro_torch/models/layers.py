@@ -46,10 +46,12 @@ def _init_leaf(gen: torch.Generator, spec: ParamSpec, dtype: torch.dtype,
         return torch.ones(spec.shape, dtype=dtype, device=device)
     z = torch.randn(spec.shape, generator=gen, dtype=torch.float32,
                     device=device)
+    # scaled in place: the largest leaves (a 256000 x 18432 embedding) are
+    # tens of GB in fp32
     if spec.init == "embed":
-        return (z * spec.scale).to(dtype)
+        return z.mul_(spec.scale).to(dtype)
     fan_in = spec.shape[0] if len(spec.shape) > 1 else 1
-    return (z * (spec.scale / math.sqrt(max(fan_in, 1)))).to(dtype)
+    return z.mul_(spec.scale / math.sqrt(max(fan_in, 1))).to(dtype)
 
 
 def init_params(gen: torch.Generator, tree: Pytree,

@@ -1,6 +1,8 @@
-"""Model assembly for the dense (GQA or MLA), MoE, SSM and hybrid
-families: parameter trees, forward pass, KV, latent and state caches,
-decode step and chunked prefill.
+"""Model assembly for every family of the registry: dense (GQA or MLA),
+MoE, SSM, hybrid, and the dense stack behind a vision frontend (vlm) or
+an audio one: parameter trees, forward pass, KV, latent and state caches,
+decode step and chunked prefill, and the shapes of every parameter and
+input (:func:`param_shapes`, :func:`input_specs`).
 
 Parameters and caches keep the JAX package's pytree layout — nested dicts,
 per-layer leaves stacked on axis 0, batch on axis 1 of every stacked cache
@@ -16,7 +18,11 @@ macro block stacked over ``n_full`` under ``"macros"`` and the unstacked
 tail layers as ``tail_{j}_{kind}``.  An MLA model (minicpm3) runs its
 attention expanded in ``forward`` (through ``flash_attention`` with a v
 head dim below q's) and absorbed in decode, over a cache of latent and
-rope-key rows.
+rope-key rows.  The frontends are stubs, as in the reference: the vision
+family (pixtral) takes precomputed patch embeddings in place of its first
+``n_frontend_tokens`` token embeddings, the audio family (hubert, an
+encoder: ``causal=False``) precomputed frame embeddings in place of
+tokens (:func:`embed_inputs`); decode embeds tokens only, as there.
 
 ``forward`` honours ``rc.remat`` as the reference's ``_stack_scan`` does
 with ``jax.checkpoint``: when a gradient is taken (grad mode on and a
@@ -36,9 +42,6 @@ numbers:
   (``head_t``, (d, vocab)) so the logits are one ``x @ head_t``;
 * :func:`decode_step` and :func:`prefill_step` update the cache in place
   and return the same dict.
-
-The vision and audio frontends raise ``NotImplementedError``: they come
-with their families in a later slice.
 """
 from __future__ import annotations
 
@@ -48,7 +51,7 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ..config import ModelConfig, RunConfig
+from ..config import ModelConfig, RunConfig, ShapeConfig
 from ..device import (DeviceLike, resolve_device, torch_dtype, upcast,
                       wide_dtype)
 from . import attention as attn
@@ -62,15 +65,15 @@ Pytree = Any
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    ported = ((cfg.family == "dense" and not cfg.moe)
-              or (cfg.family == "moe" and cfg.moe is not None)
-              or (cfg.family == "ssm" and cfg.ssm is not None)
-              or (cfg.family == "hybrid" and cfg.rglru is not None))
-    if not ported or cfg.frontend:
+    """The family must name the layer stack its config carries (vlm and
+    audio run the dense one), and a frontend be vision or audio."""
+    stack = ("moe" if cfg.moe else "ssm" if cfg.ssm else
+             "hybrid" if cfg.rglru else "dense")
+    want = "dense" if cfg.family in ("vlm", "audio") else cfg.family
+    if stack != want or cfg.frontend not in (None, "vision", "audio"):
         raise NotImplementedError(
-            f"{cfg.name}: the port serves the dense (GQA or MLA), MoE, SSM "
-            f"and hybrid families so far; family={cfg.family!r} "
-            f"(frontend={cfg.frontend!r}) comes in a later slice")
+            f"{cfg.name}: family={cfg.family!r} over a {stack} stack with "
+            f"frontend={cfg.frontend!r} is no architecture of the registry")
 
 
 # ---------------------------------------------------------------------------
@@ -141,6 +144,14 @@ def param_specs(cfg: ModelConfig) -> Pytree:
         block = _dense_block_specs(cfg)
     tree["blocks"] = _stack_specs(block, cfg.n_layers)
     return tree
+
+
+def param_shapes(cfg: ModelConfig, dtype) -> Pytree:
+    """The parameter tree as ``(shape, torch dtype)`` pairs (the convention
+    of :func:`cache_spec`), every leaf in ``dtype``; nothing is
+    allocated."""
+    dt = torch_dtype(dtype)
+    return tree_map(lambda s: (s.shape, dt), param_specs(cfg))
 
 
 def init_model_params(gen: "torch.Generator | int", cfg: ModelConfig,
@@ -231,9 +242,18 @@ def _window(cfg: ModelConfig) -> Optional[int]:
 
 def embed_inputs(params: Pytree, batch: Dict[str, torch.Tensor],
                  cfg: ModelConfig, dtype: torch.dtype) -> torch.Tensor:
-    """Token embeddings (the vision and audio frontends come with their
-    families)."""
-    return params["embed"][batch["tokens"]].to(dtype)
+    """The first layer's input: the audio frontend's ``frames`` (B, S, d)
+    as given; else the token embeddings, the vision frontend's ``patches``
+    (B, n_frontend_tokens, d) in front of those of positions
+    ``n_frontend_tokens`` on.  As in the reference, S is neither cut nor
+    padded: at S <= n_frontend_tokens the result has the patches' rows."""
+    if cfg.frontend == "audio":
+        return batch["frames"].to(dtype)
+    x = params["embed"][batch["tokens"]].to(dtype)
+    if cfg.frontend == "vision":
+        n = cfg.n_frontend_tokens
+        x = torch.cat([batch["patches"].to(dtype), x[:, n:]], dim=1)
+    return x
 
 
 def _dense_block_apply(p, x, cfg: ModelConfig, rc: RunConfig,
@@ -498,3 +518,32 @@ def prefill_step(params: Pytree, cache: Pytree,
         cache["len"] = _merge_masked(active, cache["len"] + 1, cache["len"])
         logits = torch.where(active[:, None], step_logits, logits)
     return logits, cache
+
+
+# ---------------------------------------------------------------------------
+# the inputs of every (arch x shape) cell
+# ---------------------------------------------------------------------------
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig,
+                rc: RunConfig) -> Dict[str, Any]:
+    """Shape and dtype of every model input of a cell, as ``(shape, torch
+    dtype)`` pairs (the convention of :func:`cache_spec`); nothing is
+    allocated.  Decode takes a token per sequence and the cache; the other
+    modes tokens (with the vision frontend's patches) or the audio
+    frontend's frames, and training the labels."""
+    B, S = shape.global_batch, shape.seq_len
+    dtype = torch_dtype(rc.dtype)
+    if shape.mode == "decode":
+        return {"tokens": ((B, 1), torch.int32),
+                "cache": cache_spec(cfg, B, S, dtype)}
+    batch: Dict[str, Any] = {}
+    if cfg.frontend == "audio":
+        batch["frames"] = ((B, S, cfg.d_model), dtype)
+    else:
+        batch["tokens"] = ((B, S), torch.int32)
+        if cfg.frontend == "vision":
+            batch["patches"] = ((B, cfg.n_frontend_tokens, cfg.d_model),
+                                dtype)
+    if shape.mode == "train":
+        batch["labels"] = ((B, S), torch.int32)
+    return batch

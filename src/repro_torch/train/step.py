@@ -20,10 +20,10 @@ import torch.nn.functional as F
 
 from ..config import ModelConfig, RunConfig, ShapeConfig, resolve_run_config
 from ..core.policy import OperatingPoint, PolicyTable
-from ..device import DeviceLike, resolve_device, upcast
+from ..device import DeviceLike, resolve_device, upcast, wide_dtype
 from ..distributed.compression import compress_grads
 from ..models.layers import tree_leaves, tree_map, tree_unflatten
-from ..models.model import forward
+from ..models.model import forward, input_specs
 from ..optim import OptState, adamw_update
 
 Pytree = Any
@@ -58,9 +58,11 @@ def _value_and_grad(params, batch, cfg, rc):
         finally:
             for p in ps:
                 p.requires_grad_(False)
-    # contiguous, as the optimizer walks every leaf in flat chunks
-    grads = [torch.zeros_like(p) if g is None else g.contiguous()
-             for p, g in zip(ps, grads)]
+    # contiguous, as the optimizer walks every leaf in flat chunks; a leaf
+    # the loss never reads (hubert's embed) gets the zeros JAX gives it, in
+    # the wide dtype, so AdamW still decays it
+    grads = [torch.zeros(p.shape, dtype=wide_dtype(p.dtype), device=p.device)
+             if g is None else g.contiguous() for p, g in zip(ps, grads)]
     return ({k: v.detach() for k, v in metrics.items()},
             tree_unflatten(params, grads))
 
@@ -122,18 +124,26 @@ def make_train_step(cfg: ModelConfig, shape: ShapeConfig, rc: RunConfig,
     ``device`` (``None`` = the card) for batches of ``shape``: the
     ``"train"`` workload's execution policy resolves once, here, through
     :func:`resolve_run_config` (pinned by ``operating_point`` when given);
-    numpy batches are moved to the device.  The step's ``cfg``, ``rc``
+    numpy batches are moved to the device.  A batch must hold every input
+    :func:`input_specs` names for the shape (tokens, or the audio
+    frontend's frames; the vision frontend's patches; labels), its labels
+    of the shape's (global_batch, seq_len).  The step's ``cfg``, ``rc``
     (resolved) and ``operating_point`` attributes say what it runs."""
     rc, op = resolve_run_config(rc, "train", operating_point, policy_table)
     dev = resolve_device(device)
+    needs = sorted(input_specs(cfg, shape, rc))
 
     def step(params, opt, batch):
+        missing = [k for k in needs if k not in batch]
+        if missing:
+            raise KeyError(f"{cfg.name} trains on {needs}; the batch has "
+                           f"no {missing}")
         batch = {k: (torch.from_numpy(np.asarray(v)) if not
                      isinstance(v, torch.Tensor) else v).to(dev)
                  for k, v in batch.items()}
-        if batch["tokens"].shape != (shape.global_batch, shape.seq_len):
-            raise ValueError(f"batch of {tuple(batch['tokens'].shape)} "
-                             f"tokens for a step of shape "
+        if batch["labels"].shape != (shape.global_batch, shape.seq_len):
+            raise ValueError(f"batch of {tuple(batch['labels'].shape)} "
+                             f"label tokens for a step of shape "
                              f"({shape.global_batch}, {shape.seq_len})")
         return train_step(params, opt, batch, cfg, rc)
 

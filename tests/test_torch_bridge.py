@@ -23,7 +23,8 @@ from repro_torch.models import init_cache, init_model_params, param_specs
 from repro_torch.models.layers import ParamSpec
 
 ARCHS = ["phi3-mini-3.8b", "glm4-9b", "olmoe-1b-7b", "granite-moe-3b-a800m",
-         "falcon-mamba-7b", "recurrentgemma-2b", "minicpm3-4b"]
+         "falcon-mamba-7b", "recurrentgemma-2b", "minicpm3-4b",
+         "nemotron-4-340b", "pixtral-12b", "hubert-xlarge"]
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 

@@ -26,7 +26,11 @@ expert's dW exact zeros); the autograd Functions run the kernels in their
 backward; ``moe_apply``'s gradients keep their bits with the expert mask,
 and remat's recomputed router picks the same experts; a train step on the
 card agrees with the CPU's for every family (loss 2e-3, weights after one
-AdamW step within 3 lr)."""
+AdamW step within 3 lr).  The registry's largest shapes: nemotron-4-340b's
+head (a weight past 2^32 elements) and K = 73728 product over whole
+outputs, attention and its backward at head dims 80 (non-causal) and
+192, and a full-width hubert-xlarge step that decays its unread
+embedding alone."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -876,3 +880,83 @@ def test_train_step_on_the_card_matches_the_cpu_for_every_family(card,
     assert abs(out["cuda"][0] - out["cpu"][0]) <= 2e-3
     for a, b in zip(out["cuda"][1], out["cpu"][1]):
         assert float((a - b).abs().max()) <= 3 * rc.lr
+
+
+# --- the registry's largest shapes and the frontends ------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n", [(4, 18432, 256000), (4, 73728, 18432),
+                                   (512, 73728, 18432)])
+def test_queue_matmul_at_nemotron_shapes(card, m, k, n, dtype):
+    """nemotron-4-340b's head (a 18432 x 256000 weight: 4.72e9 elements,
+    past 2^32, so an index or byte offset kept in 32 bits would wrap from
+    row 8389 on) and its ffn wo (K = 73728, the deepest sum of the
+    registry) against the plain version over the whole output."""
+    x = torch.randn((m, k), generator=card, device="cuda").to(dtype)
+    w = torch.randn((k, n), generator=card, device="cuda")
+    w = w.mul_(k ** -0.5).to(dtype)
+    before = queue_matmul.launches
+    out = queue_matmul(x, w)
+    torch.cuda.synchronize()
+    assert queue_matmul.launches == before + 1
+    ref = matmul_ref(x, w)
+    _close(out, ref.to(dtype), TOL[dtype])
+    del w, ref
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hq,hkv,s,d,causal", [
+    (2, 16, 16, 256, 80, False),       # hubert's heads, both ways
+    (1, 12, 2, 200, 192, True),        # nemotron's head dim, GQA
+    (1, 8, 8, 130, 192, False)])
+def test_flash_attention_and_backward_at_new_head_dims(card, b, hq, hkv, s,
+                                                       d, causal, dtype):
+    """The forward kernel and ``flash_attention_bwd`` at head dim 80
+    without a causal mask (hubert) and at 192 (nemotron, which no case
+    compiles in: the generic 256-wide code), against their plain
+    versions."""
+    def rnd(*shape):
+        return torch.randn(shape, generator=card, device="cuda").to(dtype)
+    q, k, v, do = rnd(b, hq, s, d), rnd(b, hkv, s, d), rnd(b, hkv, s, d), \
+        rnd(b, hq, s, d)
+    _close(flash_attention(q, k, v, causal=causal),
+           _plain(q, k, v, causal, None, 0), TOL[dtype])
+    o, lse = fa_ops._launch(q, k, v, causal, None, 0, with_lse=True)
+    got = flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    ref = fa_ops._plain_bwd(q, k, v, o, lse, do, causal, None)
+    torch.cuda.synchronize()
+    for x, r in zip(got, ref):
+        _close(x, r, TOL[dtype])
+
+
+def test_hubert_training_step_decays_the_unread_embedding(card):
+    """hubert-xlarge at full width, 2 layers, bf16 with remat: one AdamW
+    step on frames.  Its loss never reads ``embed``, so the step moves it
+    by the weight decay alone (p (1 - lr wd), its moments zero), while
+    every other leaf moves with its gradient."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.optim import init_opt_state
+    from repro_torch.train import train_step
+    cfg = dataclasses.replace(get_config("hubert-xlarge"), n_layers=2)
+    rc = RunConfig(dtype="bfloat16", remat=True, lr=1e-3, warmup_steps=1)
+    p = init_model_params(5, cfg, device="cuda")
+    before = tree_map(lambda a: a.clone(), p)
+    rng = np.random.default_rng(7)
+    batch = {"frames": torch.from_numpy((rng.standard_normal(
+                 (2, 256, cfg.d_model)) * 0.1).astype(np.float32)).cuda(),
+             "labels": torch.from_numpy(rng.integers(
+                 0, cfg.vocab, (2, 256))).cuda()}
+    launches = flash_attention_bwd.launches
+    p, opt, m = train_step(p, init_opt_state(p), batch, cfg, rc)
+    torch.cuda.synchronize()
+    assert np.isfinite(float(m["loss"]))
+    assert flash_attention_bwd.launches == launches + cfg.n_layers
+    assert torch.count_nonzero(opt.mu["embed"]) == 0
+    decayed = before["embed"] * (1 - float(m["lr"]) * rc.weight_decay)
+    torch.testing.assert_close(p["embed"], decayed, rtol=1e-6, atol=0)
+    assert not torch.equal(p["embed"], before["embed"])
+    assert not torch.equal(p["head"], before["head"])
+    assert not torch.equal(p["blocks"]["attn"]["wq"],
+                           before["blocks"]["attn"]["wq"])

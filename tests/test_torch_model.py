@@ -3,7 +3,10 @@ in fp32, for the dense family (phi3-mini-smoke, glm4-smoke with GQA 8 over
 2), the MoE family (olmoe-smoke, granite-moe-smoke with GQA 4 over 2), the
 SSM family (falcon-mamba-smoke), the hybrid family
 (recurrentgemma-smoke: one (rec, rec, attn) macro block and a (rec, rec)
-tail, local window 16) and MLA (minicpm3-smoke: q/k head dim 12, v 8):
+tail, local window 16), MLA (minicpm3-smoke: q/k head dim 12, v 8), the
+squared-ReLU FFN (nemotron-smoke), the vision frontend (pixtral-smoke,
+whose ``forward`` takes 8 patch rows and whose decode takes tokens) and
+the audio encoder (hubert-smoke, ``forward`` on frames only):
 ``forward``, ``decode_step`` over several steps at
 mixed per-slot lengths (and, for the hybrid, past its window, where the
 K/V ring wraps), and ``prefill_step`` on a mixed-phase batch.  Tolerance 2e-3, the reference's own for logits
@@ -32,8 +35,14 @@ from repro_torch.models import (decode_step, forward, init_cache,
                                 init_model_params, prefill_step,
                                 prepare_params)
 
+#: the decoders; pixtral's decode embeds tokens only, as the reference's
 ARCHS = ["phi3-mini-3.8b", "glm4-9b", "olmoe-1b-7b", "granite-moe-3b-a800m",
-         "falcon-mamba-7b", "recurrentgemma-2b", "minicpm3-4b"]
+         "falcon-mamba-7b", "recurrentgemma-2b", "minicpm3-4b",
+         "nemotron-4-340b", "pixtral-12b"]
+#: ``forward`` also runs the encoder over its frames
+FORWARD_ARCHS = ARCHS + ["hubert-xlarge"]
+#: the decoders without a frontend, whose decode reproduces ``forward``
+TOKEN_ARCHS = [a for a in ARCHS if not jax_reduced(a).frontend]
 HYBRID = "recurrentgemma-2b"
 MOE_ARCHS = ["olmoe-1b-7b", "granite-moe-3b-a800m"]
 JRC_ = JRC(dtype="float32", remat=False)
@@ -59,22 +68,42 @@ def _assert_cache_close(cache_j, cache_t):
             np.testing.assert_allclose(cache_t[k].numpy(), v, **TOL)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+def _inputs(cfg, toks):
+    """numpy inputs of ``forward``: the tokens, with the vision frontend's
+    patches, or the audio frontend's frames in their place (0.1 of a
+    seeded normal draw, as tests/test_models.py's ``_batch``)."""
+    rng = np.random.default_rng(1)
+    B, S = toks.shape
+    if cfg.frontend == "audio":
+        return {"frames": (rng.standard_normal((B, S, cfg.d_model))
+                           * 0.1).astype(np.float32)}
+    out = {"tokens": toks}
+    if cfg.frontend == "vision":
+        out["patches"] = (rng.standard_normal(
+            (B, cfg.n_frontend_tokens, cfg.d_model)) * 0.1).astype(np.float32)
+    return out
+
+
+@pytest.mark.parametrize("arch", FORWARD_ARCHS)
 def test_forward_matches_reference(arch):
     cfg_j, cfg_t, pj, pt = _setup(arch)
     toks = np.random.default_rng(0).integers(0, cfg_j.vocab, (2, 24))
-    ref = jax_forward(pj, {"tokens": jnp.asarray(toks, jnp.int32)}, cfg_j,
-                      JRC_)
-    out = forward(pt, {"tokens": torch.from_numpy(toks)}, cfg_t, RC)
+    inputs = _inputs(cfg_t, toks)
+    ref = jax_forward(pj, {k: jnp.asarray(v, jnp.int32 if k == "tokens"
+                                          else None)
+                           for k, v in inputs.items()}, cfg_j, JRC_)
+    out = forward(pt, {k: torch.from_numpy(v) for k, v in inputs.items()},
+                  cfg_t, RC)
     assert out.shape == (2, 24, cfg_t.vocab) and out.dtype == torch.float32
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
     # prepared weights (cast once, head held transposed) give the same
     again = forward(prepare_params(pt, cfg_t, RC),
-                    {"tokens": torch.from_numpy(toks)}, cfg_t, RC)
+                    {k: torch.from_numpy(v) for k, v in inputs.items()},
+                    cfg_t, RC)
     assert torch.equal(again, out)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", TOKEN_ARCHS)
 def test_float64_run_stays_float64_and_matches_reference(arch):
     """``dtype="float64"`` (the CPU witness ``chip_smoke.py`` holds fp32
     against): forward logits, decode logits and every cache leaf stay
@@ -225,15 +254,3 @@ def test_hybrid_chunked_prefill_is_bit_exact_past_the_window():
     assert torch.equal(out[8][0], out[1][0])
     for k in out[8][1]:
         assert torch.equal(out[8][1][k], out[1][1][k]), k
-
-
-@pytest.mark.parametrize("family,frontend", [("vlm", "vision"),
-                                             ("audio", "audio")])
-def test_other_families_are_not_ported_yet(family, frontend):
-    """The frontends (pixtral's vision, hubert's audio) come in a later
-    slice."""
-    import dataclasses
-    cfg = dataclasses.replace(get_reduced("phi3-mini-3.8b"), family=family,
-                              frontend=frontend, n_frontend_tokens=8)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        init_model_params(0, cfg, device="cpu")

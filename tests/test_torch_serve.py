@@ -92,9 +92,11 @@ def test_port_engine_matches_jax_engine(prefill):
 
 
 @pytest.mark.parametrize("arch", ["olmoe-1b-7b", "falcon-mamba-7b",
-                                  "recurrentgemma-2b", "minicpm3-4b"])
+                                  "recurrentgemma-2b", "minicpm3-4b",
+                                  "nemotron-4-340b", "pixtral-12b"])
 def test_port_engine_matches_jax_engine_on_moe_and_ssm(arch):
-    """The MoE, SSM, hybrid and MLA families through the chunked-prefill
+    """The MoE, SSM, hybrid and MLA families, the squared-ReLU FFN and the
+    vision model (which decodes tokens) through the chunked-prefill
     engine."""
     _engine_parity(arch, "chunked")
 
@@ -309,7 +311,8 @@ def test_launcher_serves_on_the_cpu_when_asked(monkeypatch, capsys):
 
 @pytest.mark.parametrize("arch", ["olmoe-1b-7b", "granite-moe-3b-a800m",
                                   "falcon-mamba-7b", "recurrentgemma-2b",
-                                  "minicpm3-4b"])
+                                  "minicpm3-4b", "nemotron-4-340b",
+                                  "pixtral-12b"])
 def test_launcher_serves_moe_and_ssm_on_the_cpu(monkeypatch, capsys, arch):
     from repro_torch.launch import serve as launch
     monkeypatch.setattr(sys, "argv", [
@@ -318,3 +321,13 @@ def test_launcher_serves_moe_and_ssm_on_the_cpu(monkeypatch, capsys, arch):
     launch.main()
     out = capsys.readouterr().out
     assert "served 3 requests, 6 tokens" in out and "on cpu" in out
+
+
+def test_launcher_refuses_the_encoder(monkeypatch):
+    """hubert-xlarge has no decode: the launcher exits, as the
+    reference's does."""
+    from repro_torch.launch import serve as launch
+    monkeypatch.setattr(sys, "argv", [
+        "serve", "--arch", "hubert-xlarge", "--reduced", "--device", "cpu"])
+    with pytest.raises(SystemExit, match="encoder-only"):
+        launch.main()

@@ -1,6 +1,7 @@
 """The PyTorch port's training path against the JAX package's, on the CPU
 at reduced sizes, fp32: the loss and every gradient leaf of
-``train.step.loss_fn`` for every reduced family (remat on and off), three
+``train.step.loss_fn`` for every reduced architecture (remat on and off;
+the frontends with their patches or frames), three
 ``train_step``s, microbatch accumulation, the data stream, the
 fault-tolerant driver and the launcher.
 
@@ -40,13 +41,15 @@ from repro_torch import bridge
 from repro_torch.config import RunConfig, ShapeConfig, resolve_run_config
 from repro_torch.configs import get_reduced
 from repro_torch.data import PrefetchLoader, SyntheticLMStream
+from repro_torch.models import init_model_params
 from repro_torch.optim import init_opt_state
 from repro_torch.runtime import FaultTolerantTrainer, InjectedFault
 from repro_torch.train import loss_fn, make_train_step, train_step
 from repro_torch.train.step import _grads
 
 ARCHS = ["phi3-mini-3.8b", "glm4-9b", "minicpm3-4b", "olmoe-1b-7b",
-         "granite-moe-3b-a800m", "falcon-mamba-7b", "recurrentgemma-2b"]
+         "granite-moe-3b-a800m", "falcon-mamba-7b", "recurrentgemma-2b",
+         "nemotron-4-340b", "pixtral-12b", "hubert-xlarge"]
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -64,6 +67,25 @@ def _batch(vocab, B=2, S=16, seed=5, step=0):
     b = JaxStream(vocab, S, B, seed=seed).batch_at(step)
     return ({k: jnp.asarray(v) for k, v in b.items()},
             {k: torch.from_numpy(v) for k, v in b.items()})
+
+
+def _with_frontend(cfg, bj, bt, seed=8):
+    """The stream's batch with the frontend's inputs, as the reference's
+    tests/test_models.py ``_batch`` makes them (0.1 of a normal draw,
+    here from numpy): pixtral's patches beside the tokens, hubert's
+    frames in their place."""
+    if not cfg.frontend:
+        return bj, bt
+    rng = np.random.default_rng(seed)
+    B, S = bt["labels"].shape
+    if cfg.frontend == "audio":
+        key, shape = "frames", (B, S, cfg.d_model)
+        bj = {"labels": bj["labels"]}
+        bt = {"labels": bt["labels"]}
+    else:
+        key, shape = "patches", (B, cfg.n_frontend_tokens, cfg.d_model)
+    x = (rng.standard_normal(shape) * 0.1).astype(np.float32)
+    return {**bj, key: jnp.asarray(x)}, {**bt, key: torch.from_numpy(x)}
 
 
 def _assert_tree_close(got, ref, rtol=2e-3, scale=2e-3, path=""):
@@ -89,7 +111,7 @@ def _reference_grads(arch):
     recomputes), once per test process."""
     if arch not in _REF_GRADS:
         cfg_j, _, pj, _ = _setup(arch)
-        bj, _ = _batch(cfg_j.vocab)
+        bj, _ = _with_frontend(cfg_j, *_batch(cfg_j.vocab))
         (loss, _), g = jax.value_and_grad(jax_loss_fn, has_aux=True)(
             pj, bj, cfg_j, JRC(dtype="float32", remat=False))
         _REF_GRADS[arch] = (float(loss), _np(g))
@@ -101,10 +123,12 @@ def _reference_grads(arch):
 def test_loss_and_gradients_match_reference(arch, remat):
     """``loss_fn``'s value and the gradient of every parameter leaf, with
     the port's forward under ``torch.utils.checkpoint`` (remat) or not,
-    against ``jax.value_and_grad`` of the reference's ``loss_fn``."""
+    against ``jax.value_and_grad`` of the reference's ``loss_fn``; with
+    the frontends' patches or frames, and hubert's ``embed``, which its
+    loss never reads, all zeros as JAX's."""
     ref_loss, ref_g = _reference_grads(arch)
     _, cfg_t, _, pt = _setup(arch)
-    _, bt = _batch(cfg_t.vocab)
+    _, bt = _with_frontend(cfg_t, *_batch(cfg_t.vocab))
     g, metrics = _grads(pt, bt, cfg_t, RunConfig(dtype="float32",
                                                  remat=remat))
     assert abs(float(metrics["loss"]) - ref_loss) <= 2e-5
@@ -243,6 +267,24 @@ def test_make_train_step_resolves_the_train_workload():
         step(params, opt, SyntheticLMStream(cfg.vocab, 8, 2).batch_at(0))
 
 
+def test_make_train_step_names_a_missing_frontend_input():
+    """pixtral's step trains on patches too: a batch without them raises
+    a KeyError naming them (the reference's step fails on the same key);
+    with them it takes a finite step."""
+    cfg = get_reduced("pixtral-12b")
+    shape = ShapeConfig("t", 16, 2, "train")
+    step = make_train_step(cfg, shape, RunConfig(dtype="float32"),
+                           device="cpu")
+    params = init_model_params(0, cfg, device="cpu")
+    batch = SyntheticLMStream(cfg.vocab, 16, 2).batch_at(0)
+    with pytest.raises(KeyError, match="patches"):
+        step(params, init_opt_state(params), batch)
+    batch["patches"] = (np.random.default_rng(0).standard_normal(
+        (2, cfg.n_frontend_tokens, cfg.d_model)) * 0.1).astype(np.float32)
+    _, opt, m = step(params, init_opt_state(params), batch)
+    assert int(opt.step) == 1 and np.isfinite(float(m["loss"]))
+
+
 # --- data -------------------------------------------------------------------
 
 @pytest.mark.parametrize("seed,dp_rank,dp_size", [(0, 0, 1), (7, 0, 2),
@@ -333,6 +375,21 @@ def test_launch_train_reduced_on_the_cpu(tmp_path, arch, name, flags):
     assert out[2].startswith("finished 4 steps in")
     assert out[3].startswith("loss: first~")
     assert "step_00000004" in os.listdir(tmp_path)
+
+
+@pytest.mark.parametrize("arch,missing", [("pixtral-12b", "patches"),
+                                          ("hubert-xlarge", "frames")])
+def test_launch_train_names_the_input_the_stream_lacks(arch, missing):
+    """The synthetic stream gives tokens and labels only, as the
+    reference's: the launcher exits before it draws a weight, naming the
+    frontend's input."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch", arch,
+         "--reduced", "--device", "cpu", "--steps", "2"],
+        capture_output=True, text=True, env=env, timeout=300)
+    assert out.returncode != 0 and missing in out.stderr
+    assert "params=" not in out.stdout
 
 
 def test_loss_fn_metrics():
