@@ -64,6 +64,20 @@ prints no result):
    have run.  Then a profile of a
    decode body: launches, kernel time by kernel, the device's idle share,
    and for olmoe the experts each layer's mask keeps.
+4b. policy — the serve path on a calibrated operating point: the port's
+   machine model calibrates a smoke grid on the host (``POLICY_CALIBRATION``,
+   in-process), ``REPRO_CALIBRATION_DIR`` points at the artifacts, and the
+   ``queue_matmul`` depth the table resolves must leave the default 4;
+   phi3-mini-3.8b at full width and depth in bf16 is served again with phase
+   4's slots, prompts and seed in measured-traffic mode: the same tokens as
+   phase 4, every retarget and the report on calibrated points, each traffic
+   level charged what ``StepCostModel.from_operating_point`` gives for its
+   point, every ``queue_matmul`` launch at the calibrated depths (its own
+   main path); then its wall and tokens/s, a profile of its decode body
+   (kernel time and idle share at the calibrated depths), and
+   ``repro_torch.examples.copiftv2_demo``'s depth-1 against
+   depth-4 products (equal bits), each line with the card's name and power
+   limit.
 5. train   — the training path (``--train-parts`` picks among a-d):
    (a) each backward against its plain backward on the same inputs, fp32
    and bf16, equal to itself across two calls, timed with its bound and
@@ -107,7 +121,7 @@ import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("build", "kernels", "parity", "serve", "train")
+PHASES = ("build", "kernels", "parity", "serve", "policy", "train")
 TRAIN_PARTS = ("a", "b", "c", "d")
 HBM_BYTES_PER_S = 3.35e12                 # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12,     # dense tensor-core bf16
@@ -1893,6 +1907,20 @@ def launch_counters():
             "rglru_scan": rglru_scan, "rglru_scan_bwd": rglru_scan_bwd}
 
 
+#: phase 4's engine: slots, cache length and prefill chunk
+SERVE_ENGINE = dict(batch_slots=4, max_len=256, prefill_chunk=8)
+#: phase 4's tokens by model, one list per request, for the policy phase
+SERVED_TOKENS = {}
+
+
+def serve_prompts(cfg, rng) -> list:
+    """Phase 4's 6 requests: 16-64 prompt tokens each, drawn from ``rng``
+    (``SEED`` + 1)."""
+    return [[int(t) for t in rng.integers(0, cfg.vocab,
+                                          int(rng.integers(16, 65)))]
+            for _ in range(6)]
+
+
 def phase_serve(arch: str) -> dict:
     """Serve ``arch`` at full width in bf16 and return the launches of its
     main path, by kernel.  The weights are drawn leaf by leaf in bf16 (one
@@ -1918,14 +1946,11 @@ def phase_serve(arch: str) -> dict:
         f"drawn in {time.time() - t0:.1f} s, "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     rng = np.random.default_rng(SEED + 1)
-    prompts = [[int(t) for t in rng.integers(0, cfg.vocab,
-                                             int(rng.integers(16, 65)))]
-               for _ in range(6)]
+    prompts = serve_prompts(cfg, rng)
 
     for c in counters.values():
         c.launches = 0
-    eng = ServeEngine(params, cfg, rc, batch_slots=4, max_len=256,
-                      prefill_chunk=8)
+    eng = ServeEngine(params, cfg, rc, **SERVE_ENGINE)
     del params
     rids = [eng.submit(p, max_new=16) for p in prompts]
     t0 = time.time()
@@ -1937,6 +1962,7 @@ def phase_serve(arch: str) -> dict:
     n_tok = sum(len(r.generated) for r in done.values())
     if n_tok != 16 * len(rids):
         raise AssertionError(f"{n_tok} tokens generated, want {16 * len(rids)}")
+    SERVED_TOKENS[arch] = [done[r].generated for r in rids]
     log(f"[serve] {arch} chunked prefill: {len(done)} requests, {n_tok} "
         f"tokens in {wall:.2f} s wall = {n_tok / wall:.2f} tok/s; "
         f"{eng._n_steps} steps; launches "
@@ -2095,6 +2121,206 @@ def profile_decode(params, cache, cfg, rc, arch: str, n: int = 5) -> None:
         log(f"[profile]   {v:8.3f} ms  {k[:90]}")
 
 
+# ---------------------------------------------------------------------------
+# policy: the calibrated operating point on the serve path
+# ---------------------------------------------------------------------------
+
+#: the policy phase's model and its calibration: the smoke grid of the
+#: port's ``explore calibrate`` (two kernels, queue depths 1 and 2,
+#: latency 1, unrolls 4 and 8, 16 samples), in-process on the host
+POLICY_ARCH = "phi3-mini-3.8b"
+POLICY_CALIBRATION = dict(kernels=["dequant_dot", "expf"], grid_kw=dict(
+    queue_depths=(1, 2), queue_latencies=(1,), unrolls=(4, 8),
+    n_samples=16))
+
+
+def serve_until_done(eng, prompts, on_step=None):
+    """Submit ``prompts`` (16 new tokens each) and step ``eng`` until every
+    request is done; ``on_step()`` runs after each step.  Returns the
+    generated tokens per request, the wall seconds and the token count.
+    At most 1000 steps, as ``ServeEngine.run`` takes."""
+    rids = [eng.submit(p, max_new=16) for p in prompts]
+    t0 = time.time()
+    for _ in range(1000):
+        if not eng.sched.busy:
+            break
+        eng.step()
+        if on_step is not None:
+            on_step()
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    if sorted(eng.finished) != sorted(rids):
+        raise AssertionError(f"unfinished requests: "
+                             f"{set(rids) - set(eng.finished)}")
+    tokens = [eng.finished[r].generated for r in rids]
+    return tokens, wall, sum(len(t) for t in tokens)
+
+
+def phase_policy(smi: str) -> dict:
+    """The serve path on an operating point the port's own machine model
+    chose.  (a) Calibrate ``POLICY_CALIBRATION`` with the port on the host
+    (``workers=1``: no process pool once the card holds a context) into a
+    directory under ``build/``, point ``REPRO_CALIBRATION_DIR`` at it and
+    clear the table cache; the ``queue_matmul`` point must leave the
+    default depth 4.  (b) Serve ``POLICY_ARCH`` at full width and depth in
+    bf16 with phase 4's slots, prompts and seed, in measured-traffic mode:
+    every token equals phase 4's (``queue_matmul`` gives the same bits at
+    every depth of a regime), the report and every retarget name
+    calibrated points, the cost model charged at each traffic level equals
+    ``StepCostModel.from_operating_point`` recomputed for that level's
+    point, and every ``queue_matmul`` launch ran at the calibrated depths.
+    The launch counts are set to 0 just before this run and read just after
+    it: it is a main path.  (c) Its wall time and tokens/s, and the
+    device's idle share over decode bodies at the calibrated depths
+    (:func:`profile_decode`, as phase 4 profiles the default ones).  Then
+    the demo's depth-1 against depth-4 products (``copiftv2_demo.part2``).
+    The calibration directory is removed and the variable restored at the
+    end.  Returns the main path's launches by kernel."""
+    import shutil
+    import tempfile
+    from repro_torch.config import RunConfig
+    from repro_torch.configs import get_config
+    from repro_torch.core import (calibrate, clear_policy_table_cache,
+                                  default_table)
+    from repro_torch.core.policy import TRAFFIC_LEVELS, OperatingPoint
+    from repro_torch.examples import copiftv2_demo
+    from repro_torch.kernels.queue_matmul import ops as qm_ops
+    from repro_torch.models import init_model_params
+    from repro_torch.serve import ServeEngine, StepCostModel
+    cfg = get_config(POLICY_ARCH)
+    rc = RunConfig(dtype="bfloat16")
+    counters = launch_counters()
+    t_phase = time.time()
+    prompts = serve_prompts(cfg, np.random.default_rng(SEED + 1))
+    params = init_model_params(SEED, cfg, dtype=torch.bfloat16, device="cuda")
+    torch.cuda.synchronize()
+    log(f"[policy] {POLICY_ARCH} bf16 weights drawn in "
+        f"{time.time() - t_phase:.1f} s")
+    want = SERVED_TOKENS.get(POLICY_ARCH)
+    if want is None:                  # phase 4 did not run in this call
+        want, wall0, n0 = serve_until_done(
+            ServeEngine(params, cfg, rc, **SERVE_ENGINE), prompts)
+        log(f"[policy] {POLICY_ARCH} on the default table (phase 4 did not "
+            f"run): {n0} tokens in {wall0:.2f} s wall = {n0 / wall0:.2f} "
+            f"tok/s; first tokens {want[0]}")
+
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    directory = tempfile.mkdtemp(prefix="calibration_",
+                                 dir=os.path.join(ROOT, "build"))
+    before_env = os.environ.get("REPRO_CALIBRATION_DIR")
+    launch = qm_ops._launch
+    depths = {}
+
+    def recording_launch(x, w, depth_x, depth_w):
+        depths[(depth_x, depth_w)] = depths.get((depth_x, depth_w), 0) + 1
+        return launch(x, w, depth_x, depth_w)
+
+    try:
+        # (a) calibrate on the host
+        t0 = time.time()
+        records = calibrate(workers=1, out_dir=directory,
+                            **POLICY_CALIBRATION)
+        cal_s = time.time() - t0
+        os.environ["REPRO_CALIBRATION_DIR"] = directory
+        clear_policy_table_cache()
+        table = default_table()
+        qm = table.resolve("queue_matmul")
+        serve_pts = {lvl: table.resolve("serve", traffic=lvl)
+                     for lvl in (None, *TRAFFIC_LEVELS)}
+        log(f"[policy] calibrated {sorted(records)} in {cal_s:.2f} s on the "
+            f"host into {os.path.relpath(directory, ROOT)}; queue_matmul "
+            f"resolves {qm}")
+        for lvl, op in serve_pts.items():
+            log(f"[policy] serve at traffic {lvl}: {op}")
+        if qm.source != "calibrated" or qm_ops.operating_point() != qm:
+            raise AssertionError(f"queue_matmul's wrapper resolves "
+                                 f"{qm_ops.operating_point()}, the table "
+                                 f"{qm}")
+        if qm.queue_depth == OperatingPoint().queue_depth:
+            raise AssertionError(f"the calibrated queue_matmul depth "
+                                 f"{qm.queue_depth} is the default's")
+
+        # (b) serve on the calibrated table, measured traffic
+        qm_ops._launch = recording_launch
+        for c in counters.values():
+            c.launches = 0
+        eng = ServeEngine(params, cfg, rc, **SERVE_ENGINE)
+        charged = []
+
+        def check_retarget():
+            if len(eng.traffic_history) == len(charged):
+                return
+            level = eng.traffic_history[-1]["level"]
+            op = table.resolve("serve", traffic=level)
+            cost = StepCostModel.from_operating_point(op)
+            if eng.operating_point != op or \
+                    dataclasses.asdict(eng._cost) != \
+                    dataclasses.asdict(cost):
+                raise AssertionError(f"traffic {level}: the engine charges "
+                                     f"{eng._cost} at {eng.operating_point}"
+                                     f", the machine model gives {cost} at "
+                                     f"{op}")
+            charged.append((level, cost))
+
+        tokens, wall, n_tok = serve_until_done(eng, prompts, check_retarget)
+        counts = {k: c.launches for k, c in counters.items()}
+        qm_ops._launch = launch
+        report = eng.metrics()
+        log(f"[policy] {POLICY_ARCH} full width ({cfg.n_layers} layers), "
+            f"bf16, calibrated, measured traffic: {len(tokens)} requests, "
+            f"{n_tok} tokens in {wall:.2f} s wall = {n_tok / wall:.2f} "
+            f"tok/s; {eng._n_steps} steps; {smi}")
+        log(f"[policy] operating point {eng.operating_point}; report "
+            f"cost_source {report.cost_source}; traffic history "
+            f"{eng.traffic_history}")
+        for level, cost in charged:
+            log(f"[policy] traffic {level}: {cost.cycles_decode_token!r} "
+                f"cycles and {cost.energy_decode_token!r} energy per decode "
+                f"token, {cost.cycles_prefill_token!r} cycles per prefill "
+                f"token ({cost.source}), the machine model's")
+        log(f"[policy] queue_matmul launches by ring depths (x, w): {depths}"
+            f"; launches on the main path {counts}")
+        if tokens != want:
+            bad = [i for i, (a, b) in enumerate(zip(tokens, want)) if a != b]
+            raise AssertionError(f"{POLICY_ARCH}: calibrated tokens differ "
+                                 f"from phase 4's on requests {bad}")
+        if not charged or report.cost_source != "calibrated" or any(
+                h["source"] != "calibrated" for h in eng.traffic_history):
+            raise AssertionError(f"not calibrated: report "
+                                 f"{report.cost_source}, history "
+                                 f"{eng.traffic_history}")
+        if set(depths) != {qm.effective_depths()} or \
+                counts["queue_matmul"] != sum(depths.values()) or \
+                counts["queue_matmul"] <= 0:
+            raise AssertionError(f"queue_matmul launched at {depths} "
+                                 f"({counts['queue_matmul']} counted), "
+                                 f"calibrated {qm.effective_depths()}")
+        log(f"[policy] same tokens as phase 4 for all {len(tokens)} "
+            f"requests; every queue_matmul launch at the calibrated depths "
+            f"{qm.effective_depths()}")
+
+        # (c) the device's idle share of a decode body at the calibrated
+        # depths, beside phase 4's at the default ones
+        profile_decode(eng.params, eng.cache, cfg, eng.rc, POLICY_ARCH)
+        del eng, params
+        free_card()
+        t0 = time.time()
+        for row in copiftv2_demo.part2():
+            log(f"[policy] demo {row}; {smi}")
+        log(f"[policy] demo in {time.time() - t0:.1f} s; the phase in "
+            f"{time.time() - t_phase:.1f} s")
+    finally:
+        qm_ops._launch = launch
+        if before_env is None:
+            os.environ.pop("REPRO_CALIBRATION_DIR", None)
+        else:
+            os.environ["REPRO_CALIBRATION_DIR"] = before_env
+        clear_policy_table_cache()
+        shutil.rmtree(directory, ignore_errors=True)
+    free_card()
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2153,6 +2379,9 @@ def main() -> int:
                 launches[name] = launches.get(name, 0) + n
         log(f"[serve] launches over the {len(SERVED) + len(ENCODERS)} main "
             f"paths: {launches}")
+    if "policy" in phases:
+        for name, n in phase_policy(smi).items():
+            launches[name] = launches.get(name, 0) + n
     if "train" in phases:
         parts = args.train_parts.split(",")
         gen = torch.Generator(device="cuda").manual_seed(SEED + 5)

@@ -200,16 +200,17 @@ def resolve_run_config(rc: RunConfig, workload: str,
 
     Precedence: an explicit ``operating_point`` wins verbatim; a
     caller-pinned ``rc.policy`` (any value other than the RunConfig field
-    default) stays authoritative while the table's queue geometry still
-    applies; otherwise the table (``policy_table`` or the process default,
-    which holds no calibrated entry yet) supplies the whole point, falling
-    back to the paper's hard-coded defaults.  ``queue_latency`` pins the
-    machine's queue-visibility latency class for per-class selections
-    (defaulting to the workload's ``WORKLOAD_QUEUE_LATENCIES`` entry).
-    ``traffic`` pins an offered-load level
-    (:data:`repro_torch.core.policy.TRAFFIC_LEVELS`) for per-traffic
-    ``serve-slo`` selections — it wins over the latency class when the
-    table's record carries one for that level."""
+    default) stays authoritative while the calibrated queue geometry still
+    applies; otherwise the calibration-backed table (``policy_table`` or
+    the process default honouring ``REPRO_CALIBRATION_DIR``) supplies the
+    whole point, falling back to the paper's hard-coded defaults when no
+    artifact exists.  ``queue_latency`` pins the machine's queue-visibility
+    latency class for schema-v4 per-class selections (defaulting to the
+    workload's ``WORKLOAD_QUEUE_LATENCIES`` entry, the global selection for
+    classes the calibration never swept).  ``traffic`` pins an offered-load
+    level (:data:`repro_torch.core.policy.TRAFFIC_LEVELS`) for schema-v5
+    per-traffic ``serve-slo`` selections — it wins over the latency class
+    when the artifact carries one for that level."""
     table = policy_table if policy_table is not None else default_table()
     if operating_point is not None:
         op = table.resolve(workload, override=operating_point)

@@ -46,14 +46,12 @@ step — higher throughput-at-SLO and lower J/token.
 """
 from __future__ import annotations
 
-import json
 import math
-import os
 from collections import deque
 from dataclasses import dataclass
 from typing import Any, Deque, Dict, List, Optional, Tuple
 
-from ..core.policy import TRAFFIC_LEVELS, ExecutionPolicy, OperatingPoint
+from ..core.policy import TRAFFIC_LEVELS, OperatingPoint
 from ..runtime.straggler import Heartbeat, StragglerMonitor
 
 
@@ -301,37 +299,11 @@ PREFILL_FRACTION = 0.25
 _STEP_OVERHEAD_CYCLES = 16.0
 
 
-#: per-point step costs recorded from the machine-model simulator
-STEP_COSTS_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                               "step_costs.json")
-
-
-def step_cost_key(op: OperatingPoint, workload: str = "serve",
-                  n_samples: int = 32) -> str:
-    """The lookup key of one simulated point in ``step_costs.json``: every
-    field of the operating point (``source`` included, because the
-    simulator reports it back), the workload and the sample count."""
-    fields = {f: getattr(op, f) for f in OperatingPoint.__dataclass_fields__}
-    fields["policy"] = op.policy.value
-    return json.dumps({"point": fields, "workload": workload,
-                       "n_samples": n_samples}, sort_keys=True)
-
-
-def _step_cost_table() -> Dict[str, Dict[str, Any]]:
-    with open(STEP_COSTS_PATH) as f:
-        entries = json.load(f)["entries"]
-    return {step_cost_key(OperatingPoint(**{
-                **e["point"], "policy": ExecutionPolicy(e["point"]["policy"])}),
-                e["workload"], e["n_samples"]): e["cost"]
-            for e in entries}
-
-
 @dataclass(frozen=True)
 class StepCostModel:
     """Cycles & joules per engine step, derived from a calibrated
-    :class:`~repro_torch.core.policy.OperatingPoint`, as the machine-model
-    simulator gives them for the serve workload's proxy kernel at that
-    point's full geometry.
+    :class:`~repro_torch.core.policy.OperatingPoint` by simulating the serve
+    workload's proxy kernel at that point's full geometry.
 
     One decode step over a batch of width ``W`` costs
     ``overhead + W * cycles_decode_token`` cycles and
@@ -350,30 +322,36 @@ class StepCostModel:
     def from_operating_point(cls, op: Optional[OperatingPoint] = None,
                              workload: str = "serve",
                              n_samples: int = 32) -> "StepCostModel":
-        """Per-token costs of the workload's proxy kernel at ``op``'s
-        geometry, as the machine-model simulator gives them.
-
-        The simulator (``repro.core.sweep.run_point`` in the JAX package) is
-        not part of the port yet, so the costs come from
-        ``step_costs.json`` beside this module: one entry for each point
-        the port's :class:`~repro_torch.core.policy.PolicyTable` can return
-        without a calibration artifact (the default point, and its geometry
-        under each pinned policy), written by
-        ``tools/write_step_costs.py`` and held equal to the simulator's
-        output by ``tests/test_torch_serve.py``.  ``source`` is what the
-        simulator reports: the point's own tag, or ``"default"`` where it
-        rejected the geometry and fell back to the default point.  A point
-        missing from the file raises :class:`NotImplementedError`."""
-        op = OperatingPoint() if op is None else op
-        key = step_cost_key(op, workload, n_samples)
-        cost = _step_cost_table().get(key)
-        if cost is None:
-            raise NotImplementedError(
-                f"no recorded step costs for {op} (workload={workload!r}, "
-                f"n_samples={n_samples}): costs of points beyond the "
-                f"defaults need the machine-model simulator, which comes "
-                f"with the port of repro.core")
-        return cls(**cost)
+        """Simulate the workload's proxy kernel at ``op``'s geometry and
+        derive per-token costs.  Falls back to the paper-default operating
+        point if ``op``'s geometry is rejected by the machine model, and to
+        flat constants if even that fails (never raises)."""
+        from ..core.policy import WORKLOAD_PROXIES
+        from ..core.sweep import SweepPoint, run_point
+        kernel = WORKLOAD_PROXIES.get(workload, "expf")
+        candidates = [] if op is None else [(op, op.source)]
+        candidates.append((OperatingPoint(), "default"))
+        for candidate, src in candidates:
+            rec = run_point(SweepPoint(
+                kernel=kernel, policy=candidate.policy.value,
+                queue_depth=candidate.queue_depth,
+                queue_latency=candidate.queue_latency,
+                unroll=candidate.unroll, unroll_int=candidate.unroll_int,
+                queue_depth_i2f=candidate.queue_depth_i2f,
+                queue_depth_f2i=candidate.queue_depth_f2i,
+                n_cores=candidate.n_cores, tcdm_banks=candidate.tcdm_banks,
+                pipeline=candidate.pipeline, cq_depth=candidate.cq_depth,
+                dma_buffers=candidate.dma_buffers, n_samples=n_samples))
+            if rec.status == "ok" and rec.cycles > 0 and rec.n_samples > 0:
+                cpt = rec.cycles / rec.n_samples * _SAMPLES_PER_TOKEN
+                ept = rec.energy / rec.n_samples * _SAMPLES_PER_TOKEN
+                return cls(cycles_decode_token=cpt, energy_decode_token=ept,
+                           cycles_prefill_token=cpt * PREFILL_FRACTION,
+                           energy_prefill_token=ept * PREFILL_FRACTION,
+                           source=src)
+        return cls(cycles_decode_token=64.0, energy_decode_token=64.0,
+                   cycles_prefill_token=16.0, energy_prefill_token=16.0,
+                   source="flat-fallback")
 
     def step_cost(self, width: int, prefill_tokens: int = 0
                   ) -> Tuple[float, float]:

@@ -35,6 +35,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _calibration_isolation import isolated_calibration  # noqa: F401
+
 import numpy as np
 
 from repro_torch.config import RunConfig

@@ -6,6 +6,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _calibration_isolation import isolated_calibration  # noqa: F401
+
 import jax.numpy as jnp
 import numpy as np
 

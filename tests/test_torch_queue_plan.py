@@ -9,6 +9,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _calibration_isolation import isolated_calibration  # noqa: F401
+
 from repro_torch.kernels import queue_matmul
 from repro_torch.kernels.queue_matmul import ops
 

@@ -1,24 +1,24 @@
 """The PyTorch port's serve path: the port engine against the JAX engine on
 bridged weights (same tokens, same ``metrics()``, same traffic history),
 the continuous-batching properties of tests/test_serve.py held by the port
-alone, the recorded step costs against the machine-model simulator, the
-scheduler against the reference's virtual-time simulation, and entry
-points that refuse to fall back to the CPU."""
+alone, the scheduler against the reference's virtual-time simulation, and
+entry points that refuse to fall back to the CPU.  The step costs the
+port's own machine model gives are held to the reference's in
+tests/test_torch_calibration.py."""
 import dataclasses
-import json
 import sys
 
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from _calibration_isolation import isolated_calibration  # noqa: F401
+
 import jax
 import numpy as np
 
 from repro.config import RunConfig as JRC
 from repro.configs import get_reduced as jax_reduced
-from repro.core.policy import ExecutionPolicy as JEP
-from repro.core.policy import OperatingPoint as JOP
 from repro.core.policy import PolicyTable as JPolicyTable
 from repro.models import init_model_params as jax_init_params
 from repro.serve import ServeEngine as JaxEngine
@@ -29,11 +29,10 @@ from repro.serve import ServeSLO as JSLO
 from repro_torch import bridge
 from repro_torch.config import RunConfig
 from repro_torch.configs import get_reduced
-from repro_torch.core.policy import ExecutionPolicy, OperatingPoint
+from repro_torch.core.policy import ExecutionPolicy
 from repro_torch.models import init_cache, init_model_params
 from repro_torch.serve import (ServeEngine, ServeSLO, StepCostModel,
                                TraceRequest, simulate_serve)
-from repro_torch.serve import scheduler as port_scheduler
 
 RC = RunConfig(remat=False, dtype="float32")
 JRC_ = JRC(remat=False, dtype="float32")
@@ -242,33 +241,11 @@ def test_engine_reset_zeroes_only_the_refilled_slot():
     assert torch.all(eng.cache["k"][:, 0] == 1)
 
 
-# --- recorded step costs ----------------------------------------------------
-
-def test_step_costs_file_equals_the_simulator():
-    """Every entry of step_costs.json is what the machine-model simulator
-    gives for that point today."""
-    with open(port_scheduler.STEP_COSTS_PATH) as f:
-        entries = json.load(f)["entries"]
-    assert len(entries) == 4
-    for e in entries:
-        point = JOP(**{**e["point"], "policy": JEP(e["point"]["policy"])})
-        ref = JStepCostModel.from_operating_point(
-            point, workload=e["workload"], n_samples=e["n_samples"])
-        assert dataclasses.asdict(ref) == e["cost"], e["point"]
-
-
-@pytest.mark.parametrize("policy", list(ExecutionPolicy))
-def test_step_costs_cover_every_point_the_table_returns(policy):
-    from repro_torch.core.policy import default_table
-    for op in (None, OperatingPoint(),
-               default_table().resolve("serve", policy=policy)):
-        cost = StepCostModel.from_operating_point(op)
-        assert cost.cycles_decode_token > cost.cycles_prefill_token > 0
-    with pytest.raises(NotImplementedError, match="repro.core"):
-        StepCostModel.from_operating_point(OperatingPoint(queue_depth=2))
-
+# --- step costs from the machine model --------------------------------------
 
 def test_pinned_policy_engine_uses_its_recorded_costs():
+    """A pinned policy is charged what the port's machine model gives for
+    the default geometry under that policy."""
     eng = _engine({}, operating_point=None)
     pinned = ServeEngine({}, get_reduced(ARCH),
                          dataclasses.replace(RC, policy=ExecutionPolicy.COPIFT),
