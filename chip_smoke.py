@@ -61,7 +61,10 @@ prints no result):
    refuse it, runs one non-causal ``forward`` over 512 frames.  Each
    model's run is its own main path: the launch counts are set to 0 just
    before it and read just after it, and every kernel of that path must
-   have run.  Then a profile of a
+   have run.  The engine's weights (the leaves ``param_specs`` names) and
+   cache must hold exactly the bytes the dry run counts for them
+   (``repro_torch.launch.dryrun.device_state_bytes`` on a 1 x 1 mesh at the
+   engine's slots and length).  Then a profile of a
    decode body: launches, kernel time by kernel, the device's idle share,
    and for olmoe the experts each layer's mask keeps.
 4b. policy — the serve path on a calibrated operating point: the port's
@@ -78,6 +81,13 @@ prints no result):
    ``repro_torch.examples.copiftv2_demo``'s depth-1 against
    depth-4 products (equal bits), each line with the card's name and power
    limit.
+4c. dist  — ``repro_torch.distributed.tp_matmul`` on a one-rank NCCL group
+   (started in-process from a ``HashStore``; no other backend is tried)
+   and ``make_local_mesh(1, 1)``: phi3-mini-3.8b's q/k/v/o and head
+   products over 1024 tokens in bf16, bulk (COPIFT: an NCCL all-gather,
+   then the product) and ring (COPIFTv2), each equal bit for bit to
+   ``queue_matmul`` alone, its main path's launches counted, timed beside
+   ``queue_matmul`` alone; the group is destroyed at the end.
 5. train   — the training path (``--train-parts`` picks among a-d):
    (a) each backward against its plain backward on the same inputs, fp32
    and bf16, equal to itself across two calls, timed with its bound and
@@ -101,7 +111,9 @@ prints no result):
    ``make_train_step`` each: each its own main path, the launch counts set
    to 0 just before it and read just after, every loss finite and every
    forward and backward kernel of its family (``TRAIN_KERNELS``)
-   launched; then a profile of one step.
+   launched, the parameters and AdamW moments exactly the bytes the dry
+   run counts; then its MFU, the roofline of the step's FLOPs as the dry
+   run counts them on the meta device, and a profile of one step.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  It imports nothing of JAX.
@@ -121,11 +133,12 @@ import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("build", "kernels", "parity", "serve", "policy", "train")
+PHASES = ("build", "kernels", "parity", "serve", "policy", "dist", "train")
 TRAIN_PARTS = ("a", "b", "c", "d")
-HBM_BYTES_PER_S = 3.35e12                 # H100 SXM, NVIDIA data sheet
-PEAK_FLOPS = {torch.bfloat16: 989e12,     # dense tensor-core bf16
-              torch.float32: 67e12}       # fp32 outside the tensor cores
+#: the H100 SXM's HBM rate and peak FLOP/s by dtype, from
+#: ``repro_torch.roofline`` (set in :func:`main` once the checkout's
+#: package is importable)
+HBM_BYTES_PER_S = PEAK_FLOPS = None
 TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
 #: cuda_ms's sleep: cycles per second at the H100's highest SM clock (a
 #: lower clock sleeps longer), and the longest sleep
@@ -1244,7 +1257,7 @@ def phase_trainer() -> None:
     free_card()
 
 
-def phase_train_full(arch: str, layers=None) -> dict:
+def phase_train_full(arch: str, layers=None, smi: str = "") -> dict:
     """``arch`` at full width (and full depth, or ``layers``),
     ``RunConfig`` defaults (bf16 compute, fp32 parameters, remat), AdamW,
     seq 512 and batch 2: ``FULL_STEPS`` steps of ``make_train_step`` on
@@ -1265,6 +1278,7 @@ def phase_train_full(arch: str, layers=None) -> dict:
         cfg = dataclasses.replace(cfg, n_layers=layers)
     shape = ShapeConfig("smoke_full", 512, 2, "train")
     t0 = time.time()
+    before = torch.cuda.memory_allocated()
     params = init_model_params(SEED, cfg, device="cuda")
     opt = init_opt_state(params)
     torch.cuda.synchronize()
@@ -1274,6 +1288,7 @@ def phase_train_full(arch: str, layers=None) -> dict:
         f"parameters): fp32 parameters and AdamW state drawn in "
         f"{time.time() - t0:.1f} s, {state_gib:.2f} GiB")
     step = make_train_step(cfg, shape, RunConfig(), device="cuda")
+    check_train_state(params, opt, cfg, shape, step.rc, before)
     stream = SyntheticLMStream(cfg.vocab, shape.seq_len, shape.global_batch,
                                seed=SEED)
     if cfg.frontend:
@@ -1306,11 +1321,64 @@ def phase_train_full(arch: str, layers=None) -> dict:
         if counts[kernel] <= 0:
             raise AssertionError(f"{kernel} never launched on {name}'s "
                                  f"training path")
+    log_train_roofline(cfg, shape, step.rc, wall, name, smi)
     profile_train_step(step, params, opt,
                        train_batch(cfg, stream, FULL_STEPS), wall, name)
     del params, opt
     free_card()
     return counts
+
+
+def check_train_state(params, opt, cfg, shape, rc, before: int) -> None:
+    """The parameters + ``mu`` + ``nu`` on the card, in bytes, must equal
+    the dry run's ``params`` + ``opt`` on a 1 x 1 mesh (shape x dtype sums:
+    exact).  Logged beside: what the allocator holds for them
+    (``memory_allocated`` after the draw less before it), leaf by leaf
+    the difference is its rounding of each allocation up to 512 bytes, and
+    the step counter."""
+    from repro_torch.launch import dryrun
+    from repro_torch.models.layers import tree_leaves
+    leaves = (tree_leaves(params) + tree_leaves(opt.mu)
+              + tree_leaves(opt.nu))
+    held = sum(t.nbytes for t in leaves)
+    want = dryrun.device_state_bytes(cfg, shape, dryrun.ONE_CARD, rc)
+    rounded = sum(-(-t.nbytes // 512) * 512 for t in leaves + [opt.step])
+    alloc = torch.cuda.memory_allocated() - before
+    log(f"[train] {cfg.name} ({cfg.n_layers} layers) state: parameters + mu "
+        f"+ nu {held} B = {held / 2**30:.4f} GiB; the dry run's params + "
+        f"opt {want['params'] + want['opt']:.0f} B on a 1x1 mesh; "
+        f"{len(leaves)} leaves and the step counter rounded up to 512 B "
+        f"each: {rounded} B; the allocator holds {alloc} B for them "
+        f"({torch.cuda.memory_allocated() / 2**30:.4f} GiB in all, "
+        f"{before / 2**30:.4f} GiB of it before the draw)")
+    if held != want["params"] + want["opt"]:
+        raise AssertionError(f"{cfg.name}: {held} B of state on the card, "
+                             f"the dry run counts {want}")
+
+
+def log_train_roofline(cfg, shape, rc, wall: float, name: str,
+                       smi: str) -> None:
+    """MFU of the measured step (``model_flops_for`` at its tokens over the
+    step wall x the bf16 peak) and the roofline of the step's FLOPs as the
+    dry run counts them on the meta device (one card, no collective)."""
+    from repro_torch.launch import dryrun
+    from repro_torch.roofline import PEAK_FLOPS, Roofline, model_flops_for
+    t0 = time.time()
+    flops = dryrun.count_flops(cfg, shape, rc)
+    count_s = time.time() - t0
+    model = model_flops_for(cfg, shape)
+    rl = Roofline(arch=cfg.name, shape=f"{shape.global_batch}x"
+                  f"{shape.seq_len} train", mesh="1x1", chips=1,
+                  per_device_flops=flops,
+                  per_device_bytes=dryrun.memory_bytes(cfg, shape,
+                                                       dryrun.ONE_CARD, rc),
+                  per_device_coll_bytes=0.0, model_flops=model)
+    log(f"[train] {name} roofline: model FLOPs {model:.4e}, counted "
+        f"{flops:.4e} (meta device, {count_s:.1f} s); MFU "
+        f"{model / (wall * PEAK_FLOPS):.4f} at the {wall:.3f} s step; "
+        f"counted FLOPs at {flops / wall / 1e12:.1f} TFLOP/s; t_compute "
+        f"{rl.t_compute * 1e3:.2f} ms, t_memory {rl.t_memory * 1e3:.2f} ms, "
+        f"bottleneck {rl.bottleneck}; {smi}")
 
 
 def train_batch(cfg, stream, i: int) -> dict:
@@ -1952,6 +2020,7 @@ def phase_serve(arch: str) -> dict:
         c.launches = 0
     eng = ServeEngine(params, cfg, rc, **SERVE_ENGINE)
     del params
+    check_serve_state(eng, cfg, rc)
     rids = [eng.submit(p, max_new=16) for p in prompts]
     t0 = time.time()
     done = eng.run()
@@ -2012,6 +2081,50 @@ def phase_serve(arch: str) -> dict:
     del eng
     free_card()
     return counts
+
+
+def _named(tree, specs, prefix: str = ""):
+    """(path, tensor) of each leaf of ``tree`` that ``specs`` (the
+    ``param_specs`` tree) names, a prepared tree's ``head_t`` standing for
+    ``head`` (the same elements, transposed)."""
+    from repro_torch.models.layers import ParamSpec
+    for k in sorted(specs):
+        path = f"{prefix}{k}"
+        if isinstance(specs[k], ParamSpec):
+            yield path, tree["head_t"] if k == "head" and not prefix \
+                else tree[k]
+        else:
+            yield from _named(tree[k], specs[k], path + "/")
+
+
+def check_serve_state(eng, cfg, rc) -> None:
+    """The engine's weights (the leaves ``param_specs`` names) and cache, in
+    bytes, must equal the dry run's ``params`` + ``cache`` on a 1 x 1 mesh
+    at the engine's slots and length: both are shape x dtype sums, so
+    equality is exact.  The engine's other leaves are logged beside."""
+    from repro_torch.config import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.models import param_specs
+    from repro_torch.models.layers import tree_leaves
+    specs = param_specs(cfg)
+    named = dict(_named(eng.params, specs))
+    held = sum(t.nbytes for t in named.values())
+    cache = sum(t.nbytes for t in tree_leaves(eng.cache))
+    shape = ShapeConfig("serve", SERVE_ENGINE["max_len"],
+                        SERVE_ENGINE["batch_slots"], "decode")
+    want = dryrun.device_state_bytes(
+        cfg, shape, dryrun.ONE_CARD,
+        dataclasses.replace(rc, param_dtype=rc.dtype))
+    extra = {k: v.nbytes for k, v in eng.params.items() if k not in specs}
+    log(f"[serve] {cfg.name} state: weights {held} B + cache {cache} B; the "
+        f"dry run's params {want['params']:.0f} B + cache "
+        f"{want['cache']:.0f} B on a 1x1 mesh; the engine's leaves beyond "
+        f"param_specs' {extra}"
+        + (" (head_t stands for head, counted above)" if "head" in specs
+           else ""))
+    if held != want["params"] or cache != want["cache"]:
+        raise AssertionError(f"{cfg.name}: the engine holds {held} + {cache} "
+                             f"B, the dry run counts {want}")
 
 
 def phase_encode(arch: str) -> dict:
@@ -2321,6 +2434,91 @@ def phase_policy(smi: str) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# dist: tensor-parallel products through queue_matmul
+# ---------------------------------------------------------------------------
+
+#: phase dist's products, phi3-mini-3.8b's: (name, M, K, N) of x (M, K) @
+#: w (K, N), 1024 tokens
+DIST_SHAPES = (("phi3 q/k/v/o", 1024, 3072, 3072),
+               ("phi3 head", 1024, 3072, 32064))
+
+
+def phase_dist(smi: str) -> dict:
+    """``tp_matmul`` on the card: a one-rank NCCL group started in-process
+    (a ``HashStore``, world size 1; if it cannot start the phase fails,
+    with no other backend) and ``make_local_mesh(1, 1)``.  At each of
+    ``DIST_SHAPES``, in bf16, under COPIFT (the bulk gather: one NCCL
+    all-gather, then the product) and COPIFTv2 (the ring: at one rank no
+    send, one product), the result must equal ``queue_matmul`` alone at the
+    same depths bit for bit.  The ``tp_matmul`` calls are the main path: the
+    launch counts are set to 0 just before them and read just after, and
+    ``queue_matmul`` must have run.  Then the device time of each beside
+    ``queue_matmul`` alone (``cuda_ms``).  The group is destroyed at the
+    end, on failure too.  Returns the main path's launches by kernel."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from repro_torch.core.policy import ExecutionPolicy
+    from repro_torch.distributed.collective_matmul import (recording,
+                                                           tp_matmul)
+    from repro_torch.kernels import queue_matmul
+    from repro_torch.launch.mesh import make_local_mesh
+    counters = launch_counters()
+    t_phase = time.time()
+    torch.cuda.set_device(0)       # the one rank's card, before the mesh
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_local_mesh(1, 1)
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 21)
+        cases = []
+        for name, m, k, n in DIST_SHAPES:
+            x = torch.randn((m, k), generator=gen, device="cuda").to(
+                torch.bfloat16)
+            w = (torch.randn((k, n), generator=gen, device="cuda")
+                 / math.sqrt(k)).to(torch.bfloat16)
+            xd = DTensor.from_local(x, mesh, (Replicate(), Shard(0)),
+                                    run_check=False)
+            wd = DTensor.from_local(w, mesh, (Replicate(), Shard(1)),
+                                    run_check=False)
+            for policy in (ExecutionPolicy.COPIFT, ExecutionPolicy.COPIFTV2):
+                for c in counters.values():
+                    c.launches = 0
+                with recording() as recs:
+                    y = tp_matmul(xd, wd, mesh, policy=policy)
+                torch.cuda.synchronize()
+                counts = {k_: c.launches for k_, c in counters.items()
+                          if c.launches}
+                if counts.get("queue_matmul", 0) <= 0:
+                    raise AssertionError(f"dist {name} {policy.value}: "
+                                         f"queue_matmul never launched")
+                ref = queue_matmul(x, w, policy=policy)
+                if y.placements != (Replicate(), Shard(1)) or \
+                        not torch.equal(y.to_local(), ref):
+                    raise AssertionError(
+                        f"dist {name} {policy.value}: tp_matmul differs "
+                        f"from queue_matmul by "
+                        f"{(y.to_local().float() - ref.float()).abs().max()}")
+                ms = cuda_ms(lambda: tp_matmul(xd, wd, mesh, policy=policy))
+                plain = cuda_ms(lambda: queue_matmul(x, w, policy=policy))
+                cases.append(counts)
+                log(f"[dist] {name} {m}x{k} @ {k}x{n} bf16 "
+                    f"{policy.value}: equal bits to queue_matmul; "
+                    f"tp_matmul {ms:.4f} ms, queue_matmul alone "
+                    f"{plain:.4f} ms; collectives {recs}; launches "
+                    f"{counts}; {smi}")
+    finally:
+        dist.destroy_process_group()
+    launches = {}
+    for counts in cases:
+        for k_, v in counts.items():
+            launches[k_] = launches.get(k_, 0) + v
+    log(f"[dist] launches on the main path: {launches}; the phase in "
+        f"{time.time() - t_phase:.1f} s")
+    free_card()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2338,6 +2536,9 @@ def main() -> int:
     phases = args.phases.split(",")
     sys.path.insert(0, os.path.join(ROOT, "src"))
     import repro_torch  # noqa: F401  (fails outside a checkout)
+    from repro_torch import roofline
+    global HBM_BYTES_PER_S, PEAK_FLOPS
+    HBM_BYTES_PER_S, PEAK_FLOPS = roofline.HBM_BW, roofline.PEAK_FLOPS_BY_DTYPE
     torch.backends.cuda.matmul.allow_tf32 = False   # fp32 checks stay fp32
     torch.backends.cudnn.allow_tf32 = False
 
@@ -2382,6 +2583,9 @@ def main() -> int:
     if "policy" in phases:
         for name, n in phase_policy(smi).items():
             launches[name] = launches.get(name, 0) + n
+    if "dist" in phases:
+        for name, n in phase_dist(smi).items():
+            launches[name] = launches.get(name, 0) + n
     if "train" in phases:
         parts = args.train_parts.split(",")
         gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
@@ -2404,7 +2608,7 @@ def main() -> int:
             phase_trainer()
         if "d" in parts:
             for arch, layers in TRAIN_FULL:
-                for name, n in phase_train_full(arch, layers).items():
+                for name, n in phase_train_full(arch, layers, smi).items():
                     launches[name] = launches.get(name, 0) + n
             log(f"[train] launches over every main path run: {launches}")
     if args.cases_out:

@@ -15,6 +15,14 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float64": torch.float64}
 
 
+#: the devices on which a kernel wrapper takes its plain version: the CPU,
+#: and the meta device, where a call computes shapes only and an active
+#: ``torch.utils.flop_counter.FlopCounterMode`` counts the plain version's
+#: products (the scans, whose plain versions walk T one step at a time,
+#: take a stand-in there with the same products and no loop)
+PLAIN_DEVICES = ("cpu", "meta")
+
+
 def resolve_device(device: DeviceLike = None) -> torch.device:
     """``None`` -> ``cuda``; a CUDA device must exist."""
     dev = torch.device("cuda" if device is None else device)

@@ -1,7 +1,9 @@
 """Public wrapper of the CUDA flash attention: (B, H, S, D) in and out.
 
 A CPU tensor goes to the plain version (:func:`attention_ref`, with KV heads
-repeated for GQA); a CUDA tensor launches the kernel in
+repeated for GQA), and so does a meta tensor (shapes only; ``FlopCounterMode``
+counts the plain version's products, every score of the Sq x Sk block
+computed, masked ones too); a CUDA tensor launches the kernel in
 ``csrc/flash_attention.cu`` on the current stream, which expands GQA by
 index and needs no padding of S.  bf16 runs on the tensor cores, fp32 on
 FMAs.  A bf16 head dim that is not a multiple of 8 is padded with zero
@@ -31,6 +33,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ...device import PLAIN_DEVICES
 from .. import _build
 from .ref import attention_bwd_ref, attention_lse_ref, attention_ref
 
@@ -196,7 +199,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (B, Hq, Sq) and the upstream gradient ``do``: returns (dq, dk, dv) in
     the shapes and dtypes of q, k and v.  A CPU tensor takes the plain
     version; a CUDA tensor launches the backward kernel."""
-    if q.device.type == "cpu":
+    if q.device.type in PLAIN_DEVICES:
         return _plain_bwd(q, k, v, o, lse, do, causal, window)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd runs on CUDA or CPU tensors, "
@@ -211,7 +214,7 @@ class _FlashAttentionFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, q_offset):
-        if q.device.type == "cpu":
+        if q.device.type in PLAIN_DEVICES:
             out = _plain(q, k, v, causal, window, q_offset)
             lse = _plain_lse(q, k, causal, window, q_offset)
         else:
@@ -248,13 +251,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"(B, Hkv, Sk, D) and v (B, Hkv, Sk, Dv <= D), got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
-    if q.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"flash_attention runs on CUDA or CPU tensors, got "
-                         f"{q.device}")
+    if q.device.type not in ("cuda", *PLAIN_DEVICES):
+        raise ValueError(f"flash_attention runs on CUDA, CPU or meta "
+                         f"tensors, got {q.device}")
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return _FlashAttentionFn.apply(q, k, v, causal, window, q_offset)
-    if q.device.type == "cpu":
+    if q.device.type in PLAIN_DEVICES:
         return _plain(q, k, v, causal, window, q_offset)
     return _launch(q, k, v, causal, window, q_offset)[0]
 

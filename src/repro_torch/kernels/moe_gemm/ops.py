@@ -13,7 +13,8 @@ semantics).  The kernel reads the mask itself, so nothing is copied to the
 host and the caller stays free of synchronisation.
 
 Where it runs: a CPU tensor goes to the plain version (:func:`moe_gemm_ref`),
-which autograd differentiates; a CUDA tensor launches a kernel of
+which autograd differentiates, and so does a meta tensor (shapes only;
+``FlopCounterMode`` counts its products); a CUDA tensor launches a kernel of
 ``csrc/moe_gemm.cu`` on the current stream, except under
 ``ExecutionPolicy.BASELINE``, which is the plain version on any device and
 launches nothing.  COPIFT forces the ring to depth 1.
@@ -72,6 +73,7 @@ import torch
 import torch.nn.functional as F
 
 from ...core.policy import ExecutionPolicy, OperatingPoint, default_table
+from ...device import PLAIN_DEVICES
 from .. import _build
 from .ref import moe_gemm_bwd_ref, moe_gemm_ref
 
@@ -263,7 +265,7 @@ def moe_gemm_bwd(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor, *,
     shape (a 2-D x gets the sum over the experts), ``None`` for an operand
     whose ``need`` is false.  A CPU tensor takes the plain version; a CUDA
     tensor launches the two products at ring depth ``depth``."""
-    if x.device.type == "cpu":
+    if x.device.type in PLAIN_DEVICES:
         dx, dw = moe_gemm_bwd_ref(x, w, dy, active)
         return dx if need[0] else None, dw if need[1] else None
     if x.device.type != "cuda":
@@ -309,7 +311,7 @@ def moe_gemm(x: torch.Tensor, w: torch.Tensor, *, bc: int = 128,
                          f"(E, d, f), got {tuple(x.shape)} and "
                          f"{tuple(w.shape)}")
     _check_active(active, x, w.shape[0])
-    if policy is ExecutionPolicy.BASELINE or x.device.type == "cpu":
+    if policy is ExecutionPolicy.BASELINE or x.device.type in PLAIN_DEVICES:
         return moe_gemm_ref(x, w, active)
     if x.device.type != "cuda":
         raise ValueError(f"moe_gemm runs on CUDA or CPU tensors, got "

@@ -8,8 +8,9 @@ depth with ``policy`` unset runs the depth-honouring COPIFTv2 path.  The
 activation (x) ring takes the I2F depth and the weight (w) ring the F2I
 depth, each falling back to the symmetric ``queue_depth``.
 
-Where it runs: a CPU tensor goes to the plain version (:func:`matmul_ref`);
-a CUDA tensor launches the kernel in ``csrc/queue_matmul.cu`` on the current
+Where it runs: a CPU tensor goes to the plain version (:func:`matmul_ref`),
+and so does a meta tensor (shapes only; ``FlopCounterMode`` counts its
+product); a CUDA tensor launches the kernel in ``csrc/queue_matmul.cu`` on the current
 stream, except under ``ExecutionPolicy.BASELINE``, which is the plain matmul
 on any device (as in the JAX wrapper) and launches nothing.  COPIFT forces
 both rings to depth 1.  ``queue_matmul.launches`` counts kernel launches.
@@ -58,6 +59,7 @@ import torch
 import torch.nn.functional as F
 
 from ...core.policy import ExecutionPolicy, OperatingPoint, default_table
+from ...device import PLAIN_DEVICES
 from .. import _build
 from .ref import matmul_ref
 
@@ -227,7 +229,7 @@ def _launch(x: torch.Tensor, w: torch.Tensor, depth_x: int,
 
 def _product(x: torch.Tensor, w: torch.Tensor, depth_x: int, depth_w: int,
              policy: ExecutionPolicy) -> torch.Tensor:
-    if policy is ExecutionPolicy.BASELINE or x.device.type == "cpu":
+    if policy is ExecutionPolicy.BASELINE or x.device.type in PLAIN_DEVICES:
         return matmul_ref(x, w).to(x.dtype)
     if policy is ExecutionPolicy.COPIFT:
         depth_x = depth_w = 1
@@ -262,9 +264,9 @@ def _queue_matmul(x: torch.Tensor, w: torch.Tensor, *,
     if x.ndim != 2 or w.ndim != 2 or x.shape[1] != w.shape[0]:
         raise ValueError(f"queue_matmul takes x (M, K) and w (K, N), got "
                          f"{tuple(x.shape)} and {tuple(w.shape)}")
-    if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"queue_matmul runs on CUDA or CPU tensors, got "
-                         f"{x.device}")
+    if x.device.type not in ("cuda", *PLAIN_DEVICES):
+        raise ValueError(f"queue_matmul runs on CUDA, CPU or meta tensors, "
+                         f"got {x.device}")
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
         return _QueueMatmulFn.apply(x, w, depth_x, depth_w, policy)
     return _product(x, w, depth_x, depth_w, policy)

@@ -9,7 +9,9 @@ steps, in one launch a call; nothing is padded.  Its rounding differs from
 the plain version's sequential walk (composed decays, one FMA a step).
 
 Where it runs: a CPU tensor goes to the plain version (:func:`rglru_scan_ref`),
-which autograd differentiates; a CUDA tensor launches the kernel in
+which autograd differentiates; a meta tensor (shapes only) to
+:func:`rglru_scan_meta`, without the plain version's loop over T (neither
+has a product to count); a CUDA tensor launches the kernel in
 ``csrc/rglru_scan.cu`` on the current stream.  ``rglru_scan.launches``
 counts its forward launches.
 
@@ -31,7 +33,7 @@ from typing import Tuple
 import torch
 
 from .. import _build
-from .ref import rglru_scan_bwd_ref, rglru_scan_ref
+from .ref import rglru_scan_bwd_ref, rglru_scan_meta, rglru_scan_ref
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -113,6 +115,10 @@ def rglru_scan_bwd(a: torch.Tensor, h: torch.Tensor,
                          f"{tuple(h.shape)}, {tuple(g.shape)}")
     if a.device.type == "cpu":
         return rglru_scan_bwd_ref(a, h, g)
+    if a.device.type == "meta":
+        # shapes only: the plain reverse walk has no product to count
+        return torch.empty_like(a, dtype=torch.float32), \
+            torch.empty_like(a, dtype=torch.float32)
     if a.device.type != "cuda":
         raise ValueError(f"rglru_scan_bwd runs on CUDA or CPU tensors, got "
                          f"{a.device}")
@@ -146,6 +152,8 @@ def rglru_scan(a: torch.Tensor, bx: torch.Tensor) -> torch.Tensor:
                          f"got {tuple(a.shape)}, {tuple(bx.shape)}")
     if a.device.type == "cpu":
         return rglru_scan_ref(a, bx)
+    if a.device.type == "meta":
+        return rglru_scan_meta(a, bx)
     if a.device.type != "cuda":
         raise ValueError(f"rglru_scan runs on CUDA or CPU tensors, got "
                          f"{a.device}")

@@ -26,6 +26,14 @@ def rglru_scan_ref(a: torch.Tensor, bx: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def rglru_scan_meta(a: torch.Tensor, bx: torch.Tensor) -> torch.Tensor:
+    """:func:`rglru_scan_ref`'s result shape and dtype for the meta device,
+    from both inputs, without a loop: the plain version has no product to
+    count, and neither has this."""
+    acc = wide_dtype(a.dtype)
+    return a.to(acc) * bx.to(acc) + bx.to(acc)
+
+
 def rglru_scan_bwd_ref(a: torch.Tensor, h: torch.Tensor,
                        g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """The gradient of :func:`rglru_scan_ref` from its input ``a``, its

@@ -9,7 +9,10 @@ states carried across the chunks inside the block, in one launch a call;
 nothing is padded.
 
 Where it runs: a CPU tensor goes to the plain version (:func:`ssm_scan_ref`),
-which autograd differentiates; a CUDA tensor launches the kernel in
+which autograd differentiates; a meta tensor (shapes only) to
+:func:`ssm_scan_meta`, which has the plain version's products without its
+loop over T, so ``FlopCounterMode`` counts what it counts on the plain
+version; a CUDA tensor launches the kernel in
 ``csrc/ssm_scan.cu`` on the current stream.  ``ssm_scan.launches`` counts
 its launches.
 
@@ -34,7 +37,8 @@ from typing import Optional, Tuple
 import torch
 
 from .. import _build
-from .ref import ssm_scan_bwd_ref, ssm_scan_ref
+from .ref import (ssm_scan_bwd_meta, ssm_scan_bwd_ref, ssm_scan_meta,
+                  ssm_scan_ref)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_STATE = 32
@@ -181,6 +185,8 @@ def ssm_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         raise ValueError(f"dy {tuple(dy.shape)} is not y's {tuple(x.shape)}")
     if x.device.type == "cpu":
         return ssm_scan_bwd_ref(x, dt, A, Bm, C, dy)
+    if x.device.type == "meta":
+        return ssm_scan_bwd_meta(x, dt, A, Bm, C, dy)
     _cuda_only(x, "ssm_scan_bwd")
     if states is None:
         raise ValueError("ssm_scan_bwd on the card takes the forward's chunk "
@@ -215,6 +221,8 @@ def ssm_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     _check_shapes(x, dt, A, Bm, C)
     if x.device.type == "cpu":
         return ssm_scan_ref(x, dt, A, Bm, C)
+    if x.device.type == "meta":
+        return ssm_scan_meta(x, dt, A, Bm, C)
     _cuda_only(x, "ssm_scan")
     if torch.is_grad_enabled() and any(t.requires_grad
                                        for t in (x, dt, A, Bm, C)):

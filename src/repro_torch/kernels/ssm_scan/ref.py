@@ -29,6 +29,39 @@ def ssm_scan_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return y
 
 
+def _states_meta(x, dt, A, Bm):
+    """A (B, T, d, N) tensor of the states' shape built from every input
+    without a loop (no product): shapes only, for the meta device."""
+    return torch.exp(dt[..., None] * A) * (dt * x)[..., None] \
+        * Bm[:, :, None, :]
+
+
+def ssm_scan_meta(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                  Bm: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
+    """:func:`ssm_scan_ref`'s result shape and dtype for the meta device,
+    with the same products and no loop over T: one (B T) x d x N product,
+    as the plain version's T per-step ones (2 B T d N FLOPs), and under
+    autograd the same backward products (4 B T d N)."""
+    acc = wide_dtype(x.dtype)
+    x, dt, A, Bm, C = (t.to(acc) for t in (x, dt, A, Bm, C))
+    return torch.einsum("btdn,btn->btd", _states_meta(x, dt, A, Bm), C)
+
+
+def ssm_scan_bwd_meta(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                      Bm: torch.Tensor, C: torch.Tensor, dy: torch.Tensor
+                      ) -> Tuple[torch.Tensor, ...]:
+    """:func:`ssm_scan_bwd_ref`'s result shapes and dtypes for the meta
+    device, with its three per-step products (dC, dB and the sum over N
+    behind dx and ddt; 6 B T d N FLOPs) as three products over all T."""
+    acc = wide_dtype(x.dtype)
+    x, dt, A, Bm, C, dy = (t.to(acc) for t in (x, dt, A, Bm, C, dy))
+    h = _states_meta(x, dt, A, Bm)
+    dC = torch.einsum("btd,btdn->btn", dy, h)
+    dB = torch.einsum("btdn,btd->btn", h, dt * x)
+    sdb = torch.einsum("btdn,btn->btd", h, Bm)
+    return (dt * sdb, x * sdb, (h * A).sum((0, 1)), dB, dC)
+
+
 def ssm_scan_bwd_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                      Bm: torch.Tensor, C: torch.Tensor, dy: torch.Tensor
                      ) -> Tuple[torch.Tensor, ...]:

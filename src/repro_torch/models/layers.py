@@ -66,6 +66,15 @@ def init_params(gen: torch.Generator, tree: Pytree,
     return {k: init_params(gen, v, dtype, device) for k, v in tree.items()}
 
 
+def logical_axes_tree(tree: Pytree) -> Pytree:
+    """Each :class:`ParamSpec` leaf's logical axis names, in the tree's
+    shape: what :mod:`repro_torch.distributed.sharding` resolves to mesh
+    axes."""
+    if isinstance(tree, ParamSpec):
+        return tree.axes
+    return {k: logical_axes_tree(v) for k, v in tree.items()}
+
+
 def tree_map(fn, tree: Pytree) -> Pytree:
     """Apply ``fn`` to every leaf of a nested dict."""
     if isinstance(tree, dict):

@@ -140,7 +140,10 @@ def moe_apply_grouped(p, x: torch.Tensor, cfg: ModelConfig,
     eid_s = eid[order]
     tok_s = order // k
     w_s = w[order]
-    counts = torch.bincount(eid, minlength=E)
+    # a scatter-add, not bincount: the same counts, and it has a meta
+    # kernel (the dry run)
+    counts = torch.zeros(E, dtype=eid.dtype, device=x.device).scatter_add_(
+        0, eid, torch.ones_like(eid))
     starts = torch.cumsum(counts, 0) - counts
     slot = torch.arange(T * k, device=x.device) - starts[eid_s]
     keep = slot < C

@@ -51,6 +51,17 @@ def init_opt_state(params: Pytree, kind: str = "adamw") -> OptState:
                     mu=mu, nu=nu)
 
 
+def opt_state_shapes(param_shapes: Pytree, kind: str = "adamw") -> OptState:
+    """The state :func:`init_opt_state` makes for parameters of
+    ``param_shapes`` (``(shape, dtype)`` leaves, as
+    :func:`~repro_torch.models.param_shapes` gives them), as ``(shape,
+    torch dtype)`` pairs; nothing is allocated."""
+    mu = tree_map(lambda p: (tuple(p[0]), torch.float32), param_shapes)
+    nu = mu if kind == "adamw" else tree_map(lambda p: ((), torch.float32),
+                                             param_shapes)
+    return OptState(step=((), torch.int32), mu=mu, nu=nu)
+
+
 def lr_schedule(step: int, rc: RunConfig) -> float:
     """Linear warmup to ``rc.lr`` over ``warmup_steps``, then a cosine to a
     tenth of it at ``total_steps``."""
@@ -135,4 +146,4 @@ def lion_update(params: Pytree, state: OptState, grads: Pytree,
 
 
 __all__ = ["OptState", "adamw_update", "clip_by_global_norm",
-           "init_opt_state", "lion_update", "lr_schedule"]
+           "init_opt_state", "lion_update", "lr_schedule", "opt_state_shapes"]

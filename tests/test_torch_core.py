@@ -56,10 +56,24 @@ def _simulate(core, kernel, policy, n_samples=32):
     return prog, core.simulate(prog, core.MachineConfig())
 
 
-@pytest.mark.parametrize("policy", POLICIES)
-@pytest.mark.parametrize("kernel", sorted(jcore.KERNELS))
-def test_lowered_kernels_simulate_as_the_reference(kernel, policy):
-    """7 kernels x 3 policies: the same program lowered, the same run."""
+@pytest.fixture
+def fresh_prefix_caches():
+    """Both packages' COPIFTv2 prefix caches empty before and after the
+    test.  A cached prefix keeps its ``_Builder``, whose uid counter goes on
+    counting across the lowerings that share it, so a lowering's uids
+    depend on what the process lowered before: a test that lowers in both
+    packages must start both from the same history."""
+    from repro.core import transform as jtransform
+    from repro_torch.core import transform as ttransform
+    caches = (jtransform._V2_PREFIX_CACHE, ttransform._V2_PREFIX_CACHE)
+    for c in caches:
+        c.clear()
+    yield
+    for c in caches:
+        c.clear()
+
+
+def _same_lowering_and_run(kernel, policy):
     assert sorted(tcore.KERNELS) == sorted(jcore.KERNELS)
     jprog, jres = _simulate(jcore, kernel, policy)
     tprog, tres = _simulate(tcore, kernel, policy)
@@ -72,6 +86,26 @@ def test_lowered_kernels_simulate_as_the_reference(kernel, policy):
     assert outputs == [jres.env[v] for v in jprog.output_values]
     assert (tres.ipc, tres.throughput, tres.efficiency) == \
         (jres.ipc, jres.throughput, jres.efficiency)
+
+
+@pytest.mark.parametrize("policy", POLICIES)
+@pytest.mark.parametrize("kernel", sorted(jcore.KERNELS))
+def test_lowered_kernels_simulate_as_the_reference(kernel, policy,
+                                                   fresh_prefix_caches):
+    """7 kernels x 3 policies: the same program lowered, the same run."""
+    _same_lowering_and_run(kernel, policy)
+
+
+@pytest.mark.parametrize("kernel", ["expf", "histf"])
+def test_lowering_after_a_cached_prefix_matches(kernel, fresh_prefix_caches):
+    """The order that once failed: a COPIFTv2 lowering of the kernel at
+    another depth in the same process first (its prefix, and the ``_Builder``'s
+    uid counter, are then cached), in both packages, then the
+    comparison, which lowers from the cached prefix on both sides."""
+    for core in (jcore, tcore):
+        core.lower(core.KERNELS[kernel], core.ExecutionPolicy.COPIFTV2,
+                   core.TransformConfig(n_samples=32, queue_depth=1))
+    _same_lowering_and_run(kernel, "copiftv2")
 
 
 #: single-PE points (symmetric and asymmetric rings), 2- and 4-core
