@@ -31,10 +31,18 @@ prints no result):
    at 4096 steps, where it walks T in segments.  The products are those
    of the served models (nemotron-4-340b's at full width: a head weight of
    4.72e9 elements, an ffn wo summing K = 73728), of granite-moe-3b-a800m
-   (trained in phase 5; its vocab of 49155 is not a multiple of 8) and of
-   hubert-xlarge, each held to its plain version over the whole output;
+   (trained in phase 5; its vocab of 49155 is not a multiple of 8), of
+   hubert-xlarge and of glm4-9b (served in phase ``entry``: d_ff 13696,
+   vocab 151552), each held to its plain version over the whole output;
    ``flash_attention`` also at pixtral's (32 over 8 of 128), hubert's (16
-   of 80, non-causal) and nemotron's heads (96 over 8 of 192).
+   of 80, non-causal), nemotron's (96 over 8 of 192) and glm4-9b's heads
+   (32 over 2 of 128).  Then phase ``entry``'s other main paths at the
+   shapes they give the kernels (``entry_paths``, from a generator of
+   their own): quickstart's products (reduced phi3, fp32, M = 512 and 2)
+   and heads (8 x 64 tokens, 4 of 16), train_lm 100m's products (fp32, M =
+   4096) and heads (8 x 512 tokens, 8 over 4 of 64), the prefill cell's
+   decode products (phi3 over 2 slots, bf16) and serve_batch's (glm4-9b
+   over 3 slots, bf16).
 3. parity  — phi3-mini-3.8b, olmoe-1b-7b, falcon-mamba-7b, minicpm3-4b,
    pixtral-12b (with 256 patch rows, over 512 positions) and
    hubert-xlarge (on frames) at full width, depth cut to 2 layers, and
@@ -88,13 +96,36 @@ prints no result):
    then the product) and ring (COPIFTv2), each equal bit for bit to
    ``queue_matmul`` alone, its main path's launches counted, timed beside
    ``queue_matmul`` alone; the group is destroyed at the end.
-5. train   — the training path (``--train-parts`` picks among a-d):
+4d. entry — the port's entry scripts, each its own main path:
+   ``repro_torch.examples.quickstart`` at its default (reduced
+   phi3-mini-3.8b, 20 steps: finite losses, the last below the first, 8
+   tokens decoded); ``serve_batch --full`` on glm4-9b (``ENTRY_ARCH``: 40
+   layers, bf16, its GQA group of 16), chunked and token prefill on the
+   same weights giving the same tokens and traffic history, then one
+   ``forward`` over 512 tokens (``flash_attention`` at 32 over 2 heads of
+   128; phase 2 holds its products and attention, drawn from a generator
+   of their own), its peak memory and a profile of a decode body;
+   ``train_lm --preset 100m`` (``TRAIN_LM``: fp32, 8 x 512 tokens a step,
+   200 steps, checkpoints under ``build/`` removed afterwards; the loss
+   must improve); the live chunked-prefill cell
+   ``serve_slo.run_prefill(PREFILL_CARD)`` (full-width phi3-mini-3.8b in
+   bf16, ``PREFILL_TRIALS`` trials) with its hard gates (equal tokens and
+   cache rows, the cycles-domain TTFT gain, the chunk-program bound) and
+   its wall-clock gain printed beside the reference's bar, which is
+   recorded, not enforced; then ``kernel_bench`` at the reference's shapes and
+   ``--shapes main`` (``queue_matmul``'s depths over rounds, their bits
+   equal) and ``collective_policy`` on one NCCL rank in its child process.
+5. train  — the training path (``--train-parts`` picks among a-d):
    (a) each backward against its plain backward on the same inputs, fp32
    and bf16, equal to itself across two calls, timed with its bound and
    its library yardstick: ``flash_attention_bwd`` (o and lse from the
    forward kernel) at ``BWD_CASES``, rows that see no key with zero
    gradients, beside SDPA's backward; ``queue_matmul``'s dX and dW at
-   phi3's products and granite's head over 1024 tokens; ``moe_gemm``'s
+   phi3's products and granite's head over 1024 tokens; both also at the
+   training shapes of phase ``entry``'s quickstart and train_lm (their
+   heads; their products over 512 and 4096 tokens, dY at 1/sqrt(M), with
+   the kernel's and the plain version's distances from fp64 logged);
+   ``moe_gemm``'s
    (``MOE_BWD``: a shared and a per-expert x, with and without an expert
    mask, beside ``torch.bmm``), and ``moe_apply``'s gradients equal with
    the mask and without; ``rglru_scan``'s reverse walk at 2 x 512 x 2560
@@ -133,7 +164,8 @@ import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("build", "kernels", "parity", "serve", "policy", "dist", "train")
+PHASES = ("build", "kernels", "parity", "serve", "policy", "dist", "entry",
+          "train")
 TRAIN_PARTS = ("a", "b", "c", "d")
 #: the H100 SXM's HBM rate and peak FLOP/s by dtype, from
 #: ``repro_torch.roofline`` (set in :func:`main` once the checkout's
@@ -158,7 +190,15 @@ ENCODERS = ("hubert-xlarge",)
 #: their own (``SEED`` + the offset), so that adding them left the inputs
 #: of every case before them as they were
 OWN_DRAWS = {"granite-moe-3b-a800m": 11, "pixtral-12b": 13,
-             "nemotron-4-340b": 13, "hubert-xlarge": 13}
+             "nemotron-4-340b": 13, "hubert-xlarge": 13, "glm4-9b": 22}
+#: the model phase ``entry`` serves at full width through the port's
+#: ``serve_batch`` (its products and attention join phase 2)
+ENTRY_ARCH = "glm4-9b"
+#: phase ``entry``'s other main paths, which phases 2 and 5 (a) check at
+#: the shapes they give the kernels (:func:`entry_paths`), draw their
+#: inputs from a generator of their own (``SEED`` + this offset), so every
+#: earlier case keeps its inputs
+ENTRY_DRAW = 23
 #: phase 3's draws of the kept layers: (arch, scale, whether the card is
 #: held to 2e-3 of the CPU's fp64 run).  "depth" is the full-depth model's
 #: scale, as the reference's initializer gives it (std 1/sqrt(n_layers));
@@ -183,18 +223,15 @@ PARITY = (("phi3-mini-3.8b", "depth", True),
           ("minicpm3-4b", "depth", True),
           ("pixtral-12b", "fan_in", True),
           ("hubert-xlarge", "depth", True))
-#: draws whose decode ``PARITY`` cannot hold to ``FP64_RATIO``, logged by
-#: :func:`decode_spread`, not held.  At pixtral-12b's depth scale (std
+#: pixtral-12b's depth draw is not in ``PARITY``: at its depth scale (std
 #: 1/sqrt(40) over widths of 5120-14336) a decode step's softmax sits near
 #: a tie in some slots and amplifies rounding: the CPU's own fp32 distance
-#: from fp64 moves about 2x with its thread count alone, and the card's
-#: plain versions (cuBLAS) land farther than its kernels, so a ratio to
-#: one CPU run cannot tell a kernel fault from luck there.  Its fan-in
-#: draw carries the phase 3 checks (its forward at the depth scale, and
-#: phase 5 (b)'s gradients, hold them)
-SPREAD = (("pixtral-12b", "depth"),)
-#: the CPU thread count :func:`decode_spread` adds to the default
-SPREAD_THREADS = (1,)
+#: from fp64 moved about 2x with its thread count alone, and the card's
+#: plain versions (cuBLAS) landed farther than its kernels (the card's
+#: readings, in ROADMAP.md's standing notes), so a
+#: ratio to one CPU run cannot tell a kernel fault from luck there.  Its
+#: fan-in draw carries the phase 3 checks (its forward at the depth scale,
+#: and phase 5 (b)'s gradients, hold them)
 #: phase 3's and 5 (b)'s sequence: 128 tokens, but 512 for the vision
 #: model, whose 256 patch rows replace the first 256 token embeddings (at
 #: S <= 256 the reference's concatenation gives the patches' 256 rows, not
@@ -414,14 +451,15 @@ def phase_build() -> None:
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def matmul_shapes(arch: str):
+def matmul_shapes(arch):
     """(product, K, N, dtypes) of every ``queue_matmul`` product on
-    ``arch``'s serve path, at full width; the router runs in fp32 only.
+    ``arch``'s serve path, at full width (or on the ``ModelConfig`` given
+    in its place); the router runs in fp32 only.
     MLA's wuk and wuv (the latent to every head's k and v) run in the
     expanded form of ``forward`` only; its decode absorbs them."""
     from repro_torch.configs import get_config
     from repro_torch.models.ssm import ssm_dims
-    cfg = get_config(arch)
+    cfg = get_config(arch) if isinstance(arch, str) else arch
     d, hd = cfg.d_model, cfg.resolved_head_dim
     both = (torch.float32, torch.bfloat16)
     if cfg.family == "ssm":
@@ -463,6 +501,31 @@ def matmul_shapes(arch: str):
             for (k, n), (names, dtypes) in merged.items()]
 
 
+def entry_paths():
+    """(path, config, the row counts M of its products, dtype, (batch,
+    seq) of its training attention or None) of phase ``entry``'s main
+    paths besides glm4-9b's ``forward``: quickstart (reduced
+    phi3-mini-3.8b, fp32: 8 x 64 tokens a step, then 2 decode slots),
+    train_lm's preset (fp32: batch x seq tokens a step), the prefill cell's
+    decode bodies (``PREFILL_CARD``: full-width phi3-mini-3.8b over its
+    slots, bf16) and serve_batch's (glm4-9b over 3 slots, bf16)."""
+    from repro_torch.benchmarks import serve_slo
+    from repro_torch.configs import get_config, get_reduced
+    from repro_torch.examples import train_lm
+    lm = train_lm.PRESETS[TRAIN_LM["preset"]]
+    card = serve_slo.PREFILL_CARD
+    return [("quickstart", get_reduced("phi3-mini-3.8b"), (8 * 64, 2),
+             torch.float32, (8, 64)),
+            (f"train_lm {TRAIN_LM['preset']}",
+             train_lm.model_config(TRAIN_LM["preset"]),
+             (lm["batch"] * lm["seq"],), torch.float32,
+             (lm["batch"], lm["seq"])),
+            ("prefill cell", get_config(card["arch"]),
+             (card["batch_slots"],), torch.bfloat16, None),
+            ("serve_batch", get_config(ENTRY_ARCH), (3,), torch.bfloat16,
+             None)]
+
+
 #: ring depth pairs every queue_matmul case must give the same bits at
 QM_DEPTHS = ((1, 1), (2, 2), (4, 4), (2, 4), (8, 8), (1, 8))
 
@@ -472,6 +535,7 @@ def check_queue_matmul(gen, report) -> dict:
     hubert-xlarge at M = 4 (decode over 4 slots; not the encoder's) and M =
     512 (``forward``; MLA's wuk/wuv there only), and phi3's q/k/v/o and ffn
     products also at M = 64 and 128 (the wide kernel's smallest tiles),
+    then every product of :func:`entry_paths` at its rows and dtype,
     bit-identical across the ring depths of ``QM_DEPTHS`` and held to the
     plain version over the whole output (nemotron-4-340b's head weight has
     4.72e9 elements, its ffn wo sums K = 73728).  A product of more than
@@ -481,8 +545,63 @@ def check_queue_matmul(gen, report) -> dict:
     rep = None
     log("[kernels] queue_matmul  model product  M     K     N    dtype  "
         "max_abs_err  ms  plain_ms  library_ms  bound_ms")
+
+    def one(model, label, name, m, k, n, dtype, g) -> dict:
+        x = torch.randn((m, k), generator=g, device="cuda").to(dtype)
+        # scaled in place: nemotron's head is 18.9 GB in fp32
+        w = torch.randn((k, n), generator=g, device="cuda").div_(
+            math.sqrt(k)).to(dtype)
+        ref = matmul_ref(x, w).to(dtype)
+        outs = {d: ops.queue_matmul(x, w, depth_x=d[0], depth_w=d[1])
+                for d in QM_DEPTHS}
+        torch.cuda.synchronize()
+        base = outs[(1, 1)]
+        for d, o in outs.items():
+            if not torch.equal(o, base):
+                raise AssertionError(
+                    f"queue_matmul depths {d} differ from depth 1 at "
+                    f"{model} {name} M={m} K={k} N={n} {dtype}")
+        err = within(base, ref, TOL[dtype])
+        del outs, ref
+        copies = max(2, math.ceil(100e6 / (w.numel() * w.element_size())))
+        args = [(x, w)] + [(x.clone(), w.clone())
+                           for _ in range(copies - 1)]
+        make = cycling(args)
+        n_it = 3 if 2.0 * m * n * k > 1e12 else 20
+        ms = cuda_ms(make(lambda a, b: ops.queue_matmul(a, b)), n_it)
+        wall = wall_ms(make(lambda a, b: ops.queue_matmul(a, b)), n_it)
+        host = host_ms(make(lambda a, b: ops.queue_matmul(a, b)),
+                       5 * n_it)
+        plain = cuda_ms(make(lambda a, b: matmul_ref(a, b).to(a.dtype)),
+                        n_it)
+        lib = cuda_ms(make(torch.matmul), n_it)
+        b_ms, b_by = bound(2.0 * m * n * k,
+                           (m * k + k * n + m * n) * x.element_size(),
+                           dtype)
+        del args, make, w, base       # before the next draw: heads are GBs
+        # the kernel this M takes (older trees have one kernel)
+        kind = (ops.regime(m, dtype) if hasattr(ops, "regime")
+                else "ring")
+        log(f"[kernels] queue_matmul {label:>6s} "
+            f"{name:>8s} {m:4d} {k:5d} {n:5d} {str(dtype)[6:]:>8s} "
+            f"{err:10.3e} {ms:8.4f} {plain:8.4f} {lib:8.4f} {b_ms:8.4f} "
+            f"({b_by}; {kind}"
+            + (f", split {ops.split_k(k, n)}" if kind == "thin" else "")
+            + f"; {2.0 * m * n * k / ms / 1e9:.1f} TFLOP/s, "
+            f"{(m * k + k * n + m * n) * x.element_size() / ms / 1e6:.0f}"
+            f" GB/s; wall {wall:.4f}, host {host:.4f})")
+        row = {"model": model, "product": name, "M": m, "K": k, "N": n,
+               "dtype": str(dtype)[6:], "regime": kind,
+               "max_abs_err": err, "ms": ms, "wall_ms": wall,
+               "host_ms": host,
+               "plain_ms": plain, "library_ms": lib, "bound_ms": b_ms,
+               "bound_by": b_by}
+        report.append({"kernel": "queue_matmul", **row})
+        return row
+
     cases = [(arch, name, k, n, dtype)
              for arch in SERVED + ("granite-moe-3b-a800m",) + ENCODERS
+             + (ENTRY_ARCH,)
              for name, k, n, dtypes in matmul_shapes(arch)
              for dtype in dtypes]
     gens = {off: torch.Generator(device="cuda").manual_seed(SEED + off)
@@ -499,59 +618,20 @@ def check_queue_matmul(gen, report) -> dict:
                 continue
             seen.add((m, k, n, dtype))
             g = gens[OWN_DRAWS[arch]] if arch in OWN_DRAWS else gen
-            x = torch.randn((m, k), generator=g, device="cuda").to(dtype)
-            # scaled in place: nemotron's head is 18.9 GB in fp32
-            w = torch.randn((k, n), generator=g, device="cuda").div_(
-                math.sqrt(k)).to(dtype)
-            ref = matmul_ref(x, w).to(dtype)
-            outs = {d: ops.queue_matmul(x, w, depth_x=d[0], depth_w=d[1])
-                    for d in QM_DEPTHS}
-            torch.cuda.synchronize()
-            base = outs[(1, 1)]
-            for d, o in outs.items():
-                if not torch.equal(o, base):
-                    raise AssertionError(
-                        f"queue_matmul depths {d} differ from depth 1 at "
-                        f"{arch} {name} M={m} K={k} N={n} {dtype}")
-            err = within(base, ref, TOL[dtype])
-            del outs, ref
-            copies = max(2, math.ceil(100e6 / (w.numel() * w.element_size())))
-            args = [(x, w)] + [(x.clone(), w.clone())
-                               for _ in range(copies - 1)]
-            make = cycling(args)
-            n_it = 3 if 2.0 * m * n * k > 1e12 else 20
-            ms = cuda_ms(make(lambda a, b: ops.queue_matmul(a, b)), n_it)
-            wall = wall_ms(make(lambda a, b: ops.queue_matmul(a, b)), n_it)
-            host = host_ms(make(lambda a, b: ops.queue_matmul(a, b)),
-                           5 * n_it)
-            plain = cuda_ms(make(lambda a, b: matmul_ref(a, b).to(a.dtype)),
-                            n_it)
-            lib = cuda_ms(make(torch.matmul), n_it)
-            b_ms, b_by = bound(2.0 * m * n * k,
-                               (m * k + k * n + m * n) * x.element_size(),
-                               dtype)
-            del args, make, w, base   # before the next draw: heads are GBs
-            # the kernel this M takes (older trees have one kernel)
-            kind = (ops.regime(m, dtype) if hasattr(ops, "regime")
-                    else "ring")
-            log(f"[kernels] queue_matmul {arch.split('-')[0]:>6s} "
-                f"{name:>8s} {m:4d} {k:5d} {n:5d} {str(dtype)[6:]:>8s} "
-                f"{err:10.3e} {ms:8.4f} {plain:8.4f} {lib:8.4f} {b_ms:8.4f} "
-                f"({b_by}; {kind}"
-                + (f", split {ops.split_k(k, n)}" if kind == "thin" else "")
-                + f"; {2.0 * m * n * k / ms / 1e9:.1f} TFLOP/s, "
-                f"{(m * k + k * n + m * n) * x.element_size() / ms / 1e6:.0f}"
-                f" GB/s; wall {wall:.4f}, host {host:.4f})")
-            row = {"model": arch, "product": name, "M": m, "K": k, "N": n,
-                   "dtype": str(dtype)[6:], "regime": kind,
-                   "max_abs_err": err, "ms": ms, "wall_ms": wall,
-                   "host_ms": host,
-                   "plain_ms": plain, "library_ms": lib, "bound_ms": b_ms,
-                   "bound_by": b_by}
-            report.append({"kernel": "queue_matmul", **row})
+            row = one(arch, arch.split("-")[0], name, m, k, n, dtype, g)
             if (m, k, n, dtype) == (4, 3072, 8192, torch.bfloat16):
                 rep = row
         free_card()
+    # phase entry's other main paths, from a generator of their own
+    g = torch.Generator(device="cuda").manual_seed(SEED + ENTRY_DRAW)
+    for path, cfg, rows, dtype, _ in entry_paths():
+        for name, k, n, _ in matmul_shapes(cfg):
+            for m in rows:
+                if (m, k, n, dtype) in seen:
+                    continue
+                seen.add((m, k, n, dtype))
+                one(cfg.name, path.split()[0], name, m, k, n, dtype, g)
+            free_card()
     return rep
 
 
@@ -628,14 +708,28 @@ def check_flash_attention(gen, report) -> dict:
     registry = [(32, 8, 512, 512, 128, True, None, 0, 128),
                 (16, 16, 512, 512, 80, False, None, 0, 80),
                 (96, 8, 512, 512, 192, True, None, 0, 192)]
+    # glm4-9b's heads (32 over 2 of 128, a GQA group of 16) at phase
+    # entry's 512 tokens, from its phase 2 products' generator
+    entry = [(32, 2, 512, 512, 128, True, None, 0, 128)]
+    glm = torch.Generator(device="cuda").manual_seed(
+        SEED + OWN_DRAWS[ENTRY_ARCH])
+    # the training heads of phase entry's other paths (quickstart's 4 of
+    # 16 and train_lm's 8 over 4 of 64), causal, over their batches
+    paths = [(b, (cfg.n_heads, cfg.n_kv_heads, seq, seq,
+                  cfg.resolved_head_dim, True, None, 0,
+                  cfg.resolved_head_dim))
+             for _, cfg, _, _, (b, seq) in
+             [p for p in entry_paths() if p[4] is not None]]
+    own = torch.Generator(device="cuda").manual_seed(SEED + ENTRY_DRAW)
+    runs = ([(1, c, gen) for c in cases] + [(1, c, extra) for c in trained]
+            + [(1, c, latest) for c in registry]
+            + [(1, c, glm) for c in entry] + [(b, c, own) for b, c in paths])
     for dtype in (torch.float32, torch.bfloat16):
-        for case in cases + trained + registry:
+        for b, case, g in runs:
             hq, hkv, sq, sk, d, causal, window, q_off, dv = case
-            g = (extra if case in trained else latest if case in registry
-                 else gen)
-            q = torch.randn((1, hq, sq, d), generator=g, device="cuda").to(dtype)
-            k = torch.randn((1, hkv, sk, d), generator=g, device="cuda").to(dtype)
-            v = torch.randn((1, hkv, sk, dv), generator=g, device="cuda").to(dtype)
+            q = torch.randn((b, hq, sq, d), generator=g, device="cuda").to(dtype)
+            k = torch.randn((b, hkv, sk, d), generator=g, device="cuda").to(dtype)
+            v = torch.randn((b, hkv, sk, dv), generator=g, device="cuda").to(dtype)
 
             def run():
                 return ops.flash_attention(q, k, v, causal=causal,
@@ -651,24 +745,24 @@ def check_flash_attention(gen, report) -> dict:
             lib = cuda_ms(lambda: _sdpa(q, k, v, causal, window, q_off))
             pairs = int(_keep(sq, sk, causal, window, q_off).sum())
             # QK^T over D and PV over Dv, 2 operations a multiply-add
-            flops = 2.0 * hq * pairs * (d + dv)
-            b_ms, b_by = bound(flops, (hq * sq + hkv * sk) * (d + dv)
+            flops = 2.0 * b * hq * pairs * (d + dv)
+            b_ms, b_by = bound(flops, b * (hq * sq + hkv * sk) * (d + dv)
                                * q.element_size(), dtype)
-            log(f"[kernels] flash_attention  1 {hq:3d} {hkv:3d} {sq:5d} "
+            log(f"[kernels] flash_attention {b:2d} {hq:3d} {hkv:3d} {sq:5d} "
                 f"{sk:5d} {d:3d} {dv:3d} {int(causal):6d} {str(window):>6s} "
                 f"{q_off:5d} {str(dtype)[6:]:>8s} {err:10.3e} {ms:8.4f} "
                 f"{plain:8.4f} {lib:8.4f} {b_ms:8.4f} ({b_by}; "
                 f"{ms / lib:.2f}x library; "
                 f"{flops / ms / 1e9:.1f} TFLOP/s; "
                 f"wall {wall:.4f})")
-            row = {"B": 1, "Hq": hq, "Hkv": hkv, "Sq": sq, "Sk": sk, "D": d,
+            row = {"B": b, "Hq": hq, "Hkv": hkv, "Sq": sq, "Sk": sk, "D": d,
                    "Dv": dv, "causal": causal, "window": window, "q_offset": q_off,
                    "dtype": str(dtype)[6:], "max_abs_err": err, "ms": ms,
                    "wall_ms": wall, "plain_ms": plain, "library_ms": lib,
                    "bound_ms": b_ms, "bound_by": b_by}
             report.append({"kernel": "flash_attention", **row})
-            if (hq, hkv, sq, causal, window, d, dtype) == (
-                    32, 32, 512, True, None, 96, torch.bfloat16):
+            if (b, hq, hkv, sq, causal, window, d, dtype) == (
+                    1, 32, 32, 512, True, None, 96, torch.bfloat16):
                 rep = row
     return rep
 
@@ -711,17 +805,26 @@ def _sdpa_bwd(q, k, v, do, causal, window):
 def check_flash_attention_bwd(gen, report) -> dict:
     """The backward kernel against :func:`attention_bwd_ref` (through the
     wrapper's plain GQA path) on the same q, k, v, o, lse and dO, o and lse
-    from the forward kernel, at ``BWD_CASES`` in fp32 and bf16; two calls
-    must give the same bits, and rows that see no key zero gradients."""
+    from the forward kernel, at ``BWD_CASES`` and the training heads of
+    :func:`entry_paths` in fp32 and bf16; two calls must give the same
+    bits, and rows that see no key zero gradients."""
     from repro_torch.kernels.flash_attention import ops
     rep = None
     log("[train] flash_attention_bwd  B  Hq Hkv   Sq   Sk   D  Dv causal "
         "window  dtype  max_abs_err  ms  plain_ms  library_ms  bound_ms")
     own = torch.Generator(device="cuda").manual_seed(SEED + 15)
+    # the training heads of phase entry's other paths (quickstart's 4 of
+    # 16, train_lm's 8 over 4 of 64), causal, from a generator of their own
+    paths = [(b, cfg.n_heads, cfg.n_kv_heads, seq, seq,
+              cfg.resolved_head_dim, cfg.resolved_head_dim, True, None)
+             for _, cfg, _, _, (b, seq) in
+             [p for p in entry_paths() if p[4] is not None]]
+    entry = torch.Generator(device="cuda").manual_seed(SEED + ENTRY_DRAW)
+    runs = ([(c, own if c in BWD_OWN else gen) for c in BWD_CASES]
+            + [(c, entry) for c in paths])
     for dtype in (torch.float32, torch.bfloat16):
-        for case in BWD_CASES:
+        for case, g in runs:
             b, hq, hkv, sq, sk, d, dv, causal, window = case
-            g = own if case in BWD_OWN else gen
 
             def rnd(*shape):
                 return torch.randn(shape, generator=g, device="cuda").to(
@@ -789,48 +892,81 @@ def check_queue_matmul_grads(gen, report) -> None:
     """``queue_matmul``'s backward (dX = dY W^T and dW = X^T dY, both
     through the kernel) against the autograd of :func:`matmul_ref`, at
     phi3's products and granite's head (49155 columns, not a multiple of
-    8) over 2 x 512 tokens, fp32 and bf16; dW's rows are K,
-    so in bf16 both products take the wide kernel.  Times: the two
+    8) over 2 x 512 tokens, fp32 and bf16, then the products of the
+    training paths of :func:`entry_paths` at their tokens and dtype
+    (dY at 1/sqrt(M); the distances of both from fp64 logged); dW's
+    rows are K, so in bf16 both products take the wide kernel.  Times: the two
     products with their transposes, and ``torch.matmul``'s two."""
     from repro_torch.kernels.queue_matmul import ops
     from repro_torch.kernels.queue_matmul.ref import matmul_ref
     log("[train] queue_matmul grads  M     K     N  dtype  dX err  dW err  "
         "dX ms  dW ms  library dX, dW ms  bound ms (each)")
-    m = 1024
+
+    def one(m, k, n, dtype, gen, entry: bool = False) -> None:
+        x = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
+        w = (torch.randn((k, n), generator=gen, device="cuda")
+             / math.sqrt(k)).to(dtype)
+        dy = torch.randn((m, n), generator=gen, device="cuda")
+        if entry:
+            dy = dy / math.sqrt(m)
+        dy = dy.to(dtype)
+        xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
+        dx, dw = torch.autograd.grad(ops.queue_matmul(xg, wg), (xg, wg),
+                                     dy)
+        xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+        rx, rw = torch.autograd.grad(matmul_ref(xr, wr).to(dtype),
+                                     (xr, wr), dy)
+        note = ""
+        if entry:
+            # both against the plain version on fp64 copies, logged
+            xe, we = (t.double().requires_grad_() for t in (x, w))
+            gx, gw = torch.autograd.grad(matmul_ref(xe, we), (xe, we),
+                                         dy.double())
+            note = "; from fp64 dX, dW: kernel {:.3e}, {:.3e}, plain {:.3e}, " \
+                   "{:.3e}".format(*((a.double() - b).abs().max().item()
+                                     for a, b in ((dx, gx), (dw, gw),
+                                                  (rx, gx), (rw, gw))))
+            del xe, we, gx, gw
+        torch.cuda.synchronize()
+        ex, ew = within(dx, rx, TOL[dtype]), within(dw, rw, TOL[dtype])
+        ms_x = cuda_ms(lambda: ops.queue_matmul(dy, w.t().contiguous()))
+        ms_w = cuda_ms(lambda: ops.queue_matmul(x.t().contiguous(), dy))
+        lib_x = cuda_ms(lambda: torch.matmul(dy, w.t()))
+        lib_w = cuda_ms(lambda: torch.matmul(x.t(), dy))
+        # either product reads two of x, w, dy and writes the third
+        b_ms, b_by = bound(2.0 * m * k * n,
+                           (m * k + k * n + m * n) * x.element_size(),
+                           dtype)
+        log(f"[train] queue_matmul grads {m:5d} {k:5d} {n:5d} "
+            f"{str(dtype)[6:]:>8s} {ex:.3e} {ew:.3e} {ms_x:8.4f} "
+            f"{ms_w:8.4f} {lib_x:8.4f} {lib_w:8.4f} {b_ms:8.4f} "
+            f"({b_by}; {2.0 * m * k * n / ms_x / 1e9:.1f}, "
+            f"{2.0 * m * k * n / ms_w / 1e9:.1f} TFLOP/s{note})")
+        report.append({"kernel": "queue_matmul_grads", "M": m, "K": k,
+                       "N": n, "dtype": str(dtype)[6:], "dx_err": ex,
+                       "dw_err": ew, "dx_ms": ms_x, "dw_ms": ms_w,
+                       "library_dx_ms": lib_x, "library_dw_ms": lib_w,
+                       "bound_ms": b_ms, "bound_by": b_by})
+        del x, w, dy, dx, dw, rx, rw, xg, wg, xr, wr
+
     for dtype in (torch.float32, torch.bfloat16):
         for k, n in ((3072, 3072), (3072, 8192), (8192, 3072),
                      (3072, 32064), (1536, 49155)):
-            x = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
-            w = (torch.randn((k, n), generator=gen, device="cuda")
-                 / math.sqrt(k)).to(dtype)
-            dy = torch.randn((m, n), generator=gen, device="cuda").to(dtype)
-            xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
-            dx, dw = torch.autograd.grad(ops.queue_matmul(xg, wg), (xg, wg),
-                                         dy)
-            xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
-            rx, rw = torch.autograd.grad(matmul_ref(xr, wr).to(dtype),
-                                         (xr, wr), dy)
-            torch.cuda.synchronize()
-            ex, ew = within(dx, rx, TOL[dtype]), within(dw, rw, TOL[dtype])
-            ms_x = cuda_ms(lambda: ops.queue_matmul(dy, w.t().contiguous()))
-            ms_w = cuda_ms(lambda: ops.queue_matmul(x.t().contiguous(), dy))
-            lib_x = cuda_ms(lambda: torch.matmul(dy, w.t()))
-            lib_w = cuda_ms(lambda: torch.matmul(x.t(), dy))
-            # either product reads two of x, w, dy and writes the third
-            b_ms, b_by = bound(2.0 * m * k * n,
-                               (m * k + k * n + m * n) * x.element_size(),
-                               dtype)
-            log(f"[train] queue_matmul grads {m:5d} {k:5d} {n:5d} "
-                f"{str(dtype)[6:]:>8s} {ex:.3e} {ew:.3e} {ms_x:8.4f} "
-                f"{ms_w:8.4f} {lib_x:8.4f} {lib_w:8.4f} {b_ms:8.4f} "
-                f"({b_by}; {2.0 * m * k * n / ms_x / 1e9:.1f}, "
-                f"{2.0 * m * k * n / ms_w / 1e9:.1f} TFLOP/s)")
-            report.append({"kernel": "queue_matmul_grads", "M": m, "K": k,
-                           "N": n, "dtype": str(dtype)[6:], "dx_err": ex,
-                           "dw_err": ew, "dx_ms": ms_x, "dw_ms": ms_w,
-                           "library_dx_ms": lib_x, "library_dw_ms": lib_w,
-                           "bound_ms": b_ms, "bound_by": b_by})
-            del x, w, dy, dx, dw, rx, rw, xg, wg, xr, wr
+            one(1024, k, n, dtype, gen)
+        free_card()
+    # the training paths of phase entry, at their own tokens and products,
+    # from a generator of their own.  dY is drawn at 1/sqrt(M), as w is at
+    # 1/sqrt(K), so that dW = X^T dY, a sum over M = 4096 tokens, stays
+    # O(1): at unit dY its entries reach the hundreds, and where they
+    # cancel near 0 the fp32 plain version's own rounding passed 2e-4 on
+    # the card (cuBLAS, farther from fp64 than the kernel there).  Both
+    # distances from fp64 are logged
+    gen = torch.Generator(device="cuda").manual_seed(SEED + ENTRY_DRAW)
+    for _, cfg, rows, dtype, batch in entry_paths():
+        if batch is None:
+            continue
+        for _, k, n, _ in matmul_shapes(cfg):
+            one(rows[0], k, n, dtype, gen, entry=True)
         free_card()
 
 
@@ -1844,71 +1980,6 @@ def phase_parity(arch: str, scale: str, hold: bool, failures: list) -> None:
     log(f"[parity] {name} done in {time.time() - t0:.1f} s")
 
 
-def decode_spread(arch: str, scale: str) -> None:
-    """The 4 ``decode_step``s of :func:`phase_parity` on the same draw and
-    tokens, each as its logits' RMS distance from the fp64 run, per step
-    and per slot: on the card through the kernels and through the plain
-    versions (``ExecutionPolicy.BASELINE``: cuBLAS, no TF32), and on the
-    CPU in fp32 at the default thread count and at ``SPREAD_THREADS``.
-    Logged, not held: it shows how far fp32 runs that differ only in
-    their summation order land from fp64 on a draw where ``SPREAD`` says
-    the ratio cannot be held."""
-    from repro_torch.config import RunConfig
-    from repro_torch.configs import get_config
-    from repro_torch.core.policy import ExecutionPolicy
-    from repro_torch.models import (decode_step, init_cache,
-                                    init_model_params, prepare_params)
-    from repro_torch.models.layers import tree_map
-    full = get_config(arch)
-    cfg = cut_depth(full)
-    t0 = time.time()
-    p_cpu = init_model_params(SEED, cfg, device="cpu")
-    redraw_scale(p_cpu, cfg, full, scale)
-    p_gpu = tree_map(lambda a: a.to("cuda"), p_cpu)
-    rng = np.random.default_rng(SEED)
-    model_inputs(cfg, rng, 1, PARITY_SEQ.get(arch, 128))  # phase 3's draws
-    steps = torch.from_numpy(rng.integers(0, cfg.vocab, (4, 4)))
-    rc = RunConfig(dtype="float32", remat=False)
-    plain = RunConfig(dtype="float32", remat=False,
-                      policy=ExecutionPolicy.BASELINE)
-    threads = torch.get_num_threads()
-    runs = ([("card kernels", p_gpu, "cuda", rc, threads),
-             ("card plain", p_gpu, "cuda", plain, threads)]
-            + [(f"CPU fp32 {n} threads", p_cpu, "cpu", rc, n)
-               for n in (threads,) + SPREAD_THREADS]
-            + [("fp64", p_cpu, "cpu", RunConfig(dtype="float64",
-                                                remat=False), threads)])
-    logits = {}
-    try:
-        for name, p, dev, r, n in runs:
-            torch.set_num_threads(n)
-            p = prepare_params(p, cfg, r)
-            cache = init_cache(cfg, 4, 16, r.dtype, device=dev)
-            logits[name] = []
-            for t in range(4):
-                lg, cache = decode_step(p, cache, {
-                    "tokens": steps[:, t:t + 1].to(dev)}, cfg, r)
-                logits[name].append(lg.cpu().double())
-    finally:
-        torch.set_num_threads(threads)
-    exact = logits.pop("fp64")
-    base = f"CPU fp32 {threads} threads"
-    for t in range(4):
-        for name, out in logits.items():
-            d = out[t] - exact[t]
-            r_all = d.pow(2).mean().sqrt().item()
-            r_base = (logits[base][t] - exact[t]).pow(2).mean().sqrt().item()
-            log(f"[parity] {arch} ({cfg.n_layers} layers, {scale} scale) "
-                f"decode_step {t} {name:>20s}: from fp64 rms {r_all:.3e} "
-                f"({r_all / r_base:.2f} of the {base} run's); per slot "
-                + " ".join(f"{x:.2e}"
-                           for x in d.pow(2).mean(-1).sqrt().tolist()))
-    del p_gpu
-    free_card()
-    log(f"[parity] {arch} ({scale} scale) decode spread, logged not held, "
-        f"in {time.time() - t0:.1f} s")
-
-
 def ring_parity(p_gpu, p_cpu, cfg, rng, name: str, hold: bool,
                 failures: list) -> None:
     """The hybrid model with its window cut to ``RING_WINDOW``: a
@@ -2519,6 +2590,235 @@ def phase_dist(smi: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# entry: the entry scripts on the card
+# ---------------------------------------------------------------------------
+
+#: phase ``entry``'s cuts for the script's time limit: the card ran the
+#: whole script in 1161 s on a slow host (NVIDIA H100 80GB HBM3, 700.00 W),
+#: past its 1100 s budget, so train_lm takes 200 of the reference's 300
+#: steps and the prefill cell 3 of its 5 trials (the reference's smoke
+#: value)
+TRAIN_LM = dict(preset="100m", steps=200)
+PREFILL_TRIALS = 3
+
+
+def _reset(counters) -> None:
+    for c in counters.values():
+        c.launches = 0
+
+
+def _read(counters, need, what: str) -> dict:
+    """The launches since :func:`_reset`; raises unless every kernel of
+    ``need`` ran."""
+    counts = {k: c.launches for k, c in counters.items() if c.launches}
+    for name in need:
+        if counts.get(name, 0) <= 0:
+            raise AssertionError(f"{name} never launched on {what}'s main "
+                                 f"path")
+    return counts
+
+
+def entry_quickstart(counters) -> dict:
+    """``repro_torch.examples.quickstart`` at its default (reduced
+    phi3-mini-3.8b, 20 steps): finite losses, the last below the first,
+    8 tokens decoded."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.examples import quickstart
+    from repro_torch.models import init_model_params
+    cfg = get_reduced("phi3-mini-3.8b")
+    params = init_model_params(0, cfg, device="cuda")
+    _reset(counters)
+    t0 = time.time()
+    out = quickstart.run(params, cfg, 20, "cuda")
+    torch.cuda.synchronize()
+    counts = _read(counters, TRAIN_KERNELS["dense"], "quickstart")
+    losses = out["losses"]
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0] or len(out["generated"]) != 8:
+        raise AssertionError(f"quickstart: losses {losses}, generated "
+                             f"{out['generated']}")
+    log(f"[entry] quickstart {cfg.name}: 20 steps in {time.time() - t0:.1f}"
+        f" s, loss {losses[0]:.4f} -> {losses[-1]:.4f}, generated "
+        f"{out['generated']}; launches {counts}")
+    return counts
+
+
+def entry_serve_batch(counters, smi: str) -> dict:
+    """``serve_batch --full`` on ``ENTRY_ARCH`` (glm4-9b: 40 layers, bf16,
+    weights drawn leaf by leaf), chunked and token prefill on the same
+    weights: equal tokens for every request and the same traffic history;
+    then ``forward`` at B=1 S=512 (``flash_attention`` at 32 over 2
+    heads), the peak memory and a profile of a decode body."""
+    from repro_torch.config import RunConfig
+    from repro_torch.configs import get_config
+    from repro_torch.examples import serve_batch
+    from repro_torch.models import forward, init_model_params
+    cfg = get_config(ENTRY_ARCH)
+    rc = RunConfig(dtype="bfloat16", param_dtype="bfloat16", remat=False)
+    t0 = time.time()
+    params = init_model_params(SEED, cfg, dtype=torch.bfloat16, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    log(f"[entry] serve_batch --full {ENTRY_ARCH} ({cfg.n_layers} layers, "
+        f"d {cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab}; {cfg.n_params() / 1e9:.2f} B "
+        f"parameters): bf16 weights drawn in {time.time() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    _reset(counters)
+    res = {p: serve_batch.run(params, cfg, rc, 6, 10, p, "cuda")
+           for p in ("chunked", "token")}
+    del params
+    chunked, token = res["chunked"], res["token"]
+    if chunked["tokens"] != token["tokens"] or \
+            chunked["traffic_history"] != token["traffic_history"]:
+        raise AssertionError(f"{ENTRY_ARCH}: chunked and token prefill "
+                             f"differ: {chunked['tokens']} vs "
+                             f"{token['tokens']}")
+    if [len(t) for t in chunked["tokens"]] != [10] * 6:
+        raise AssertionError(f"{ENTRY_ARCH}: tokens {chunked['tokens']}")
+    for p, r in res.items():
+        log(f"[entry] {ENTRY_ARCH} {p} prefill: 60 tokens in "
+            f"{r['wall_s']:.2f} s wall = {60 / r['wall_s']:.2f} tok/s; "
+            f"{r['steps']} steps, {r['prefill_compiles']} chunk programs; "
+            f"traffic {r['traffic_level']}; {smi}")
+    log(f"[entry] {ENTRY_ARCH}: chunked and token prefill give the same "
+        f"tokens and traffic history")
+    del token["engine"]
+    eng = chunked["engine"]
+    inputs = {k: v.cuda() for k, v in model_inputs(
+        cfg, np.random.default_rng(SEED + 1), 1, 512).items()}
+    fa = counters["flash_attention"].launches
+    t0 = time.time()
+    logits = forward(eng.params, inputs, cfg, eng.rc)
+    torch.cuda.synchronize()
+    fwd_s = time.time() - t0
+    if logits.shape != (1, 512, cfg.vocab) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{ENTRY_ARCH}: forward logits not finite")
+    if counters["flash_attention"].launches - fa != cfg.n_layers:
+        raise AssertionError(f"{ENTRY_ARCH}: forward launched "
+                             f"flash_attention "
+                             f"{counters['flash_attention'].launches - fa} "
+                             f"times, want {cfg.n_layers}")
+    del logits
+    counts = _read(counters, PATH_KERNELS[cfg.family], ENTRY_ARCH)
+    log(f"[entry] {ENTRY_ARCH} forward B=1 S=512 ({cfg.n_heads}/"
+        f"{cfg.n_kv_heads} heads of {cfg.resolved_head_dim}): {fwd_s:.3f} s "
+        f"wall; launches on the main path {counts}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {smi}")
+    profile_decode(eng.params, eng.cache, cfg, eng.rc, ENTRY_ARCH)
+    del eng, chunked, res
+    free_card()
+    return counts
+
+
+def entry_train_lm(counters, smi: str) -> dict:
+    """``train_lm --preset 100m`` (fp32, 8 x 512 tokens a step) for
+    ``TRAIN_LM["steps"]`` steps, its checkpoints under ``build/`` removed
+    afterwards; the script raises unless the loss improved."""
+    import shutil
+    import tempfile
+    from repro_torch.examples import train_lm
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    ckpt = tempfile.mkdtemp(prefix="train_lm_",
+                            dir=os.path.join(ROOT, "build"))
+    _reset(counters)
+    try:
+        out = train_lm.run(TRAIN_LM["preset"], TRAIN_LM["steps"], 1e-3,
+                           ckpt, "cuda")
+        saved = sorted(d for d in os.listdir(ckpt) if d.startswith("step_"))
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    counts = _read(counters, TRAIN_KERNELS["dense"], "train_lm")
+    steps = TRAIN_LM["steps"]
+    log(f"[entry] train_lm --preset {TRAIN_LM['preset']} "
+        f"({out['params_count'] / 1e6:.1f} M parameters, fp32): {steps} "
+        f"steps in {out['wall_s']:.1f} s = {out['wall_s'] / steps:.4f} s a "
+        f"step, {out['tokens'] / out['wall_s']:.0f} tokens/s (checkpoints "
+        f"included); loss {out['first']:.4f} -> {out['last']:.4f}; "
+        f"checkpoints {saved}; launches {counts}; {smi}")
+    free_card()
+    return counts
+
+
+def entry_benchmarks(smi: str) -> None:
+    """``kernel_bench`` at the reference's shapes and ``--shapes main``
+    (the depths' bits equal, their medians and spreads over the rounds),
+    and ``collective_policy`` on one NCCL rank, in its child process."""
+    from repro_torch.benchmarks import collective_policy, kernel_bench
+    for name, us, derived in kernel_bench.run("cuda", "reference"):
+        log(f"[entry] kernel_bench {name},{us:.2f},{derived:.4f}")
+    kernel_bench.run("cuda", "main")
+    with open(kernel_bench.OUT_PATHS["main"]) as f:
+        art = json.load(f)
+    for r in art["rounds"]:
+        log(f"[entry] kernel_bench --shapes main {'x'.join(map(str, r['shape']))}"
+            f" {r['call']}: median {r['median_us']:.2f} us over "
+            f"{len(r['rounds_us'])} rounds (min {r['min_us']:.2f}, max "
+            f"{r['max_us']:.2f}, spread {r['spread']:.3f}); "
+            f"{art['device']}")
+    data = collective_policy.measure("cuda")
+    for name, us, derived in collective_policy.rows(data):
+        log(f"[entry] collective_policy {name},{us:.2f},{derived:.4f} "
+            f"(mesh {data['mesh']}; {smi})")
+
+
+def entry_prefill(counters, smi: str) -> dict:
+    """``serve_slo.run_prefill(PREFILL_CARD)`` at ``PREFILL_TRIALS`` trials:
+    full-width phi3-mini-3.8b in bf16, its hard gates (equal tokens and cache rows, the
+    cycles-domain gain, the chunk-program bound); the wall-clock gain
+    printed beside the reference's bar."""
+    from repro_torch.benchmarks import serve_slo
+    _reset(counters)
+    t0 = time.time()
+    serve_slo.run_prefill(dict(serve_slo.PREFILL_CARD,
+                               trials=PREFILL_TRIALS),
+                          out_path=serve_slo.PREFILL_CARD_OUT_PATH,
+                          device="cuda")
+    counts = _read(counters, ("queue_matmul",), "the prefill cell")
+    with open(serve_slo.PREFILL_CARD_OUT_PATH) as f:
+        rep = json.load(f)
+    head, ttft = rep["headline"], rep["ttft"]
+    log(f"[entry] prefill cell (phi3-mini-3.8b full width, bf16, prompt "
+        f"{rep['config']['prompt_len']}, chunk "
+        f"{rep['config']['prefill_chunk']}, {rep['config']['trials']} "
+        f"trials) in {time.time() - t0:.1f} s: bit-exact "
+        f"{head['bit_exact']}; cycles-domain TTFT gain "
+        f"{head['ttft_cycles_gain']:.3f} (gate >= "
+        f"{serve_slo.MIN_PREFILL_TTFT_GAIN}); {rep['prefill_compiles']} "
+        f"chunk programs (<= {rep['max_prefill_compiles']}); steps "
+        f"{rep['steps']}; launches {counts}")
+    log(f"[entry] prefill wall TTFT: chunked {ttft['wall_s_chunked_median']:.4f}"
+        f" s, token {ttft['wall_s_token_median']:.4f} s (medians of "
+        f"{ttft['wall_s_chunked']} and {ttft['wall_s_token']}); "
+        f"ttft_wall_gain {head['ttft_wall_gain']:.4f}, min_required "
+        f"{head['min_required']}, meets_wall_bar {head['meets_wall_bar']} "
+        f"(recorded, not enforced); {smi}")
+    free_card()
+    return counts
+
+
+def phase_entry(smi: str) -> dict:
+    """The entry scripts on the card, each of quickstart, serve_batch (and
+    its ``forward``), train_lm and the prefill cell its own main path:
+    the launch counts set to 0 just before it and read just after, every
+    kernel of its path launched.  Returns their launches by kernel."""
+    counters = launch_counters()
+    t_phase = time.time()
+    launches = {}
+    for part in (lambda: entry_quickstart(counters),
+                 lambda: entry_serve_batch(counters, smi),
+                 lambda: entry_train_lm(counters, smi),
+                 lambda: entry_prefill(counters, smi)):
+        for name, n in part().items():
+            launches[name] = launches.get(name, 0) + n
+    entry_benchmarks(smi)
+    log(f"[entry] launches on the main paths: {launches}; the phase in "
+        f"{time.time() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2550,10 +2850,17 @@ def main() -> int:
         f"python {sys.version.split()[0]}; host CPU {host_cpu()}, "
         f"{torch.get_num_threads()} threads")
     t_start = time.time()
+    laps = [t_start]
+
+    def lap(what: str) -> None:
+        """Log the wall of the part that just ended."""
+        laps.append(time.time())
+        log(f"[time] {what} in {laps[-1] - laps[-2]:.1f} s")
     kernels = []
     report = []
     if "build" in phases:
         phase_build()
+        lap("phase build")
     if "kernels" in phases:
         gen = torch.Generator(device="cuda").manual_seed(SEED)
         kernels = [("queue_matmul", check_queue_matmul(gen, report)),
@@ -2562,14 +2869,14 @@ def main() -> int:
                    ("ssm_scan", check_ssm_scan(gen, report)),
                    ("rglru_scan", check_rglru_scan(gen, report))]
         free_card()
+        lap("phase kernels")
     if "parity" in phases:
         failures = []
         for arch, scale, hold in PARITY:
             phase_parity(arch, scale, hold, failures)
-        for arch, scale in SPREAD:
-            decode_spread(arch, scale)
         if failures:
             raise AssertionError("phase 3 failed:\n" + "\n".join(failures))
+        lap("phase parity")
     launches = {}
     if "serve" in phases:
         for arch in SERVED:
@@ -2580,12 +2887,19 @@ def main() -> int:
                 launches[name] = launches.get(name, 0) + n
         log(f"[serve] launches over the {len(SERVED) + len(ENCODERS)} main "
             f"paths: {launches}")
+        lap("phase serve")
     if "policy" in phases:
         for name, n in phase_policy(smi).items():
             launches[name] = launches.get(name, 0) + n
+        lap("phase policy")
     if "dist" in phases:
         for name, n in phase_dist(smi).items():
             launches[name] = launches.get(name, 0) + n
+        lap("phase dist")
+    if "entry" in phases:
+        for name, n in phase_entry(smi).items():
+            launches[name] = launches.get(name, 0) + n
+        lap("phase entry")
     if "train" in phases:
         parts = args.train_parts.split(",")
         gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
@@ -2597,6 +2911,7 @@ def main() -> int:
             check_moe_apply_grad_mask()
             check_rglru_scan_bwd(gen, report)
             kernels.append(("ssm_scan_bwd", check_ssm_scan_bwd(gen, report)))
+            lap("phase train (a)")
         if "b" in parts:
             failures = []
             for arch, scale in GRAD_PARITY:
@@ -2604,13 +2919,16 @@ def main() -> int:
             if failures:
                 raise AssertionError("phase 5 (b) failed:\n"
                                      + "\n".join(failures))
+            lap("phase train (b)")
         if "c" in parts:
             phase_trainer()
+            lap("phase train (c)")
         if "d" in parts:
             for arch, layers in TRAIN_FULL:
                 for name, n in phase_train_full(arch, layers, smi).items():
                     launches[name] = launches.get(name, 0) + n
             log(f"[train] launches over every main path run: {launches}")
+            lap("phase train (d)")
     if args.cases_out:
         os.makedirs(os.path.dirname(os.path.abspath(args.cases_out)),
                     exist_ok=True)

@@ -17,11 +17,11 @@ The port's counterpart of the JAX package's ``examples/copiftv2_demo.py``.
 """
 from __future__ import annotations
 
-import time
 from typing import Dict, List
 
 import torch
 
+from ..benchmarks.timing import event_ms
 from ..core import KERNELS, MachineConfig, TransformConfig, lower, simulate
 from ..core.policy import ExecutionPolicy as P
 from ..device import resolve_device
@@ -32,9 +32,6 @@ from ..kernels import queue_matmul
 SHAPES = ((4, 3072, 3072), (512, 3072, 8192))
 #: ring depths compared: COPIFT's single stage against COPIFTv2's four
 DEPTHS = (1, 4)
-#: the timing sleep: cycles per second at the H100's highest SM clock (a
-#: lower clock sleeps longer), and the longest sleep
-SLEEP_CYCLES_PER_S, MAX_SLEEP_S = 1.98e9, 0.2
 
 
 def part1(n_samples: int = 256) -> Dict[str, Dict[str, object]]:
@@ -60,30 +57,6 @@ def part1(n_samples: int = 256) -> Dict[str, Dict[str, object]]:
     return out
 
 
-def _event_ms(fn, iters: int, warmup: int = 3) -> float:
-    """Mean device time of ``fn()`` in ms between two CUDA events around
-    ``iters`` calls, after ``warmup`` calls.  The calls queue behind a
-    sleep on the card long enough for the host to enqueue them all, so the
-    host's time to launch them does not show."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fn()
-    host_s = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    sleep_s = min(MAX_SLEEP_S, 1.5 * iters * host_s + 1e-3)
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(int(sleep_s * SLEEP_CYCLES_PER_S))
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def part2(iters: int = 50, seed: int = 0) -> List[Dict[str, object]]:
     """``queue_matmul`` at depth 1 and depth 4 on the card, bf16, at
     :data:`SHAPES`: one row per shape with each depth's time, the
@@ -105,11 +78,11 @@ def part2(iters: int = 50, seed: int = 0) -> List[Dict[str, object]]:
         for depth in DEPTHS:
             outs[depth] = queue_matmul(x, w, depth=depth,
                                        policy=P.COPIFTV2)
-            row[f"depth{depth}_ms"] = _event_ms(
+            row[f"depth{depth}_ms"] = event_ms(
                 lambda: queue_matmul(x, w, depth=depth, policy=P.COPIFTV2),
                 iters)
         row["launches"] = queue_matmul.launches - before
-        row["matmul_ms"] = _event_ms(lambda: torch.matmul(x, w), iters)
+        row["matmul_ms"] = event_ms(lambda: torch.matmul(x, w), iters)
         if not torch.equal(outs[DEPTHS[0]], outs[DEPTHS[1]]):
             raise AssertionError(f"queue_matmul {m}x{k}x{n}: depth "
                                  f"{DEPTHS[0]} and depth {DEPTHS[1]} differ")

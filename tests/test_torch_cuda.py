@@ -962,3 +962,55 @@ def test_hubert_training_step_decays_the_unread_embedding(card):
     assert not torch.equal(p["head"], before["head"])
     assert not torch.equal(p["blocks"]["attn"]["wq"],
                            before["blocks"]["attn"]["wq"])
+
+
+# --- the entry scripts on the card --------------------------------------------
+
+def test_kernel_bench_main_shapes_keep_the_bits_across_depths(card, tmp_path):
+    """``kernel_bench --shapes main``: phi3's decode and ``forward``
+    products in bf16 at depths 1, 2 and 4, each depth's output equal bit
+    for bit to depth 4's (``run`` raises otherwise), over 2 rounds."""
+    import json
+    from repro_torch.benchmarks import kernel_bench
+    out = tmp_path / "main.json"
+    rows = kernel_bench.run("cuda", "main", rounds=2, out_path=str(out))
+    names = [name for name, _, _ in rows]
+    for m, k, n in kernel_bench.MAIN_SHAPES:
+        for call in ("depth1", "depth2", "depth4", "torch_matmul"):
+            assert f"kernel_queue_matmul_{m}x{k}x{n}_{call}" in names
+    assert all(us > 0 for _, us, _ in rows)
+    art = json.loads(out.read_text())
+    assert art["timer"] == "cuda events" and "H100" in art["device"]
+    assert all(len(r["rounds_us"]) == 2 for r in art["rounds"])
+
+
+def test_prefill_smoke_cell_on_the_card(card, tmp_path):
+    """``run_prefill(PREFILL_SMOKE)`` on the card: tokens and the serving
+    slot's cache rows equal between chunked and token prefill, the
+    cycles-domain gain and the chunk-program bound (the wall bar
+    recorded)."""
+    import json
+    from repro_torch.benchmarks import serve_slo
+    out = tmp_path / "prefill.json"
+    serve_slo.run_prefill(dict(serve_slo.PREFILL_SMOKE), out_path=str(out),
+                          min_wall_gain=serve_slo.MIN_PREFILL_TTFT_GAIN_SMOKE,
+                          device="cuda")
+    head = json.loads(out.read_text())["headline"]
+    assert head["bit_exact"] is True
+    assert head["ttft_cycles_gain"] >= serve_slo.MIN_PREFILL_TTFT_GAIN
+    assert "meets_wall_bar" in head
+
+
+@pytest.mark.parametrize("prefill", ["chunked", "token"])
+def test_serve_batch_on_the_card_matches_the_cpu(card, prefill):
+    """serve_batch on glm4-smoke (fp32): the card's tokens, steps and
+    traffic history equal the CPU's on the same weights."""
+    from repro_torch.examples import serve_batch
+    cfg = get_reduced("glm4-9b")
+    rc = RunConfig(dtype="float32", param_dtype="float32", remat=False)
+    p_cpu = init_model_params(0, cfg, device="cpu")
+    p_gpu = tree_map(lambda a: a.cuda(), p_cpu)
+    got = {dev: serve_batch.run(p, cfg, rc, 6, 10, prefill, dev)
+           for dev, p in (("cuda", p_gpu), ("cpu", p_cpu))}
+    for key in ("tokens", "steps", "prefill_compiles", "traffic_history"):
+        assert got["cuda"][key] == got["cpu"][key], key
