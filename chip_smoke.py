@@ -114,7 +114,15 @@ prints no result):
    its wall-clock gain printed beside the reference's bar, which is
    recorded, not enforced; then ``kernel_bench`` at the reference's shapes and
    ``--shapes main`` (``queue_matmul``'s depths over rounds, their bits
-   equal) and ``collective_policy`` on one NCCL rank in its child process.
+   equal) and ``collective_policy`` on one NCCL rank in its child process;
+   then, in a child of its own (``HOST_STEP``), the reference's ten host
+   smoke sections (the machine model and the simulated scheduler: fig3,
+   dse, the three sweeps, calibration, cluster scaling and pipeline,
+   front_diff, serve_slo) and the port's ``bench_diff`` (the regenerated
+   FULL serve report and the strong-scaling points against the
+   reference's committed artifacts, and this run's prefill cell), its
+   artifacts under ``build/``, removed afterwards, its wall a ``[time]``
+   line.
 5. train  — the training path (``--train-parts`` picks among a-d):
    (a) each backward against its plain backward on the same inputs, fp32
    and bf16, equal to itself across two calls, timed with its bound and
@@ -2601,6 +2609,19 @@ def phase_dist(smi: str) -> dict:
 #: value)
 TRAIN_LM = dict(preset="100m", steps=200)
 PREFILL_TRIALS = 3
+#: phase ``entry``'s host step, run in a child: the reference's ten host
+#: smoke sections, then the port's drift gate on the committed artifacts
+#: and this run's prefill cell (``sys.argv[1]``).  The sweep floors read the
+#: full sweep sections' artifacts, which a fresh checkout does not have and
+#: the time limit leaves no room to write, so their rows say so
+HOST_STEP = """\
+import sys
+from repro_torch.benchmarks import bench_diff, run
+run.run_sections(run.host_smoke_sections() + [
+    ("bench drift gate (committed artifacts; the card's prefill cell)",
+     lambda: bench_diff.run(prefill_path=sys.argv[1], sweep_floors=False))])
+"""
+HOST_STEP_TIMEOUT = 300
 
 
 def _reset(counters) -> None:
@@ -2799,6 +2820,42 @@ def entry_prefill(counters, smi: str) -> dict:
     return counts
 
 
+def entry_host(smi: str) -> None:
+    """:data:`HOST_STEP` in a child process (the parent holds the card, and
+    a sweep may fork workers), its artifacts and calibration under
+    ``build/``, removed afterwards; a failed section or a non-zero exit
+    fails the phase.  Logs each section's verdict, the drift gate's table
+    and the step's wall."""
+    import shutil
+    from repro_torch.benchmarks import serve_slo
+    out = os.path.join(ROOT, "build", "entry_host")
+    shutil.rmtree(out, ignore_errors=True)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.join(ROOT, "src") + (
+        os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    env["REPRO_PORT_ART_DIR"] = out
+    env["REPRO_CALIBRATION_DIR"] = os.path.join(out, "calibration")
+    t0 = time.time()
+    try:
+        res = subprocess.run(
+            [sys.executable, "-c", HOST_STEP,
+             serve_slo.PREFILL_CARD_OUT_PATH], env=env, cwd=ROOT,
+            capture_output=True, text=True, timeout=HOST_STEP_TIMEOUT)
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    wall = time.time() - t0
+    for line in res.stdout.splitlines():
+        if line.startswith(("# PASS", "# FAIL", "| ", "bench_diff_")):
+            log(f"[entry] host {line}")
+    if res.returncode != 0:
+        raise AssertionError(
+            f"phase entry's host step failed ({res.returncode}):\n"
+            f"{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
+    log(f"[time] phase entry's host step (10 host smoke sections and "
+        f"bench_diff, in a child) in {wall:.1f} s; host CPU {host_cpu()}; "
+        f"{smi}")
+
+
 def phase_entry(smi: str) -> dict:
     """The entry scripts on the card, each of quickstart, serve_batch (and
     its ``forward``), train_lm and the prefill cell its own main path:
@@ -2814,6 +2871,7 @@ def phase_entry(smi: str) -> dict:
         for name, n in part().items():
             launches[name] = launches.get(name, 0) + n
     entry_benchmarks(smi)
+    entry_host(smi)
     log(f"[entry] launches on the main paths: {launches}; the phase in "
         f"{time.time() - t_phase:.1f} s")
     return launches

@@ -1,17 +1,38 @@
-"""The live-engine chunked-prefill cell: the port's counterpart of the
-``--prefill`` section of the JAX package's ``benchmarks/serve_slo.py``.
+"""Serve-SLO benchmark, the port's counterpart of the JAX package's
+``benchmarks/serve_slo.py``: its two sections.
 
-It runs the port's serving engine — not the virtual-time simulation —
-twice on the same weights, prompt and pinned paper-default cost model:
-chunked prefill (``ServeEngine(prefill="chunked")``, up to
+**Simulated** (``run``, ``main``, ``smoke``): a trace-driven load
+generator over the port's virtual-time serving simulation
+(``repro_torch.serve.scheduler.simulate_serve``, a copy of the
+reference's).  Two pinned-seed arrival traces with mixed prompt and output
+lengths drive the continuous-batching scheduler against the static (wave)
+baseline: **poisson** (memoryless arrivals at ~70% of the best decode
+service rate) and **bursty** (groups of near-simultaneous arrivals
+separated by long lulls, where wave batching hurts most).  Everything is
+simulated in cycles-equivalent over the pinned paper-default operating
+point (never the live policy table), so the report is exactly
+deterministic, and ``bench_diff`` holds the port's FULL report to the
+reference's committed ``artifacts/BENCH_serve_slo.json`` field for field.
+Gates, as the reference's (smoke and full):
+
+* continuous batching delivers >= :data:`MIN_CONTINUOUS_GAIN` x the static
+  baseline's throughput-at-SLO on the bursty trace;
+* continuous batching meets the p99 bound (:data:`SLO_P99_PER_TOKEN`
+  cycles a work-token) on both traces;
+* continuous energy per token beats static on the bursty trace;
+* straggler-aware dispatch flags exactly the injected slow host, declares
+  no host dead, and beats rigid equal-share dispatch by
+  >= :data:`MIN_STRAGGLER_GAIN` x on wall cycles;
+* two runs of the same trace give identical reports.
+
+Writes ``artifacts/BENCH_port_serve_slo.json``
+(``BENCH_port_serve_slo_smoke.json`` under ``--smoke``).
+
+**Live prefill cell** (``run_prefill``, ``--prefill``): the port's serving
+engine, not the simulation, twice on the same weights, prompt and pinned
+cost model: chunked prefill (``ServeEngine(prefill="chunked")``, up to
 ``prefill_chunk`` prompt tokens a step) against the token-by-token
-reference (``prefill="token"``).
-
-  PYTHONPATH=src python -m repro_torch.benchmarks.serve_slo --device cpu
-  PYTHONPATH=src python -m repro_torch.benchmarks.serve_slo --smoke \\
-      --device cpu
-
-Hard gates, as in the reference:
+reference (``prefill="token"``).  Hard gates, as in the reference:
 
 * generated tokens AND the serving slot's final cache rows are equal bit
   for bit between the two paths (the chunk runs the same decode body
@@ -34,9 +55,11 @@ on the card.  The bar is not lowered.
 phi3-mini-3.8b at full width in bf16 (``run_prefill(PREFILL_CARD)``, as
 ``chip_smoke.py`` runs it).  Writes
 ``artifacts/BENCH_port_serve_prefill{,_smoke,_card}.json`` with the
-device's name and power limit.  The simulated sections of the reference's
-benchmark run only its scheduler, which the port copies, and are not
-repeated here.
+device's name and power limit.
+
+  PYTHONPATH=src python -m repro_torch.benchmarks.serve_slo [--smoke]
+  PYTHONPATH=src python -m repro_torch.benchmarks.serve_slo --prefill \\
+      [--smoke] [--device cpu]
 """
 from __future__ import annotations
 
@@ -55,14 +78,239 @@ from ..configs import get_config, get_reduced
 from ..core.policy import OperatingPoint
 from ..device import DeviceLike, resolve_device, torch_dtype
 from ..models import init_model_params
-from ..serve import ServeEngine, StepCostModel
+from ..serve import ServeEngine
+from ..serve.scheduler import (AdmissionControl, HostDispatch, ServeSLO,
+                               StepCostModel, TraceRequest, simulate_serve)
 from . import ART_DIR, device_label
 
+OUT_PATH = os.path.join(ART_DIR, "BENCH_port_serve_slo.json")
+SMOKE_OUT_PATH = os.path.join(ART_DIR, "BENCH_port_serve_slo_smoke.json")
 PREFILL_OUT_PATH = os.path.join(ART_DIR, "BENCH_port_serve_prefill.json")
 PREFILL_SMOKE_OUT_PATH = os.path.join(ART_DIR,
                                       "BENCH_port_serve_prefill_smoke.json")
 PREFILL_CARD_OUT_PATH = os.path.join(ART_DIR,
                                      "BENCH_port_serve_prefill_card.json")
+
+Row = Tuple[str, float, float]
+
+#: the acceptance bar: continuous batching must beat wave batching by this
+#: factor on bursty-trace throughput-at-SLO
+MIN_CONTINUOUS_GAIN = 1.3
+#: straggler-aware dispatch must beat rigid equal-share dispatch by this
+#: factor on total cycles when one of four hosts runs 3x slow
+MIN_STRAGGLER_GAIN = 1.5
+
+#: the SLO: p99 normalized latency (cycles per work-token, queueing
+#: included) and the per-request budget slack (absolute cycles)
+SLO_P99_PER_TOKEN = 700.0
+SLO_BASE_CYCLES = 800.0
+
+N_SLOTS = 8
+PREFILL_CHUNK = 8
+#: mixed request shapes (drawn per request from the pinned seed)
+PROMPT_LENS = (4, 8, 16)
+MAX_NEWS = (4, 8, 16, 48)
+
+FULL = dict(n_requests=160, seed=7, poisson_util=0.7,
+            burst_size=16, burst_gap_steps=40)
+SMOKE = dict(n_requests=48, seed=7, poisson_util=0.7,
+             burst_size=12, burst_gap_steps=40)
+
+
+def _cost_model() -> StepCostModel:
+    """The pinned paper-default operating point's step costs (hermetic:
+    never reads the live calibration artifacts)."""
+    return StepCostModel.from_operating_point(OperatingPoint())
+
+
+def _shapes(rng: np.random.RandomState, n: int):
+    prompts = rng.choice(PROMPT_LENS, size=n)
+    news = rng.choice(MAX_NEWS, size=n)
+    return prompts, news
+
+
+def poisson_trace(cost: StepCostModel, n: int, seed: int,
+                  util: float) -> List[TraceRequest]:
+    """Memoryless arrivals at ``util`` x the best decode service rate."""
+    rng = np.random.RandomState(seed)
+    prompts, news = _shapes(rng, n)
+    step_cycles, _ = cost.step_cost(N_SLOTS, 0)
+    token_rate = N_SLOTS / step_cycles              # tokens/cycle, all busy
+    req_rate = util * token_rate / float(np.mean(MAX_NEWS))
+    gaps = rng.exponential(1.0 / req_rate, size=n)
+    arrivals = np.cumsum(gaps)
+    return [TraceRequest(i, float(arrivals[i]), int(prompts[i]),
+                         int(news[i])) for i in range(n)]
+
+
+def bursty_trace(cost: StepCostModel, n: int, seed: int, burst_size: int,
+                 burst_gap_steps: int) -> List[TraceRequest]:
+    """Bursts of near-simultaneous arrivals separated by multi-wave lulls."""
+    rng = np.random.RandomState(seed + 1)
+    prompts, news = _shapes(rng, n)
+    step_cycles, _ = cost.step_cost(N_SLOTS, 0)
+    out, t = [], 0.0
+    for i in range(n):
+        if i and i % burst_size == 0:
+            t += burst_gap_steps * step_cycles      # lull between bursts
+        t += float(rng.exponential(0.2 * step_cycles))
+        out.append(TraceRequest(i, t, int(prompts[i]), int(news[i])))
+    return out
+
+
+def _simulate(trace, cost, mode, dispatch=None):
+    slo = ServeSLO(p99_cycles_per_token=SLO_P99_PER_TOKEN,
+                   base_cycles=SLO_BASE_CYCLES)
+    return simulate_serve(
+        trace, N_SLOTS, cost, mode=mode, slo=slo,
+        admission=AdmissionControl(max_pending=256),
+        prefill_chunk=PREFILL_CHUNK, dispatch=dispatch)
+
+
+def run(cfg: Optional[Dict[str, Any]] = None,
+        out_path: Optional[str] = None) -> List[Row]:
+    """The simulated section at ``cfg`` (default :data:`FULL`): raises
+    unless every gate holds, writes the report to ``out_path`` (default
+    :data:`OUT_PATH`) and returns the reference's rows."""
+    cfg = cfg or FULL
+    out_path = out_path or OUT_PATH
+    t0 = time.time()
+    cost = _cost_model()
+    traces = {
+        "poisson": poisson_trace(cost, cfg["n_requests"], cfg["seed"],
+                                 cfg["poisson_util"]),
+        "bursty": bursty_trace(cost, cfg["n_requests"], cfg["seed"],
+                               cfg["burst_size"], cfg["burst_gap_steps"]),
+    }
+    rows, results = [], {}
+    for name, trace in traces.items():
+        results[name] = {}
+        for mode in ("continuous", "static"):
+            rep = _simulate(trace, cost, mode)
+            if rep.n_unfinished:
+                raise AssertionError(
+                    f"{name}/{mode}: {rep.n_unfinished} admitted requests "
+                    f"never completed (scheduler stuck or max_steps hit)")
+            results[name][mode] = rep.to_dict()
+            rows.append((f"serve_slo_{name}_{mode}_tput_at_slo", 0.0,
+                         rep.slo["throughput_at_slo"]))
+            rows.append((f"serve_slo_{name}_{mode}_p99", 0.0,
+                         rep.p99_latency))
+
+    # determinism: the whole pipeline must be replayable bit-for-bit
+    again = _simulate(traces["bursty"], cost, "continuous").to_dict()
+    if again != results["bursty"]["continuous"]:
+        raise AssertionError("serve simulation is not deterministic: two "
+                             "runs of the pinned bursty trace differ")
+
+    # gate: continuous meets the p99 bound on both traces
+    for name in traces:
+        cont = results[name]["continuous"]
+        if not cont["slo"]["p99_met"]:
+            raise AssertionError(
+                f"{name}: continuous batching missed the p99 bound "
+                f"({cont['p99_latency']:.1f} > {SLO_P99_PER_TOKEN} "
+                f"cyc/tok)")
+
+    # gate: >=1.3x throughput-at-SLO over wave batching on the bursty trace
+    gain = (results["bursty"]["continuous"]["slo"]["throughput_at_slo"]
+            / max(results["bursty"]["static"]["slo"]["throughput_at_slo"],
+                  1e-12))
+    if gain < MIN_CONTINUOUS_GAIN:
+        raise AssertionError(
+            f"continuous batching gains only {gain:.2f}x throughput-at-SLO "
+            f"over the static baseline on the bursty trace "
+            f"(required {MIN_CONTINUOUS_GAIN}x)")
+    rows.append(("serve_slo_bursty_tput_at_slo_gain", 0.0, gain))
+
+    # gate: fewer idle padded slots = lower J/token
+    e_cont = results["bursty"]["continuous"]["energy_per_token"]
+    e_stat = results["bursty"]["static"]["energy_per_token"]
+    if e_cont >= e_stat:
+        raise AssertionError(
+            f"continuous J/token {e_cont:.1f} did not beat static "
+            f"{e_stat:.1f} on the bursty trace")
+    rows.append(("serve_slo_bursty_energy_gain", 0.0, e_stat / e_cont))
+
+    # gate: straggler-aware dispatch adapts (and declares nobody dead)
+    slow_host = 3
+    adaptive = HostDispatch(4, min_samples=8)
+    adaptive.set_speed(slow_host, 3.0)
+    rep_adapt = _simulate(traces["bursty"], cost, "continuous",
+                          dispatch=adaptive)
+    rigid = HostDispatch(4, min_samples=8, threshold=float("inf"))
+    rigid.set_speed(slow_host, 3.0)
+    rep_rigid = _simulate(traces["bursty"], cost, "continuous",
+                          dispatch=rigid)
+    if rep_adapt.straggler["flagged_hosts"] != [slow_host]:
+        raise AssertionError(
+            f"straggler dispatch flagged "
+            f"{rep_adapt.straggler['flagged_hosts']}, expected "
+            f"[{slow_host}]")
+    if rep_adapt.straggler["dead_hosts"]:
+        raise AssertionError(
+            f"slow-but-beating hosts declared dead: "
+            f"{rep_adapt.straggler['dead_hosts']}")
+    straggler_gain = rep_rigid.total_cycles / rep_adapt.total_cycles
+    if straggler_gain < MIN_STRAGGLER_GAIN:
+        raise AssertionError(
+            f"straggler-aware dispatch gains only {straggler_gain:.2f}x "
+            f"over rigid dispatch (required {MIN_STRAGGLER_GAIN}x)")
+    rows.append(("serve_slo_straggler_gain", 0.0, straggler_gain))
+
+    report = {
+        "cost_model": {
+            "cycles_decode_token": cost.cycles_decode_token,
+            "energy_decode_token": cost.energy_decode_token,
+            "cycles_prefill_token": cost.cycles_prefill_token,
+            "energy_prefill_token": cost.energy_prefill_token,
+            "overhead_cycles": cost.overhead_cycles,
+            "source": cost.source,
+        },
+        "slo": {"p99_cycles_per_token": SLO_P99_PER_TOKEN,
+                "base_cycles": SLO_BASE_CYCLES},
+        "config": {"n_slots": N_SLOTS, "prefill_chunk": PREFILL_CHUNK,
+                   "prompt_lens": list(PROMPT_LENS),
+                   "max_news": list(MAX_NEWS), **cfg},
+        "results": results,
+        "straggler": {"slow_host": slow_host, "slowdown": 3.0,
+                      "adaptive": rep_adapt.straggler,
+                      "adaptive_cycles": rep_adapt.total_cycles,
+                      "rigid_cycles": rep_rigid.total_cycles,
+                      "gain": straggler_gain},
+        "headline": {"throughput_at_slo_gain_bursty": gain,
+                     "min_required": MIN_CONTINUOUS_GAIN,
+                     "p99_met": True,
+                     "straggler_gain": straggler_gain},
+    }
+    us = (time.time() - t0) * 1e6 / max(len(rows), 1)
+    rows = [(name, us, derived) for name, _z, derived in rows]
+
+    os.makedirs(os.path.dirname(out_path), exist_ok=True)
+    with open(out_path, "w") as f:
+        json.dump(report, f, indent=2, sort_keys=True)
+        f.write("\n")
+    return rows
+
+
+def main() -> None:
+    for name, us, derived in run():
+        print(f"{name},{us:.1f},{derived:.4f}")
+    print(f"# wrote {OUT_PATH}")
+
+
+def smoke() -> None:
+    """Smaller trace, separate artifact — every gate still enforced."""
+    rows = run(cfg=SMOKE, out_path=SMOKE_OUT_PATH)
+    if not rows:
+        raise AssertionError("serve_slo smoke produced no rows")
+    for name, us, derived in rows:
+        print(f"{name},{us:.1f},{derived:.4f}")
+
+
+# ---------------------------------------------------------------------------
+# live-engine chunked-prefill cell
+# ---------------------------------------------------------------------------
 
 #: the reference's bar: chunked prefill must at least halve TTFT at
 #: prompt_len >= 64
@@ -77,14 +325,6 @@ PREFILL_SMOKE = dict(arch="phi3-mini-3.8b", prompt_len=64, max_new=4,
                      batch_slots=2, prefill_chunk=16, trials=3, seed=0)
 #: the full cell on the card: phi3-mini-3.8b at full width, bf16
 PREFILL_CARD = dict(PREFILL_FULL, full=True, dtype="bfloat16")
-
-Row = Tuple[str, float, float]
-
-
-def _cost_model() -> StepCostModel:
-    """The pinned paper-default operating point's step costs (hermetic:
-    never reads the live calibration artifacts)."""
-    return StepCostModel.from_operating_point(OperatingPoint())
 
 
 def _prefill_engines(cfg: Dict[str, Any], device: DeviceLike = None):
@@ -266,16 +506,28 @@ def prefill_smoke(device: DeviceLike = None) -> None:
     _print(rows, PREFILL_SMOKE_OUT_PATH)
 
 
-def main(argv: Optional[List[str]] = None) -> None:
-    ap = argparse.ArgumentParser(description="The live chunked-prefill cell")
+def cli(argv: Optional[List[str]] = None) -> None:
+    """The reference's command line: the simulated section by default,
+    the live prefill cell under ``--prefill`` (on the card unless
+    ``--device cpu``); ``--smoke`` picks either's small variant."""
+    ap = argparse.ArgumentParser(description="The serve-SLO benchmark")
+    ap.add_argument("--prefill", action="store_true",
+                    help="the live chunked-prefill cell, not the simulation")
     ap.add_argument("--smoke", action="store_true",
-                    help="the smaller cell (PREFILL_SMOKE)")
+                    help="the small variant (SMOKE, or PREFILL_SMOKE)")
     ap.add_argument("--device", default=None,
-                    help="torch device (default: the CUDA card; 'cpu' runs "
-                         "the plain PyTorch versions of the kernels)")
+                    help="with --prefill: torch device (default: the CUDA "
+                         "card; 'cpu' runs the plain PyTorch versions of "
+                         "the kernels)")
     args = ap.parse_args(argv)
-    (prefill_smoke if args.smoke else prefill_main)(args.device)
+    if args.prefill:
+        (prefill_smoke if args.smoke else prefill_main)(args.device)
+    elif args.device is not None:
+        ap.error("--device applies to --prefill only: the simulated "
+                 "section runs on the host")
+    else:
+        (smoke if args.smoke else main)()
 
 
 if __name__ == "__main__":
-    main()
+    cli()

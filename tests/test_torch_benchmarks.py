@@ -18,6 +18,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from _calibration_isolation import isolated_calibration  # noqa: F401
+from _port_artifacts import redirect
 
 from benchmarks import kernel_bench as ref_kernel_bench
 from benchmarks import roofline_table as ref_roofline
@@ -177,15 +178,22 @@ def test_prefill_gates_are_hard(monkeypatch, tmp_path):
 
 
 def test_run_smoke_passes_every_section(monkeypatch, tmp_path):
-    """``python -m repro_torch.benchmarks.run --smoke --device cpu``: every
-    section passes (the runner exits non-zero on any failure)."""
-    monkeypatch.setattr(serve_slo, "PREFILL_SMOKE_OUT_PATH",
-                        str(tmp_path / "prefill_smoke.json"))
-    monkeypatch.setitem(kernel_bench.OUT_PATHS, "reference",
-                        str(tmp_path / "kernels.json"))
+    """``python -m repro_torch.benchmarks.run --smoke --device cpu``: the
+    reference's 11 smoke sections, in its order and with its titles, then
+    the port's kernels, collective policy and roofline; every section
+    passes (the runner exits non-zero on any failure).  Every artifact
+    goes to ``tmp_path``."""
+    import benchmarks.run as ref_run
+    want = []
+    monkeypatch.setattr(ref_run, "_run_sections",
+                        lambda sections: want.extend(t for t, _ in sections))
+    ref_run.main(["--smoke"])
+    assert len(want) == 11
+    redirect(monkeypatch, tmp_path)
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         bench_run.main(["--smoke", "--device", "cpu"])
     summary = out.getvalue().split("# --- summary ---")[1].splitlines()[1:]
-    assert len(summary) == 4 and all(s.startswith("# PASS: ")
-                                     for s in summary), summary
+    assert len(summary) == 14 and all(s.startswith("# PASS: ")
+                                      for s in summary), summary
+    assert [s.removeprefix("# PASS: ") for s in summary[:11]] == want

@@ -191,16 +191,18 @@ def _entry_points():
     return {"quickstart": quickstart.main, "serve_batch": serve_batch.main,
             "train_lm": train_lm.main, "kernel_bench": kernel_bench.main,
             "collective_policy": collective_policy.main,
-            "serve_slo": serve_slo.main, "run": run.main}
+            "serve_slo": lambda argv: serve_slo.cli(["--prefill", *argv]),
+            "run": run.main}
 
 
 @pytest.mark.parametrize("name", ["quickstart", "serve_batch", "train_lm",
                                   "kernel_bench", "collective_policy",
                                   "serve_slo", "run"])
 def test_scripts_need_the_card_unless_asked(name, monkeypatch):
-    """Without ``--device cpu`` every entry script raises the port's "no
-    CUDA device" error here, before it draws a weight or starts a
-    process."""
+    """Without ``--device cpu`` every entry script that touches a device
+    (``serve_slo`` under ``--prefill``: its simulated section runs on the
+    host) raises the port's "no CUDA device" error here, before it draws a
+    weight or starts a process."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device is available"):
         _entry_points()[name]([])
