@@ -126,7 +126,9 @@ prints no result):
 5. train  — the training path (``--train-parts`` picks among a-d):
    (a) each backward against its plain backward on the same inputs, fp32
    and bf16, equal to itself across two calls, timed with its bound and
-   its library yardstick: ``flash_attention_bwd`` (o and lse from the
+   its library yardstick (each row logs the kernel's factor against the
+   library and the share of its bound it reaches): ``flash_attention_bwd``
+   (o and lse from the
    forward kernel) at ``BWD_CASES``, rows that see no key with zero
    gradients, beside SDPA's backward; ``queue_matmul``'s dX and dW at
    phi3's products and granite's head over 1024 tokens; both also at the
@@ -451,7 +453,9 @@ def phase_build() -> None:
         f"({len(logs)} compiled now) into {_build.BUILD_DIR}")
     for name, out in logs.items():
         for line in out.splitlines():
-            if "registers" in line or "spill" in line:
+            if "Compiling entry function" in line:   # the kernel, mangled
+                log(f"[build] {name}: {line.split(chr(39))[1][:120]}")
+            elif "registers" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
 
 
@@ -810,6 +814,33 @@ def _sdpa_bwd(q, k, v, do, causal, window):
                                        retain_graph=True)
 
 
+def bwd_passes(run, calls: int = 10) -> dict:
+    """Device ms per call of each kind of kernel a ``flash_attention_bwd``
+    call launches (its prologue ``prep``, the dK/dV pass ``dkdv``, two
+    launches at D > 128, the bf16 dQ pass ``dq_tc``, the fp32 pass
+    ``f32``), by torch.profiler over ``calls`` calls after three warm-up
+    calls; empty (not measured) unless every kind came back with a
+    multiple of ``calls`` launches."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            run()
+        torch.cuda.synchronize()
+    ms, seen = {}, {}
+    for e in prof.key_averages():
+        part = next((p for p in ("prep", "dkdv", "dq_tc", "f32")
+                     if f"flash_attention_bwd_{p}" in e.key), None)
+        if part is not None:
+            ms[part] = ms.get(part, 0.0) + e.device_time_total / 1e3 / calls
+            seen[part] = seen.get(part, 0) + e.count
+    if "prep" not in seen or any(n % calls for n in seen.values()):
+        return {}
+    return ms
+
+
 def check_flash_attention_bwd(gen, report) -> dict:
     """The backward kernel against :func:`attention_bwd_ref` (through the
     wrapper's plain GQA path) on the same q, k, v, o, lse and dO, o and lse
@@ -875,14 +906,18 @@ def check_flash_attention_bwd(gen, report) -> dict:
             t_ops = flops / PEAK_FLOPS[dtype] * 1e3
             t_mem = nbytes / HBM_BYTES_PER_S * 1e3
             n_empty = int(empty.sum())
+            passes = bwd_passes(run)
             log(f"[train] flash_attention_bwd {b:2d} {hq:3d} {hkv:3d} "
                 f"{sq:4d} {sk:4d} {d:3d} {dv:3d} {int(causal):6d} "
                 f"{str(window):>6s} {str(dtype)[6:]:>8s} {err:10.3e} "
                 f"{ms:8.4f} {plain:8.4f} {lib:8.4f} {b_ms:8.4f} ({b_by}: "
                 f"ops {t_ops:.4f}, bytes {t_mem:.4f}; "
-                f"{ms / lib:.2f}x library; {flops / ms / 1e9:.1f} TFLOP/s"
+                f"{ms / lib:.2f}x library; {b_ms / ms:.3f} of the bound; "
+                f"{flops / ms / 1e9:.1f} TFLOP/s"
                 + (f"; {n_empty} rows see no key: zero gradients"
-                   if n_empty else "") + "; deterministic)")
+                   if n_empty else "") + "; deterministic; by launch "
+                + (", ".join(f"{k} {v:.4f}" for k, v in passes.items())
+                   or "not measured") + ")")
             row = {"B": b, "Hq": hq, "Hkv": hkv, "Sq": sq, "Sk": sk, "D": d,
                    "Dv": dv, "causal": causal, "window": window,
                    "dtype": str(dtype)[6:], "max_abs_err": err, "ms": ms,
@@ -1224,7 +1259,8 @@ def check_ssm_scan_bwd(gen, report) -> dict:
             f"{str(dtype)[6:]:>8s} {max(errs):10.3e} {ms:8.4f} "
             f"{plain:8.4f} {b_ms:8.4f} ({b_by}; errors dx, ddt, dA, dB, dC "
             + ", ".join(f"{e:.2e}" for e in errs)
-            + f"; {b_ms / ms:.3f} of the bound; deterministic)")
+            + f"; {b_ms / ms:.3f} of the bound; no library call; "
+            "deterministic)")
         row = {"B": b, "T": t, "d": d, "N": n, "dtype": str(dtype)[6:],
                "max_abs_err": max(errs), "ms": ms, "plain_ms": plain,
                "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}

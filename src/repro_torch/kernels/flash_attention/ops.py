@@ -19,10 +19,11 @@ Gradients: when q, k or v requires grad (and grad mode is on), the call
 goes through :class:`_FlashAttentionFn`.  Its forward is the same launch,
 which then also writes each row's log-sum-exp; its backward is
 :func:`flash_attention_bwd`, the hand-written kernel in
-``csrc/flash_attention_bwd.cu`` on the card (three launches: delta, dK/dV,
-dQ; counted once in ``flash_attention_bwd.launches``) and
-:func:`~.ref.attention_bwd_ref` on the CPU.  Training never passes a
-``q_offset``; the backward raises for one.
+``csrc/flash_attention_bwd.cu`` on the card (a prologue, then a dK/dV
+pass and a dQ pass in bf16, one pass in fp32; counted once in
+``flash_attention_bwd.launches``), whose counters and fp32 sums are sized
+by :mod:`.plan`, and :func:`~.ref.attention_bwd_ref` on the CPU.  Training
+never passes a ``q_offset``; the backward raises for one.
 """
 from __future__ import annotations
 
@@ -35,6 +36,7 @@ import torch.nn.functional as F
 
 from ...device import PLAIN_DEVICES
 from .. import _build
+from . import plan
 from .ref import attention_bwd_ref, attention_lse_ref, attention_ref
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -59,7 +61,8 @@ def _library() -> ctypes.CDLL:
 def _bwd_library() -> ctypes.CDLL:
     """The backward kernel's library, typed as :func:`_library`."""
     lib = _build.load("flash_attention_bwd")
-    lib.flash_attention_bwd_launch.argtypes = ([ctypes.c_void_p] * 10
+    lib.flash_attention_bwd_launch.argtypes = ([ctypes.c_void_p] * 12
+                                               + [ctypes.c_longlong] * 2
                                                + [ctypes.c_int] * 11
                                                + [ctypes.c_void_p])
     lib.flash_attention_bwd_launch.restype = ctypes.c_int
@@ -172,14 +175,20 @@ def _launch_bwd(q, k, v, o, lse, do, causal, window):
     lse = lse.to(torch.float32).contiguous()
     delta = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    n_counters, n_scratch = plan.workspace(B, Hq, Hkv, Sq, Sk, D, ld,
+                                           q.dtype == torch.bfloat16)
+    counters = torch.empty(n_counters, dtype=torch.int32, device=q.device)
+    scratch = torch.empty(max(n_scratch, 1), dtype=torch.float32,
+                          device=q.device)
     lib = _bwd_library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.flash_attention_bwd_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), B, Hq, Hkv, Sq, Sk, D, ld,
-            int(causal), int(window is not None),
+            dk.data_ptr(), dv.data_ptr(), counters.data_ptr(),
+            scratch.data_ptr(), n_counters, n_scratch, B, Hq, Hkv, Sq, Sk,
+            D, ld, int(causal), int(window is not None),
             0 if window is None else int(window), _DTYPE_CODES[q.dtype],
             stream)
     if err != 0:
@@ -264,5 +273,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 #: kernel launches since the count was last set to 0
 flash_attention.launches = 0
-#: backward launches (one a call: its three kernels) since last set to 0
+#: backward launches (one a call: its prologue and passes) since last set
+#: to 0
 flash_attention_bwd.launches = 0

@@ -16,35 +16,43 @@
 // forward that replaces src/repro/kernels/ssm_scan/kernel.py.
 //
 // What bounds it on an H100: it reads x, dt, B, C, dy and the forward's
-// chunk start states once and writes dx, ddt, dA, dB and dC once (about 76
-// MB for falcon-mamba's d = 8192 at 2 x 512 tokens with bf16 inputs, 0.023
-// ms at 3.35 TB/s); it does about 20 fp32 operations and, as written here,
-// four exps per (b, t, channel, n), which at 67 TFLOP/s outside the tensor
-// cores take longer (operations).
+// chunk start states once and writes dx, ddt, dA, dB and dC once (about
+// 144 MB for falcon-mamba's d = 8192 at 2 x 512 tokens with bf16 inputs,
+// 0.043 ms at 3.35 TB/s); its some 20 fp32 operations per (b, t, channel,
+// n) take less (operations, 67 TFLOP/s outside the tensor cores).  What
+// takes the time is everything around those operations: the exps (on the
+// special-function unit, a sixteenth of the FMA rate), the shared-memory
+// and shuffle traffic of the sums over n and over channels, and the state
+// at each step, which the reverse walk needs in forward order.
 //
-// What the design does (a plain kernel that is right; making it fast comes
-// later).  A block holds 32 neighbouring channels of one batch row, one
-// warp per chunk of the forward's chunking (nch chunks of L steps, the
-// forward's own cut), one thread per (channel, chunk), all N states of the
-// channel in its registers; the (B, T, d, N) states are never built:
-//  * pass 0: each chunk walks forward from the start state the forward
-//    wrote (hs) and stores its state every kWin = 16 steps to a scratch of
-//    (B, nch, windows, NS, d) fp32, a sixteenth of the states;
-//  * pass 1: every chunk but the first runs the reverse scan from a zero
-//    dh over its steps, and records what it hands the chunk before it and
-//    its sum of dt (its decay is exp(A sum dt));
-//  * pass 2: the first warp carries dh across the chunks from the last one
-//    back, through shared memory, so every chunk knows the dh coming in
-//    from its right;
-//  * pass 3: every chunk walks its windows from the last back; a window
-//    walks its sub-blocks of kSub = 64 / NS steps from the last back, each
-//    recomputed from the window's stored state into registers (h_{t-1} for
-//    each of its steps), then walked in reverse to make every gradient
-//    term of its steps.  dx and ddt are the thread's own; dC_t and dB_t sum
-//    over the warp's 32 channels by a butterfly of shuffles in a fixed
-//    pattern and are written as the block's partial; dA sums in the thread
-//    over its steps, then over the chunks in order through shared memory,
-//    and is written as the batch row's partial;
+// What the design does:
+//  * a thread owns one (channel, state n) pair of one batch row and walks
+//    the whole sequence, so the carry dh_{t+1} stays in its registers and
+//    nothing is carried between threads; a block holds 256 / NS channels x
+//    NS states (NS = N rounded up to 4, 8, 16 or 32, the padding states
+//    inert), 8 warps, at most 128 registers a thread, two blocks an SM (16
+//    warps; one block of 512 threads measured slower: with two, one block
+//    computes while the other stages a segment);
+//  * the sequence is walked from the last of the forward's chunks back;
+//    each chunk starts from the state the forward wrote (hs), and is cut
+//    into segments of 64 steps (a chunk of more than 64 steps first walks
+//    forward once to store its segment start states in a scratch);
+//  * a segment's dt, x, dy (64 steps x the block's channels) and B, C
+//    (64 x NS) are staged in shared memory once, cast to fp32, channel- or
+//    state-major, so a thread reads four steps of one with one 16-byte load
+//    (lanes of one channel, or of one state, read one address);
+//  * the segment is walked forward once, keeping the state at the start of
+//    each 16-step window; then each window, from the last, is walked
+//    forward again into registers (h_{t-1} of each of its 16 steps) and
+//    walked in reverse: three exps per (b, t, channel, n) in all (keeping
+//    a window's decays as well would take 16 more registers a thread, past
+//    128: ptxas spilled);
+//  * the sums over n (dx, ddt) run once a window: a butterfly of shuffles
+//    over the channel's NS lanes that leaves each lane the sums of its
+//    steps; the sums over channels (dB, dC) add the warp's channels by
+//    shuffles each step and the block's warps through shared memory once a
+//    window, and are written as the block's partial; dA sums in the thread
+//    over its steps;
 //  * reduce: dB and dC sum their (channel block) partials and dA its (batch
 //    row) partials in order, one thread an element (ssm_scan_bwd_reduce).
 // No atomics anywhere, so two calls give the same bits.  The decay is
@@ -52,28 +60,29 @@
 //
 // C interface: ssm_scan_bwd_launch(...) returns cudaGetLastError() after
 // the main kernel and the three reductions; the caller allocates the
-// scratch (ssm_scan_bwd_scratch_floats), the partials and the outputs.
-// Every operand contiguous.
+// scratch (ssm_scan_bwd_scratch_floats), the partials (of
+// ssm_scan_bwd_blocks channel blocks) and the outputs.  Every operand
+// contiguous.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "../../_csrc/hopper.cuh"
+
 namespace {
 
-constexpr int kLanes = 32;        // channels a block (one per lane)
-constexpr int kMaxChunks = 8;     // chunks a block (one warp each)
-constexpr int kWin = 16;          // steps between stored states
+constexpr int kThreads = 256;     // 8 warps a block, two blocks an SM
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxChunks = 8;     // the forward's chunks
+constexpr int kSeg = 64;          // steps staged at a time
+constexpr int kWin = 16;          // steps kept in registers
+constexpr int kLdT = kSeg + 4;    // a staged row: 16-byte aligned
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
   return __bfloat162float(v);
-}
-template <typename T>
-__device__ __forceinline__ float load(const T* p, bool in) {
-  return in ? to_float(__ldg(p)) : 0.f;
 }
 
 __device__ __forceinline__ float ex2(float x) {
@@ -82,232 +91,264 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-// The operands of one batch row, as the kernel walks them.
-template <typename T>
-struct Row {
-  const T* x;
-  const T* dt;
-  const T* Bm;
-  const T* Cm;
-  const float* dy;
-  int T_len, D, N, c;
-  bool live;
-};
-
-// One forward step of channel c at time t: h = exp(dt A) h + dt x B.
-template <typename T, int NS>
-__device__ __forceinline__ void step_fwd(float (&h)[NS], const float (&a2)[NS],
-                                         const Row<T>& r, int t) {
-  const size_t off = static_cast<size_t>(t) * r.D + r.c;
-  const float d_t = load(r.dt + off, r.live);
-  const float dx = d_t * load(r.x + off, r.live);
-#pragma unroll
-  for (int n = 0; n < NS; ++n) {
-    const float b = load(r.Bm + static_cast<size_t>(t) * r.N + n, n < r.N);
-    h[n] = ex2(d_t * a2[n]) * h[n] + dx * b;
-  }
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
 }
 
-// Sum v over the warp's 32 lanes in a fixed pattern: afterwards lane l
-// holds the sums of entries l * (V / 32) + j, j < V / 32, in v[j].
-template <int V>
-__device__ __forceinline__ void butterfly(float (&v)[V], int lane) {
-  static_assert(V % 32 == 0, "V must fill the warp");
+__device__ __forceinline__ float at(const float4& v, int j) {
+  return j == 0 ? v.x : (j == 1 ? v.y : (j == 2 ? v.z : v.w));
+}
+
+// Sum V values over the P lanes of each group of P consecutive lanes (P a
+// power of two) in a fixed pattern: afterwards, for V >= P, group lane l
+// holds the sums of entries l (V / P) + j in v[j], j < V / P; for V < P it
+// holds the sum of entry l / (P / V) in v[0].
+template <int V, int P>
+__device__ __forceinline__ void group_sums(float (&v)[V], int lane) {
+  int m = V;
 #pragma unroll
-  for (int s = 0; s < 5; ++s) {
-    const int bit = 16 >> s;
-    const int half = V >> (s + 1);
-    const bool up = (lane & bit) != 0;
+  for (int bit = P / 2; bit >= 1; bit >>= 1) {
+    if (m > 1) {
+      const int half = m / 2;
+      const bool up = (lane & bit) != 0;
 #pragma unroll
-    for (int i = 0; i < half; ++i) {
-      const float send = up ? v[i] : v[i + half];
-      const float keep = up ? v[i + half] : v[i];
-      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, bit);
+      for (int i = 0; i < V / 2; ++i) {
+        if (i >= half) break;
+        const float send = up ? v[i] : v[i + half];
+        const float keep = up ? v[i + half] : v[i];
+        v[i] = keep + __shfl_xor_sync(0xffffffffu, send, bit);
+      }
+      m = half;
+    } else {
+      v[0] += __shfl_xor_sync(0xffffffffu, v[0], bit);
     }
   }
 }
 
+template <int NS>
+struct Geom {
+  static constexpr int kCh = kThreads / NS;  // channels a block
+  // floats: dt, x, dy [kCh][kLdT]; B, C [NS][kLdT]; window states
+  // [kSeg / kWin][kThreads]; the warps' dC, dB sums [kWarps][kWin][NS][2];
+  // dx, ddt [kWin][kCh]; the chunk start states [NS][kCh]
+  static constexpr int kOffX = kCh * kLdT;
+  static constexpr int kOffDy = 2 * kCh * kLdT;
+  static constexpr int kOffB = 3 * kCh * kLdT;
+  static constexpr int kOffC = kOffB + NS * kLdT;
+  static constexpr int kOffWs = kOffC + NS * kLdT;
+  static constexpr int kOffRed = kOffWs + (kSeg / kWin) * kThreads;
+  static constexpr int kOffDx = kOffRed + kWarps * kWin * NS * 2;
+  static constexpr int kOffDdt = kOffDx + kWin * kCh;
+  static constexpr int kOffH = kOffDdt + kWin * kCh;
+  static constexpr size_t kSmem = sizeof(float) * (kOffH + NS * kCh);
+};
+
 template <typename T, int NS>
-__global__ void __launch_bounds__(kLanes * kMaxChunks, 1)
+__global__ void __launch_bounds__(kThreads, 2)
     ssm_scan_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dt,
                         const float* __restrict__ A, const T* __restrict__ Bm,
                         const T* __restrict__ Cm, const float* __restrict__ dy,
-                        const float* __restrict__ hs, float* __restrict__ ckpt,
+                        const float* __restrict__ hs,
+                        float* __restrict__ seg_states,
                         float* __restrict__ dx, float* __restrict__ ddt,
                         float* __restrict__ dAp, float* __restrict__ dBp,
                         float* __restrict__ dCp, int B, int T_len, int D,
-                        int N, int L, int nwin) {
-  // steps in a sub-block: its h_{t-1} stay in 64 registers
-  constexpr int kS = 64 / NS < kWin ? 64 / NS : kWin;
-  constexpr int V = 2 * NS < 32 ? 32 : 2 * NS;  // dC then dB, padded
-  extern __shared__ float slots[];              // [nch][kLanes][NS + 1]
-  const int nch = blockDim.x / kLanes;
-  const int warp = threadIdx.x / kLanes, lane = threadIdx.x % kLanes;
-  float* mine = slots + (warp * kLanes + lane) * (NS + 1);
+                        int N, int nch, int L, int nseg_max) {
+  using Gm = Geom<NS>;
+  constexpr int kCh = Gm::kCh;
+  extern __shared__ __align__(16) float smem[];
+  float* s_dt = smem;
+  float* s_x = smem + Gm::kOffX;
+  float* s_dy = smem + Gm::kOffDy;
+  float* s_B = smem + Gm::kOffB;
+  float* s_C = smem + Gm::kOffC;
+  float* s_ws = smem + Gm::kOffWs;
+  float* s_red = smem + Gm::kOffRed;
+  float* s_dx = smem + Gm::kOffDx;
+  float* s_ddt = smem + Gm::kOffDdt;
+  float* s_h = smem + Gm::kOffH;
 
-  const int b = blockIdx.y, c = blockIdx.x * kLanes + lane;
-  const bool live = c < D;
-  float a2[NS];  // A log2 e
-#pragma unroll
-  for (int n = 0; n < NS; ++n)
-    a2[n] = live && n < N ? A[static_cast<size_t>(c) * N + n] * kLog2e : 0.f;
-
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int n = tid % NS, cl = tid / NS;  // state, channel in the block
+  const int blk = blockIdx.x, b = blockIdx.y;
+  const int c0 = blk * kCh, c = c0 + cl;
+  const bool live = c < D && n < N;
+  const float a = live ? A[static_cast<size_t>(c) * N + n] : 0.f;
+  const float a2 = a * kLog2e;
   const size_t row_d = static_cast<size_t>(b) * T_len * D;
   const size_t row_n = static_cast<size_t>(b) * T_len * N;
-  const Row<T> r{x + row_d, dt + row_d, Bm + row_n, Cm + row_n, dy + row_d,
-                 T_len, D, N, c, live};
-  const int t0 = min(T_len, warp * L), t1 = min(T_len, t0 + L);
-  const int last = nch - 1;
-  // this chunk's stored states: [nwin][NS][D] of this batch row
-  float* ck = ckpt + (static_cast<size_t>(b) * nch + warp) * nwin * NS * D + c;
+  float* segs = seg_states +
+                (static_cast<size_t>(b) * gridDim.x + blk) * nseg_max *
+                    kThreads;
+  const float* rdt = s_dt + cl * kLdT;
+  const float* rx = s_x + cl * kLdT;
+  const float* rdy = s_dy + cl * kLdT;
+  const float* rB = s_B + n * kLdT;
+  const float* rC = s_C + n * kLdT;
 
-  // pass 0: the state every kWin steps, from the forward's start state
-  {
-    float h[NS];
-    const float* st = hs + (static_cast<size_t>(b) * nch + warp) * N * D + c;
-#pragma unroll
-    for (int n = 0; n < NS; ++n)
-      h[n] = live && n < N ? st[static_cast<size_t>(n) * D] : 0.f;
-    for (int w = 0, tw = t0; tw < t1; ++w, tw += kWin) {
-      if (live) {
-#pragma unroll
-        for (int n = 0; n < NS; ++n)
-          ck[(static_cast<size_t>(w) * NS + n) * D] = h[n];
-      }
-      if (tw + kWin < t1)
-        for (int t = tw; t < tw + kWin; ++t) step_fwd<T, NS>(h, a2, r, t);
+  // steps [s0, s0 + len) of the batch row into shared memory, fp32,
+  // channel- and state-major; steps past len arrive as zeros (dt = 0 keeps
+  // the state, B = C = dy = 0 add nothing)
+  auto stage = [&](int s0, int len) {
+    __syncthreads();  // the previous segment is consumed
+    for (int e = tid; e < kSeg * kCh; e += kThreads) {
+      const int i = e / kCh, cc = e % kCh;
+      const bool in = i < len && c0 + cc < D;
+      const size_t off = row_d + static_cast<size_t>(s0 + i) * D + c0 + cc;
+      s_dt[cc * kLdT + i] = in ? to_float(dt[off]) : 0.f;
+      s_x[cc * kLdT + i] = in ? to_float(x[off]) : 0.f;
+      s_dy[cc * kLdT + i] = in ? dy[off] : 0.f;
     }
-  }
-
-  // pass 1: every chunk but the first, the reverse scan from dh = 0
-  if (warp > 0) {
-    float g[NS];
-#pragma unroll
-    for (int n = 0; n < NS; ++n) g[n] = 0.f;
-    float dsum = 0.f;
-    for (int t = t1 - 1; t >= t0; --t) {
-      const size_t off = static_cast<size_t>(t) * D + c;
-      const float d_t = load(r.dt + off, live);
-      const float gy = live ? r.dy[off] : 0.f;
-      dsum += d_t;
-#pragma unroll
-      for (int n = 0; n < NS; ++n) {
-        const float cn = load(r.Cm + static_cast<size_t>(t) * N + n, n < N);
-        g[n] = ex2(d_t * a2[n]) * fmaf(cn, gy, g[n]);
-      }
+    for (int e = tid; e < kSeg * NS; e += kThreads) {
+      const int i = e / NS, nn = e % NS;
+      const bool in = i < len && nn < N;
+      const size_t off = row_n + static_cast<size_t>(s0 + i) * N + nn;
+      s_B[nn * kLdT + i] = in ? to_float(Bm[off]) : 0.f;
+      s_C[nn * kLdT + i] = in ? to_float(Cm[off]) : 0.f;
     }
+    __syncthreads();
+  };
+  // kWin steps forward from step i0 of the staged segment
+  auto walk = [&](float h, int i0) {
 #pragma unroll
-    for (int n = 0; n < NS; ++n) mine[n] = g[n];
-    mine[NS] = dsum;
-  }
-  __syncthreads();
-
-  // pass 2: the dh coming in from the right of each chunk, carried from
-  // the last chunk back; slot k then holds chunk k's
-  if (warp == 0) {
-    float R[NS];
+    for (int i4 = 0; i4 < kWin; i4 += 4) {
+      const float4 d4 = ld4(rdt + i0 + i4), x4 = ld4(rx + i0 + i4);
+      const float4 b4 = ld4(rB + i0 + i4);
 #pragma unroll
-    for (int n = 0; n < NS; ++n) R[n] = 0.f;
-    for (int k = last; k >= 0; --k) {
-      float* slot = slots + (k * kLanes + lane) * (NS + 1);
-      const float s = k > 0 ? slot[NS] : 0.f;
-#pragma unroll
-      for (int n = 0; n < NS; ++n) {
-        const float out = k > 0 ? slot[n] : 0.f;
-        slot[n] = R[n];
-        R[n] = fmaf(ex2(s * a2[n]), R[n], out);
+      for (int j = 0; j < 4; ++j) {
+        const float d = at(d4, j);
+        h = fmaf(ex2(d * a2), h, d * at(x4, j) * at(b4, j));
       }
     }
-  }
-  __syncthreads();
+    return h;
+  };
 
-  // pass 3: the gradients, windows and sub-blocks from the last back
-  float g[NS], dA[NS];
-#pragma unroll
-  for (int n = 0; n < NS; ++n) {
-    g[n] = mine[n];
-    dA[n] = 0.f;
-  }
-  const int blk = blockIdx.x;
-  float* dCb = dCp + (static_cast<size_t>(blk) * B + b) * T_len * N;
-  float* dBb = dBp + (static_cast<size_t>(blk) * B + b) * T_len * N;
-  const int nw = (t1 - t0 + kWin - 1) / kWin;
-  for (int w = nw - 1; w >= 0; --w) {
-    const int tw = t0 + w * kWin, tw1 = min(t1, tw + kWin);
-    const int nsub = (tw1 - tw + kS - 1) / kS;
-    for (int j = nsub - 1; j >= 0; --j) {
-      const int s0 = tw + j * kS, s1 = min(tw1, s0 + kS);
-      // h_{t-1} of the sub-block's steps, recomputed from the window's
-      float h[NS], hp[kS][NS];
-#pragma unroll
-      for (int n = 0; n < NS; ++n)
-        h[n] = live ? ck[(static_cast<size_t>(w) * NS + n) * D] : 0.f;
-      for (int t = tw; t < s0; ++t) step_fwd<T, NS>(h, a2, r, t);
-#pragma unroll
-      for (int i = 0; i < kS; ++i) {
-#pragma unroll
-        for (int n = 0; n < NS; ++n) hp[i][n] = h[n];
-        if (s0 + i + 1 < s1) step_fwd<T, NS>(h, a2, r, s0 + i);
+  float g = 0.f, dA = 0.f;  // the carry dh_{t+1} exp(dt_{t+1} A); dA's sum
+  for (int k = nch - 1; k >= 0; --k) {
+    const int t0 = min(T_len, k * L), t1 = min(T_len, t0 + L);
+    const int nseg = (t1 - t0 + kSeg - 1) / kSeg;
+    // the chunk's start state, from the forward, through shared memory
+    __syncthreads();
+    for (int e = tid; e < NS * kCh; e += kThreads) {
+      const int nn = e / kCh, cc = e % kCh;
+      s_h[e] = nn < N && c0 + cc < D
+                   ? hs[((static_cast<size_t>(b) * nch + k) * N + nn) * D +
+                        c0 + cc]
+                   : 0.f;
+    }
+    __syncthreads();
+    const float h0 = s_h[n * kCh + cl];
+    // a long chunk: the state at each later segment's start, to scratch
+    if (nseg > 1) {
+      float h = h0;
+      for (int s = 0; s + 1 < nseg; ++s) {
+        stage(t0 + s * kSeg, kSeg);
+        for (int i0 = 0; i0 < kSeg; i0 += kWin) h = walk(h, i0);
+        segs[s * kThreads + tid] = h;
       }
+    }
+    for (int s = nseg - 1; s >= 0; --s) {
+      const int s0 = t0 + s * kSeg, len = min(kSeg, t1 - s0);
+      stage(s0, len);
+      const int nw = (len + kWin - 1) / kWin;
+      // the state at each window's start
+      float h = s == 0 ? h0 : segs[(s - 1) * kThreads + tid];
+      for (int w = 0; w < nw; ++w) {
+        s_ws[w * kThreads + tid] = h;
+        if (w + 1 < nw) h = walk(h, w * kWin);
+      }
+      for (int w = nw - 1; w >= 0; --w) {
+        const int i0 = w * kWin, wl = min(kWin, len - i0);
+        // the window forward: h_{t-1} of each step
+        float hp[kWin];
+        float hc = s_ws[w * kThreads + tid];
 #pragma unroll
-      for (int i = kS - 1; i >= 0; --i) {
-        const int t = s0 + i;
-        if (t >= s1) continue;
-        const size_t off = static_cast<size_t>(t) * D + c;
-        const float d_t = load(r.dt + off, live);
-        const float xv = load(r.x + off, live);
-        const float gy = live ? r.dy[off] : 0.f;
-        const float dtx = d_t * xv;
-        float v[V];
-        float sdb = 0.f, sa = 0.f;
+        for (int i4 = 0; i4 < kWin; i4 += 4) {
+          const float4 d4 = ld4(rdt + i0 + i4), x4 = ld4(rx + i0 + i4);
+          const float4 b4 = ld4(rB + i0 + i4);
 #pragma unroll
-        for (int n = 0; n < NS; ++n) {
-          const size_t on = static_cast<size_t>(t) * N + n;
-          const float bn = load(r.Bm + on, n < N);
-          const float cn = load(r.Cm + on, n < N);
-          const float dec = ex2(d_t * a2[n]);
-          const float ht = fmaf(dec, hp[i][n], dtx * bn);
-          const float dh = fmaf(cn, gy, g[n]);
-          v[n] = gy * ht;
-          v[NS + n] = dh * dtx;
-          sdb = fmaf(dh, bn, sdb);
-          const float q = dh * dec * hp[i][n];
-          sa = fmaf(q, a2[n] * kLn2, sa);
-          dA[n] = fmaf(q, d_t, dA[n]);
-          g[n] = dec * dh;
-        }
-#pragma unroll
-        for (int k = 2 * NS; k < V; ++k) v[k] = 0.f;
-        if (live) {
-          dx[row_d + off] = d_t * sdb;
-          ddt[row_d + off] = fmaf(xv, sdb, sa);
-        }
-        butterfly<V>(v, lane);
-#pragma unroll
-        for (int k = 0; k < V / 32; ++k) {
-          const int e = lane * (V / 32) + k;
-          if (e < NS) {
-            if (e < N) dCb[static_cast<size_t>(t) * N + e] = v[k];
-          } else if (e - NS < N && e < 2 * NS) {
-            dBb[static_cast<size_t>(t) * N + e - NS] = v[k];
+          for (int j = 0; j < 4; ++j) {
+            const float d = at(d4, j);
+            hp[i4 + j] = hc;
+            hc = fmaf(ex2(d * a2), hc, d * at(x4, j) * at(b4, j));
           }
         }
+        // ... and in reverse: every gradient term of its steps
+        float v1[kWin], v2[kWin];  // dh B and dh A e h_{t-1}, per step
+#pragma unroll
+        for (int i4 = kWin - 4; i4 >= 0; i4 -= 4) {
+          const float4 d4 = ld4(rdt + i0 + i4), x4 = ld4(rx + i0 + i4);
+          const float4 y4 = ld4(rdy + i0 + i4), b4 = ld4(rB + i0 + i4);
+          const float4 c4 = ld4(rC + i0 + i4);
+#pragma unroll
+          for (int j = 3; j >= 0; --j) {
+            const int i = i4 + j;
+            const float d = at(d4, j), xv = at(x4, j), gy = at(y4, j);
+            const float ht = i + 1 < kWin ? hp[(i + 1) % kWin] : hc;
+            const float e = ex2(d * a2);
+            const float dh = fmaf(at(c4, j), gy, g);
+            float u1 = gy * ht, u2 = dh * (d * xv);
+            v1[i] = dh * at(b4, j);
+            const float qv = dh * e * hp[i];
+            v2[i] = qv * a;
+            dA = fmaf(qv, d, dA);
+            g = e * dh;
+            // dC, dB: the warp's channels, then its warp's slot
+#pragma unroll
+            for (int o = NS; o < 32; o <<= 1) {
+              u1 += __shfl_xor_sync(0xffffffffu, u1, o);
+              u2 += __shfl_xor_sync(0xffffffffu, u2, o);
+            }
+            if (lane < NS)
+              *reinterpret_cast<float2*>(
+                  s_red + ((warp * kWin + i) * NS + n) * 2) =
+                  make_float2(u1, u2);
+          }
+        }
+        // dx, ddt: the sums over the channel's states
+        group_sums<kWin, NS>(v1, lane);
+        group_sums<kWin, NS>(v2, lane);
+        if constexpr (kWin >= NS) {
+#pragma unroll
+          for (int j = 0; j < kWin / NS; ++j) {
+            const int i = n * (kWin / NS) + j;
+            s_dx[i * kCh + cl] = rdt[i0 + i] * v1[j];
+            s_ddt[i * kCh + cl] = fmaf(rx[i0 + i], v1[j], v2[j]);
+          }
+        } else if (n % (NS / kWin) == 0) {
+          const int i = n / (NS / kWin);
+          s_dx[i * kCh + cl] = rdt[i0 + i] * v1[0];
+          s_ddt[i * kCh + cl] = fmaf(rx[i0 + i], v1[0], v2[0]);
+        }
+        __syncthreads();
+        for (int o = tid; o < wl * kCh; o += kThreads) {
+          const int i = o / kCh, cc = o % kCh;
+          if (c0 + cc < D) {
+            const size_t off =
+                row_d + static_cast<size_t>(s0 + i0 + i) * D + c0 + cc;
+            dx[off] = s_dx[o];
+            ddt[off] = s_ddt[o];
+          }
+        }
+        // dC (which 0) and dB (1): the block's warps in order
+        for (int o = tid; o < 2 * kWin * NS; o += kThreads) {
+          const int which = o / (kWin * NS), i = (o / NS) % kWin,
+                    nn = o % NS;
+          if (i < wl && nn < N) {
+            float sum = 0.f;
+            for (int ww = 0; ww < kWarps; ++ww)
+              sum += s_red[((ww * kWin + i) * NS + nn) * 2 + which];
+            float* out = which ? dBp : dCp;
+            out[((static_cast<size_t>(blk) * B + b) * T_len + s0 + i0 + i) *
+                    N +
+                nn] = sum;
+          }
+        }
+        __syncthreads();  // s_red, s_dx, s_ddt are free again
       }
     }
   }
-
-  // dA: this thread's sum over its chunk, then the chunks' in order
-#pragma unroll
-  for (int n = 0; n < NS; ++n) mine[n] = dA[n];
-  __syncthreads();
-  if (warp == 0 && live) {
-    for (int n = 0; n < N && n < NS; ++n) {
-      float s = 0.f;
-      for (int k = 0; k < nch; ++k)
-        s += slots[(k * kLanes + lane) * (NS + 1) + n];
-      dAp[(static_cast<size_t>(b) * D + c) * N + n] = s;
-    }
-  }
+  if (live) dAp[(static_cast<size_t>(b) * D + c) * N + n] = dA;
 }
 
 // out[m] = sum over p < P of in[p M + m], in order of p.
@@ -324,11 +365,18 @@ __global__ void ssm_scan_bwd_reduce(const float* __restrict__ in,
 
 int chunk_len(int T_len, int nch) { return (T_len + nch - 1) / nch; }
 
-int windows(int T_len, int nch) {
-  return (chunk_len(T_len, nch) + kWin - 1) / kWin;
+int padded_states(int N) { return N <= 4 ? 4 : N <= 8 ? 8 : N <= 16 ? 16 : 32; }
+
+int channel_blocks(int D, int N) {
+  const int ch = kThreads / padded_states(N);
+  return (D + ch - 1) / ch;
 }
 
-int padded_states(int N) { return N <= 4 ? 4 : N <= 8 ? 8 : N <= 16 ? 16 : 32; }
+// segment start states kept a block: every segment of a chunk but its first
+int scratch_segments(int T_len, int nch) {
+  const int nseg = (chunk_len(T_len, nch) + kSeg - 1) / kSeg;
+  return nseg > 1 ? nseg - 1 : 0;
+}
 
 cudaError_t reduce(const float* in, float* out, int P, long long M,
                    cudaStream_t stream) {
@@ -342,43 +390,46 @@ cudaError_t reduce(const float* in, float* out, int P, long long M,
 template <typename T, int NS>
 cudaError_t launch(const void* x, const void* dt, const void* A,
                    const void* Bm, const void* Cm, const void* dy,
-                   const void* hs, void* ckpt, void* dx, void* ddt, void* dAp,
-                   void* dBp, void* dCp, int B, int T_len, int D, int N,
-                   int nch, cudaStream_t stream) {
+                   const void* hs, void* scratch, void* dx, void* ddt,
+                   void* dAp, void* dBp, void* dCp, int B, int T_len, int D,
+                   int N, int nch, cudaStream_t stream) {
+  constexpr size_t smem = Geom<NS>::kSmem;
+  auto kernel = ssm_scan_bwd_kernel<T, NS>;
+  const cudaError_t err = hopper::allow_smem<ssm_scan_bwd_kernel<T, NS>>(smem);
+  if (err != cudaSuccess) return err;
   const int L = chunk_len(T_len, nch);
-  const int nwin = windows(T_len, nch);
-  const size_t smem = sizeof(float) * nch * kLanes * (NS + 1);
-  const dim3 grid((D + kLanes - 1) / kLanes, B);
-  ssm_scan_bwd_kernel<T, NS><<<grid, kLanes * nch, smem, stream>>>(
+  const dim3 grid(channel_blocks(D, N), B);
+  kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(dt),
       static_cast<const float*>(A), static_cast<const T*>(Bm),
       static_cast<const T*>(Cm), static_cast<const float*>(dy),
-      static_cast<const float*>(hs), static_cast<float*>(ckpt),
+      static_cast<const float*>(hs), static_cast<float*>(scratch),
       static_cast<float*>(dx), static_cast<float*>(ddt),
       static_cast<float*>(dAp), static_cast<float*>(dBp),
-      static_cast<float*>(dCp), B, T_len, D, N, L, nwin);
+      static_cast<float*>(dCp), B, T_len, D, N, nch, L,
+      scratch_segments(T_len, nch));
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_n(const void* x, const void* dt, const void* A,
                      const void* Bm, const void* Cm, const void* dy,
-                     const void* hs, void* ckpt, void* dx, void* ddt,
+                     const void* hs, void* scratch, void* dx, void* ddt,
                      void* dAp, void* dBp, void* dCp, int B, int T_len, int D,
                      int N, int nch, cudaStream_t s) {
   switch (padded_states(N)) {
     case 4:
-      return launch<T, 4>(x, dt, A, Bm, Cm, dy, hs, ckpt, dx, ddt, dAp, dBp,
-                          dCp, B, T_len, D, N, nch, s);
+      return launch<T, 4>(x, dt, A, Bm, Cm, dy, hs, scratch, dx, ddt, dAp,
+                          dBp, dCp, B, T_len, D, N, nch, s);
     case 8:
-      return launch<T, 8>(x, dt, A, Bm, Cm, dy, hs, ckpt, dx, ddt, dAp, dBp,
-                          dCp, B, T_len, D, N, nch, s);
+      return launch<T, 8>(x, dt, A, Bm, Cm, dy, hs, scratch, dx, ddt, dAp,
+                          dBp, dCp, B, T_len, D, N, nch, s);
     case 16:
-      return launch<T, 16>(x, dt, A, Bm, Cm, dy, hs, ckpt, dx, ddt, dAp, dBp,
-                           dCp, B, T_len, D, N, nch, s);
+      return launch<T, 16>(x, dt, A, Bm, Cm, dy, hs, scratch, dx, ddt, dAp,
+                           dBp, dCp, B, T_len, D, N, nch, s);
     default:
-      return launch<T, 32>(x, dt, A, Bm, Cm, dy, hs, ckpt, dx, ddt, dAp, dBp,
-                           dCp, B, T_len, D, N, nch, s);
+      return launch<T, 32>(x, dt, A, Bm, Cm, dy, hs, scratch, dx, ddt, dAp,
+                           dBp, dCp, B, T_len, D, N, nch, s);
   }
 }
 
@@ -386,21 +437,25 @@ cudaError_t launch_n(const void* x, const void* dt, const void* A,
 
 extern "C" {
 
-// Floats of the scratch of stored states for a call: (B, nch, windows,
-// NS, D).
+// Floats of the scratch of a call: the segment start states of chunks
+// longer than one segment, (B, channel blocks, segments - 1, 256); 0 when
+// every chunk is one segment (T <= 512).
 long long ssm_scan_bwd_scratch_floats(int B, int T_len, int D, int N,
                                       int nch) {
-  return static_cast<long long>(B) * nch * windows(T_len, nch) *
-         padded_states(N) * D;
+  return static_cast<long long>(B) * channel_blocks(D, N) *
+         scratch_segments(T_len, nch) * kThreads;
 }
+
+// Channel blocks of a call: the partials of dB and dC have this many rows.
+int ssm_scan_bwd_blocks(int D, int N) { return channel_blocks(D, N); }
 
 // dtype of x, dt, B, C: 0 = float32, 1 = bfloat16.  A, dy, hs ((B, nch, N,
 // D), from ssm_scan_launch with the same T) and every output are float32:
 // dx, ddt (B, T, D); dA (D, N) from its partials dAp (B, D, N); dB, dC
-// (B, T, N) from their partials dBp, dCp (ceil(D / 32), B, T, N).
+// (B, T, N) from their partials dBp, dCp (ssm_scan_bwd_blocks, B, T, N).
 int ssm_scan_bwd_launch(const void* x, const void* dt, const void* A,
                         const void* Bm, const void* Cm, const void* dy,
-                        const void* hs, void* ckpt, void* dx, void* ddt,
+                        const void* hs, void* scratch, void* dx, void* ddt,
                         void* dAp, void* dBp, void* dCp, void* dA, void* dB,
                         void* dC, int B, int T_len, int D, int N, int nch,
                         int dtype, void* stream) {
@@ -410,15 +465,15 @@ int ssm_scan_bwd_launch(const void* x, const void* dt, const void* A,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0)
-    err = launch_n<float>(x, dt, A, Bm, Cm, dy, hs, ckpt, dx, ddt, dAp, dBp,
-                          dCp, B, T_len, D, N, nch, s);
+    err = launch_n<float>(x, dt, A, Bm, Cm, dy, hs, scratch, dx, ddt, dAp,
+                          dBp, dCp, B, T_len, D, N, nch, s);
   else if (dtype == 1)
-    err = launch_n<__nv_bfloat16>(x, dt, A, Bm, Cm, dy, hs, ckpt, dx, ddt,
+    err = launch_n<__nv_bfloat16>(x, dt, A, Bm, Cm, dy, hs, scratch, dx, ddt,
                                   dAp, dBp, dCp, B, T_len, D, N, nch, s);
   else
     return cudaErrorInvalidValue;
   if (err != cudaSuccess) return err;
-  const int nblk = (D + kLanes - 1) / kLanes;
+  const int nblk = channel_blocks(D, N);
   const long long btn = static_cast<long long>(B) * T_len * N;
   if ((err = reduce(static_cast<const float*>(dBp), static_cast<float*>(dB),
                     nblk, btn, s)) != cudaSuccess)

@@ -21,8 +21,9 @@ on), the scan goes through :class:`_SsmScanFn`.  Its forward is the same
 launch (y keeps its bits) with each chunk's start state also written
 ((B, nch, N, d) fp32, :func:`ssm_scan_states`), as the attention forward
 writes its log-sum-exp; its backward is :func:`ssm_scan_bwd`, the kernel
-of ``csrc/ssm_scan_bwd.cu``, which recomputes the states inside each chunk
-from those while it walks the chunk in reverse and never builds the
+of ``csrc/ssm_scan_bwd.cu``, one thread a (channel, state) pair, which
+recomputes the states inside each chunk from those, 16 steps at a time in
+registers, while it walks the sequence in reverse and never builds the
 (B, T, d, N) states.  It returns every gradient in fp32, the partial sums
 of dA, dB and dC added in a fixed order (no atomics), so two calls give
 the same bits; ``ssm_scan_bwd.launches`` counts its calls.  Its plain
@@ -42,8 +43,6 @@ from .ref import (ssm_scan_bwd_meta, ssm_scan_bwd_ref, ssm_scan_meta,
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_STATE = 32
-#: channels a block of either kernel holds
-_LANES = 32
 
 
 @functools.cache
@@ -71,6 +70,8 @@ def _bwd_library() -> ctypes.CDLL:
     lib.ssm_scan_bwd_launch.restype = ctypes.c_int
     lib.ssm_scan_bwd_scratch_floats.argtypes = [ctypes.c_int] * 5
     lib.ssm_scan_bwd_scratch_floats.restype = ctypes.c_longlong
+    lib.ssm_scan_bwd_blocks.argtypes = [ctypes.c_int] * 2
+    lib.ssm_scan_bwd_blocks.restype = ctypes.c_int
     lib.ssm_scan_bwd_error_string.argtypes = [ctypes.c_int]
     lib.ssm_scan_bwd_error_string.restype = ctypes.c_char_p
     return lib
@@ -127,8 +128,8 @@ def _launch_bwd(x, dt, A, Bm, C, dy, hs):
 
     def f32(*shape):
         return torch.empty(shape, dtype=torch.float32, device=dev)
-    nblk = -(-d // _LANES)
-    scratch = f32(lib.ssm_scan_bwd_scratch_floats(B, T, d, N, nch))
+    nblk = lib.ssm_scan_bwd_blocks(d, N)
+    scratch = f32(max(1, lib.ssm_scan_bwd_scratch_floats(B, T, d, N, nch)))
     dx, ddt = f32(B, T, d), f32(B, T, d)
     dA_p, dB_p, dC_p = f32(B, d, N), f32(nblk, B, T, N), f32(nblk, B, T, N)
     dA, dB, dC = f32(d, N), f32(B, T, N), f32(B, T, N)

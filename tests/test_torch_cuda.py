@@ -594,6 +594,11 @@ def test_mla_decode_past_max_len_matches_the_cpu(card):
     (2, 4, 4, 77, 77, 96, 64, True, None),     # MLA: v under q/k
     (1, 2, 2, 33, 33, 36, 36, True, None),     # bf16 pads D to 40
     (1, 2, 1, 120, 40, 64, 64, False, 16),     # rows 55.. see no key
+    (1, 32, 2, 130, 130, 128, 128, True, None),  # glm4's GQA group of 16
+    (1, 4, 2, 96, 160, 64, 64, True, None),    # Sk > Sq: keys 96.. unseen
+    (1, 4, 4, 150, 70, 80, 80, False, None),   # Sq > Sk
+    (2, 4, 2, 150, 150, 256, 256, True, 50),   # D = 256, a window, GQA
+    (1, 4, 2, 130, 100, 96, 96, False, None),  # 100 keys: a ragged tile
 ])
 def test_flash_attention_bwd_kernel_against_plain(card, b, hq, hkv, sq, sk,
                                                   d, dv, causal, window,
@@ -692,7 +697,14 @@ def test_rglru_scan_bwd_kernel_against_plain(card, b, t, w, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,t,d,n", [(2, 37, 20, 4), (1, 150, 70, 16),
                                      (2, 1, 33, 5), (1, 65, 64, 1),
-                                     (2, 200, 40, 32), (2, 512, 96, 16)])
+                                     (2, 200, 40, 32), (2, 512, 96, 16),
+                                     # T off the 16-step window and the
+                                     # chunk; D off a block's channels
+                                     (1, 100, 50, 1), (2, 130, 70, 5),
+                                     (2, 96, 33, 32),
+                                     # chunks of 88 and 129 steps: more
+                                     # than one 64-step segment each
+                                     (1, 700, 40, 16), (1, 1030, 24, 8)])
 def test_ssm_scan_bwd_kernel_against_plain(card, b, t, d, n, dtype):
     """The forward with its chunk states keeps y's bits; the backward
     kernel against the plain backward, equal across calls."""
