@@ -22,7 +22,8 @@ prints no result):
    one), ``moe_gemm`` at C = 4 (thin), also with the expert mask of a
    top-8 routing of 4 tokens (the active experts' bits equal to the
    unmasked call's, the others zeros), and at C = 130 and 512 (wide),
-   ``flash_attention`` also at head dims 80 and 200, with minicpm3's v
+   ``flash_attention`` also at head dims 80 and 200, on rows that see no
+   key (zeros, a log-sum-exp of +inf), with minicpm3's v
    head dim 64 below its q/k head dim 96, granite-moe-3b-a800m's heads
    (24 over 8, D 64), and on a query chunk at the end of a longer key
    sequence (Sk != Sq, ``q_offset``), ``ssm_scan`` also with its chunk
@@ -776,6 +777,26 @@ def check_flash_attention(gen, report) -> dict:
             if (b, hq, hkv, sq, causal, window, d, dtype) == (
                     1, 32, 32, 512, True, None, 96, torch.bfloat16):
                 rep = row
+    # rows that see no key (a window of 64 without the causal mask over
+    # 128 keys: query rows from 191 on), from a generator of their own:
+    # exact zeros and a log-sum-exp of +inf, the rows before them the plain
+    # version's (which averages v over a row whose scores are all masked)
+    none = torch.Generator(device="cuda").manual_seed(SEED + 25)
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = (torch.randn(shape, generator=none, device="cuda").to(dtype)
+                   for shape in ((1, 4, 512, 96), (1, 2, 128, 96),
+                                 (1, 2, 128, 96)))
+        out, lse = ops._launch(q, k, v, False, 64, 0, with_lse=True)
+        torch.cuda.synchronize()
+        if not (bool((out[:, :, 191:] == 0).all())
+                and bool((lse[:, :, 191:] == math.inf).all())
+                and bool(torch.isfinite(lse[:, :, :191]).all())):
+            raise AssertionError(f"flash_attention {dtype}: a row with no key "
+                                 f"is not 0 with a log-sum-exp of +inf")
+        err = within(out[:, :, :191],
+                     ops._plain(q, k, v, False, 64, 0)[:, :, :191], TOL[dtype])
+        log(f"[kernels] flash_attention rows with no key, {str(dtype)[6:]}: "
+            f"rows 191-511 of 512 zero, lse +inf; max abs err {err:.3e}")
     return rep
 
 

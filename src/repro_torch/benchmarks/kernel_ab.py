@@ -1,0 +1,292 @@
+"""A/B of the port's fp32 kernels against another checkout's, on one card.
+
+  python -m repro_torch.benchmarks.kernel_ab --other DIR [--out FILE]
+
+``DIR`` is the root of another checkout of this repository (a ``git
+archive`` of an earlier commit unpacked under ``build/``, say).  Its
+``queue_matmul``, ``moe_gemm`` and ``flash_attention`` sources are built
+into ``DIR/build/kernels/`` and launched through this checkout's wrappers,
+whose C interfaces the two must share; none of ``DIR``'s Python runs.
+
+- Bits: every fp32 product ``chip_smoke.py``'s phase 2 checks
+  (``queue_matmul`` over the served, trained and scored models and the entry
+  paths, ``moe_gemm`` over olmoe-1b-7b's experts) through both builds, on
+  the same inputs: equal bits or not and, where not, each build's max abs
+  distance from an fp64 product.
+- Times: the fp32 products of train_lm's 100m preset (its head's dX and dW
+  too), quickstart's, nemotron-4-340b's head, two decode products, olmoe's
+  experts (C = 4, 128 as in ``chip_smoke.py``'s phase 3, and 512), and the
+  fp32 attention of train_lm, quickstart and phi3-mini-3.8b: each build's
+  device time taken in turns (other, this, this, other), beside one
+  library call's (``torch.matmul`` and ``torch.bmm`` in full fp32, SDPA)
+  and the work's bound on an H100 (``repro_torch.roofline``).
+
+Prints one line a case and, with ``--out``, writes the rows as JSON with
+the card's name and power limit.  Needs a CUDA card.
+"""
+from __future__ import annotations
+
+import argparse
+import contextlib
+import importlib.util
+import json
+import math
+import subprocess
+import sys
+import types
+from pathlib import Path
+from typing import Dict, List
+
+import torch
+
+from ..kernels.flash_attention import ops as fa_ops
+from ..kernels.moe_gemm import ops as mg_ops
+from ..kernels.queue_matmul import ops as qm_ops
+from ..roofline import HBM_BW, PEAK_FLOPS_BY_DTYPE
+from .timing import event_ms
+
+ROOT = Path(__file__).resolve().parents[3]
+#: the wrapper module of each kernel, whose ``_library`` is swapped
+WRAPPERS = {"queue_matmul": qm_ops, "moe_gemm": mg_ops,
+            "flash_attention": fa_ops}
+
+
+def other_libraries(other: Path) -> Dict[str, object]:
+    """The other checkout's kernel libraries, built from its sources with
+    its own ``_build`` module and typed by this checkout's wrappers."""
+    spec = importlib.util.spec_from_file_location(
+        "other_build", other / "src" / "repro_torch" / "kernels" / "_build.py")
+    build = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(build)
+    build.build_all(WRAPPERS)
+    load = build.load
+    build.load = lambda name: _Lenient(load(name))
+    libs = {}
+    for name, ops in WRAPPERS.items():
+        own = ops._build
+        ops._build = build
+        try:
+            libs[name] = ops._library.__wrapped__()
+        finally:
+            ops._build = own
+    return libs
+
+
+class _Lenient:
+    """A library whose functions this checkout's wrapper types: one the
+    other build lacks (a newer export, never launched) is typed on a
+    stand-in."""
+
+    def __init__(self, lib):
+        self._lib = lib
+
+    def __getattr__(self, name):
+        try:
+            return getattr(self._lib, name)
+        except AttributeError:
+            return types.SimpleNamespace()
+
+
+@contextlib.contextmanager
+def launching(name: str, lib):
+    """Launch kernel ``name`` from ``lib`` (None: this checkout's)."""
+    ops = WRAPPERS[name]
+    own = ops._library
+    if lib is not None:
+        ops._library = lambda: lib
+    try:
+        yield
+    finally:
+        ops._library = own
+
+
+def turns(fn_other, fn_this, iters: int):
+    """Device ms of each, taken in turns: other, this, this, other."""
+    a1 = event_ms(fn_other, iters)
+    b1 = event_ms(fn_this, iters)
+    b2 = event_ms(fn_this, iters)
+    a2 = event_ms(fn_other, iters)
+    return (a1 + a2) / 2, (b1 + b2) / 2
+
+
+def bound_ms(flops: float, nbytes: float) -> float:
+    """The least time of fp32 work on an H100: its operations at the FMA
+    rate or its bytes at the HBM rate, whichever is longer."""
+    return max(flops / PEAK_FLOPS_BY_DTYPE[torch.float32],
+               nbytes / HBM_BW) * 1e3
+
+
+def fp64_distance(x, w, out) -> float:
+    """Max abs distance of ``out`` from x @ w in fp64, 8192 columns at a
+    time (nemotron's head weight is 38 GB in fp64)."""
+    worst = 0.0
+    for c in range(0, w.shape[-1], 8192):
+        ref = torch.matmul(x.double(), w[..., c:c + 8192].double())
+        worst = max(worst, (out[..., c:c + 8192].double() - ref
+                            ).abs().max().item())
+    return worst
+
+
+def product_cases(cs) -> List[tuple]:
+    """(label, M, K, N) of every fp32 ``queue_matmul`` product of
+    ``chip_smoke.check_queue_matmul``, in its order."""
+    cases, seen = [], set()
+    for arch in (cs.SERVED + ("granite-moe-3b-a800m",) + cs.ENCODERS
+                 + (cs.ENTRY_ARCH,)):
+        for name, k, n, dtypes in cs.matmul_shapes(arch):
+            if torch.float32 not in dtypes:
+                continue
+            ms = (4, 512)
+            if arch == "phi3-mini-3.8b" and name != "head":
+                ms = (4, 64, 128, 512)
+            elif name == "wuk/wuv" or arch in cs.ENCODERS:
+                ms = (512,)
+            for m in ms:
+                if (m, k, n) not in seen:
+                    seen.add((m, k, n))
+                    cases.append((f"{arch.split('-')[0]} {name}", m, k, n))
+    for path, cfg, rows, dtype, _ in cs.entry_paths():
+        if dtype != torch.float32:
+            continue
+        for name, k, n, _ in cs.matmul_shapes(cfg):
+            for m in rows:
+                if (m, k, n) not in seen:
+                    seen.add((m, k, n))
+                    cases.append((f"{path} {name}", m, k, n))
+    return cases
+
+
+#: products timed in turns: train_lm 100m's (and its head's dX and dW),
+#: quickstart's, nemotron-4-340b's head, and two decode products (M = 4:
+#: phi3-mini-3.8b's q/k/v/o, recurrentgemma-2b's head)
+TIMED = {(4096, 512, 512), (4096, 512, 256), (4096, 512, 2048),
+         (4096, 512, 32768), (4096, 2048, 512), (4096, 32768, 512),
+         (512, 4096, 32768), (512, 64, 64), (512, 64, 128), (512, 128, 64),
+         (2, 64, 64), (512, 18432, 256000), (4, 3072, 3072),
+         (4, 2560, 256000)}
+#: attention timed in turns, fp32: (B, Hq, Hkv, S, D), causal
+ATTENTION = ((8, 8, 4, 512, 64), (8, 4, 4, 64, 16), (1, 32, 32, 512, 96),
+             (1, 32, 8, 512, 128), (1, 10, 1, 512, 256))
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--other", required=True, type=Path,
+                    help="root of the other checkout")
+    ap.add_argument("--out", default=None, help="write the rows as JSON")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("kernel_ab: needs a CUDA card", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as cs
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    print(smi, flush=True)
+    libs = other_libraries(args.other.resolve())
+    g = torch.Generator(device="cuda").manual_seed(cs.SEED)
+    rows, differ = [], 0
+
+    def report(row):
+        rows.append(row)
+        print("[ab] " + " ".join(f"{k}={v:.4f}" if isinstance(v, float)
+                                 else f"{k}={v}" for k, v in row.items()),
+              flush=True)
+
+    for label, m, k, n in product_cases(cs) + [
+            ("train_lm head dX", 4096, 32768, 512),
+            ("train_lm head dW", 512, 4096, 32768)]:
+        x = torch.randn((m, k), generator=g, device="cuda")
+        w = torch.randn((k, n), generator=g, device="cuda").div_(math.sqrt(k))
+        with launching("queue_matmul", libs["queue_matmul"]):
+            a = qm_ops.queue_matmul(x, w)
+        b = qm_ops.queue_matmul(x, w)
+        row = {"kernel": "queue_matmul", "case": label, "M": m, "K": k,
+               "N": n, "equal": bool(torch.equal(a, b))}
+        if not row["equal"]:
+            differ += 1
+            row["other_fp64"] = fp64_distance(x, w, a)
+            row["this_fp64"] = fp64_distance(x, w, b)
+        del a, b
+        if (m, k, n) in TIMED:
+            iters = 3 if 2.0 * m * k * n > 1e12 else 20
+
+            def other():
+                with launching("queue_matmul", libs["queue_matmul"]):
+                    qm_ops.queue_matmul(x, w)
+            row["other_ms"], row["this_ms"] = turns(
+                other, lambda: qm_ops.queue_matmul(x, w), iters)
+            row["library_ms"] = event_ms(lambda: torch.matmul(x, w), iters)
+            row["bound_ms"] = bound_ms(2.0 * m * k * n,
+                                       4.0 * (m * k + k * n + m * n))
+            row["this_tflops"] = 2.0 * m * k * n / row["this_ms"] / 1e9
+        report(row)
+        del x, w
+        torch.cuda.empty_cache()
+
+    for c, routed in ((4, False), (4, True), (128, False), (512, False)):
+        for d, f, bcast in ((2048, 1024, True), (1024, 2048, False)):
+            e = 64
+            x = (torch.randn((c, d), generator=g, device="cuda")
+                 .expand(e, c, d) if bcast
+                 else torch.randn((e, c, d), generator=g, device="cuda"))
+            w = torch.randn((e, d, f), generator=g, device="cuda") / d ** 0.5
+            active = cs.routed_mask(g, c, e, 8) if routed else None
+            with launching("moe_gemm", libs["moe_gemm"]):
+                a = mg_ops.moe_gemm(x, w, active=active)
+            b = mg_ops.moe_gemm(x, w, active=active)
+            row = {"kernel": "moe_gemm", "case": f"olmoe E={e} C={c} d={d} "
+                   f"f={f}" + (" routed" if routed else ""),
+                   "equal": bool(torch.equal(a, b))}
+            if not row["equal"]:
+                differ += 1
+            if not routed:
+                def other():
+                    with launching("moe_gemm", libs["moe_gemm"]):
+                        mg_ops.moe_gemm(x, w)
+                row["other_ms"], row["this_ms"] = turns(
+                    other, lambda: mg_ops.moe_gemm(x, w), 20)
+                row["library_ms"] = event_ms(lambda: torch.bmm(x, w), 20)
+                x_elems = (c if bcast else e * c) * d
+                row["bound_ms"] = bound_ms(
+                    2.0 * e * c * d * f,
+                    4.0 * (x_elems + e * d * f + e * c * f))
+            report(row)
+
+    for b, hq, hkv, s, d in ATTENTION:
+        q = torch.randn((b, hq, s, d), generator=g, device="cuda")
+        k = torch.randn((b, hkv, s, d), generator=g, device="cuda")
+        v = torch.randn((b, hkv, s, d), generator=g, device="cuda")
+
+        def other():
+            with launching("flash_attention", libs["flash_attention"]):
+                return fa_ops.flash_attention(q, k, v, causal=True)
+        ref = fa_ops._plain(q, k, v, True, None, 0)
+        errs = [(o - ref).abs().max().item()
+                for o in (other(), fa_ops.flash_attention(q, k, v))]
+        row = {"kernel": "flash_attention", "case": f"{b},{hq}/{hkv},{s},{d}"
+               " causal", "other_err": errs[0], "this_err": errs[1]}
+        row["other_ms"], row["this_ms"] = turns(
+            other, lambda: fa_ops.flash_attention(q, k, v, causal=True), 20)
+        row["library_ms"] = event_ms(lambda: cs._sdpa(q, k, v, True, None, 0),
+                                     20)
+        # as chip_smoke.py bounds it: QK^T and PV over the causal pairs;
+        # q and k, then v and the output, read or written once
+        pairs = b * hq * s * (s + 1) / 2
+        row["bound_ms"] = bound_ms(2.0 * pairs * 2 * d,
+                                   4.0 * b * (hq + hkv) * s * 2 * d)
+        report(row)
+
+    products = sum(r["kernel"] != "flash_attention" for r in rows)
+    print(f"[ab] {differ} of {products} products differ in bits", flush=True)
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(json.dumps({"card": smi, "rows": rows},
+                                             indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -48,33 +48,13 @@
 
 namespace hopper {
 
+using tile_ring::mbar_wait_or_trap;
 using tile_ring::smem_u32;
 
 __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
                    smem_u32(bar))
                : "memory");
-}
-
-// mbar_wait with a limit: a wait that lasts about 10 s (2^34 cycles) means
-// a copy or an arrival that will never come, and traps, so that the launch
-// fails with an error instead of holding the card.
-__device__ __forceinline__ void mbar_wait_or_trap(uint64_t* bar,
-                                                  uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  const long long start = clock64();
-  uint32_t done = 0;
-  while (true) {
-    asm volatile(
-        "{\n\t.reg .pred p;\n\t"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (clock64() - start > (1ll << 34)) __trap();
-  }
 }
 
 // One arrival that also announces `bytes` of copies still to land.

@@ -48,11 +48,24 @@
 //  * the q tiles with the most keys start first (the grid walks them in
 //    reverse), so a causal launch ends on light tiles.
 //
-// fp32 (flash_attention_kernel below): Q, K and V as fp32 in shared memory,
-// scores and P V on FMAs (the fp32 tolerance, 2e-4, rules out TF32).  Lane j
-// scores key j of a 32-key tile; each warp owns 8 query rows; lane j keeps
-// output columns j, j + 32, ... in registers (4 for D <= 128, 8 above);
-// shared memory is (64 D + 32 (D + 1) + 32 D) floats, 129 KB at D = 256.
+// fp32 (namespace f32), on FMAs (the fp32 tolerance, 2e-4, rules out TF32),
+// bound by the FMA rate (67 TFLOP/s).  What held it back was one lane per
+// key, with a D-long dot product out of shared memory and P V one key at a
+// time: a shared-memory load per FMA or two.  So, as the fp32 backward
+// (flash_attention_bwd.cu):
+//  * 256 threads as a 16 x 16 grid (ty, tx); query tiles of 64 rows (32 at
+//    D > 128) and key tiles of 64 keys (32 at D > 64), so that two blocks
+//    fit an SM up to D = 128 (111 KB at D = 128, 169 KB at D = 256);
+//  * K and V stream through a two-stage cp.async ring, one mbarrier a
+//    stage; rows are padded to an odd count of float4s, so 16 rows read at
+//    one column fall on 8 bank groups twice;
+//  * a thread keeps a (tile / 16) x (keys / 16) micro-tile of S (rows
+//    ty + 16 i, keys tx + 16 j), reading Q and K as float4 along D; a row's
+//    max and sum reduce over its 16 threads, a half-warp, by shuffles;
+//  * P goes through shared memory into a (tile / 16) x (D / 16) micro-tile
+//    of O (columns 64 c + 4 tx + e), P and V read as float4s;
+//  * at 64 query rows and 64 keys (D <= 64) a column group of S is 8
+//    vector loads for 64 FMAs, and 4 keys of O the same.
 //
 // C interface: flash_attention_launch(...) returns cudaGetLastError().
 // q (B, Hq, Sq, ld), k and v (B, Hkv, Sk, ld), out (B, Hq, Sq, ld),
@@ -67,63 +80,106 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kBQ = 64;
-constexpr int kBK = 32;
-constexpr int kRowsPerWarp = kBQ / kWarps;
 constexpr int kMaxD = 256;
 constexpr float kNegInf = -1e30f;
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ void from_float(float* p, float x) { *p = x; }
+// ---------------------------------------------------------------------------
+// fp32 on FMAs
+// ---------------------------------------------------------------------------
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffff, v, o));
-  return v;
+namespace f32 {
+
+constexpr int kThreads = 256;  // a 16 x 16 grid (ty, tx)
+constexpr int kStages = 2;     // K/V ring stages
+
+// The tiles for head dims up to kDMax: query rows a block, keys a tile,
+// the padded row of Q, K and V (kDMax + 4 floats: an odd count of float4s,
+// so 16 rows read at one column fall on 8 bank groups twice) and of P
+// (keys + 16: the two half-warps' rows 16 banks apart); then the byte
+// offsets of Q, the ring and P after the barriers.
+template <int kDMax>
+struct Geom {
+  static constexpr int kBQ = kDMax > 128 ? 32 : 64;
+  static constexpr int kBK = kDMax > 64 ? 32 : 64;
+  static constexpr int kLd = kDMax + 4;
+  static constexpr int kLdP = kBK + 16;
+  static constexpr int kRQ = kBQ / 16;   // query rows a thread
+  static constexpr int kKJ = kBK / 16;   // keys a thread (S)
+  static constexpr int kOC = kDMax / 64;  // float4 column groups a thread (O)
+  static constexpr size_t kOffQ = 128;
+  static constexpr size_t kOffKV = kOffQ + sizeof(float) * kBQ * kLd;
+  static constexpr size_t kStage = sizeof(float) * 2 * kBK * kLd;  // K, V
+  static constexpr size_t kOffP = kOffKV + kStages * kStage;
+  static constexpr size_t kSmem = kOffP + sizeof(float) * kBQ * kLdP;
+};
+
+// Rows [r0, r0 + rows) of a (R, D) matrix into rows of kLd, columns up to
+// the float4 that holds column D - 1; rows past R and columns past D
+// arrive as zeros.  16-byte copies when D is a multiple of 4 and the
+// matrix 16-byte aligned (`vec`), else 4-byte ones; a warp copies a run
+// of one row either way.
+template <int kDMax, int kLd>
+__device__ __forceinline__ void load_rows(float* dst, const float* src, int R,
+                                          int D, int r0, int rows, bool vec) {
+  const int width = (D + 3) / 4;  // float4s a row
+  if (vec) {
+    constexpr int kPer = kDMax / 4, kPass = kThreads / kPer;
+    const int c = threadIdx.x % kPer;
+    if (c >= width) return;
+    for (int r = threadIdx.x / kPer; r < rows; r += kPass) {
+      const bool in = r0 + r < R;
+      tile_ring::cp_async16(
+          dst + r * kLd + 4 * c,
+          in ? src + static_cast<size_t>(r0 + r) * D + 4 * c : src,
+          in ? 16 : 0);
+    }
+    return;
+  }
+  constexpr int kPass = kThreads / kDMax;
+  const int c = threadIdx.x % kDMax;
+  if (c >= 4 * width) return;
+  for (int r = threadIdx.x / kDMax; r < rows; r += kPass) {
+    const bool in = r0 + r < R && c < D;
+    tile_ring::cp_async4(
+        dst + r * kLd + c,
+        in ? src + static_cast<size_t>(r0 + r) * D + c : src, in ? 4 : 0);
+  }
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffff, v, o);
-  return v;
-}
-
-size_t smem_bytes(int D) {
-  return sizeof(float) * (static_cast<size_t>(kBQ) * D +
-                          static_cast<size_t>(kBK) * (D + 1) +
-                          static_cast<size_t>(kBK) * D);
-}
-
-template <typename T, int kCols>
-__global__ void __launch_bounds__(kThreads)
-    flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                           const T* __restrict__ v, T* __restrict__ out,
-                           float* __restrict__ lse,
-                           int Hq, int Hkv, int Sq, int Sk, int D, int causal,
-                           int has_window, int window, int q_offset,
-                           float scale) {
-  extern __shared__ __align__(16) float smem[];
-  float* qs = smem;                    // [kBQ][D]
-  float* ks = qs + kBQ * D;            // [kBK][D + 1]
-  float* vs = ks + kBK * (D + 1);      // [kBK][D]
+template <int kDMax>
+__global__ void __launch_bounds__(kThreads, kDMax > 128 ? 1 : 2)
+    flash_attention_f32(const float* __restrict__ q,
+                        const float* __restrict__ k,
+                        const float* __restrict__ v, float* __restrict__ out,
+                        float* __restrict__ lse, int Hq, int Hkv, int Sq,
+                        int Sk, int D, int causal, int has_window, int window,
+                        int q_offset, float scale) {
+  using G = Geom<kDMax>;
+  constexpr int kBQ = G::kBQ, kBK = G::kBK, kLd = G::kLd, kLdP = G::kLdP;
+  constexpr int kRQ = G::kRQ, kKJ = G::kKJ, kOC = G::kOC;
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
+  float* qs = reinterpret_cast<float*>(smem + G::kOffQ);  // [kBQ][kLd]
+  float* ps = reinterpret_cast<float*>(smem + G::kOffP);  // P [kBQ][kLdP]
+  auto stage = [&](int s) {  // K [kBK][kLd], then V
+    return reinterpret_cast<float*>(smem + G::kOffKV + s * G::kStage);
+  };
 
   const int bh = blockIdx.y;
   const int b = bh / Hq, h = bh % Hq;
   const int hk = h / (Hq / Hkv);
-  const int q0 = blockIdx.x * kBQ;
-  const T* qb = q + (static_cast<size_t>(bh) * Sq) * D;
-  const T* kb = k + (static_cast<size_t>(b) * Hkv + hk) * Sk * D;
-  const T* vb = v + (static_cast<size_t>(b) * Hkv + hk) * Sk * D;
-  T* ob = out + (static_cast<size_t>(bh) * Sq) * D;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-
-  for (int i = threadIdx.x; i < kBQ * D; i += kThreads) {
-    const int r = i / D;
-    qs[i] = (q0 + r < Sq) ? to_float(qb[static_cast<size_t>(q0 + r) * D + i % D])
-                          : 0.f;
-  }
+  // the q tiles with the most keys first, so the last wave is the lightest
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
+  const float* qb = q + static_cast<size_t>(bh) * Sq * D;
+  const float* kb = k + (static_cast<size_t>(b) * Hkv + hk) * Sk * D;
+  const float* vb = v + (static_cast<size_t>(b) * Hkv + hk) * Sk * D;
+  float* ob = out + static_cast<size_t>(bh) * Sq * D;
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const int d4 = (D + 3) / 4;  // float4 columns in use
+  const bool vec =
+      D % 4 == 0 &&
+      ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+        reinterpret_cast<uintptr_t>(v)) & 15) == 0;
 
   // k tiles that hold a key some row of this block may attend to
   const int q_first = q_offset + q0;
@@ -135,101 +191,199 @@ __global__ void __launch_bounds__(kThreads)
   const int t_begin = k_begin / kBK;
   const int t_end = (k_end + kBK - 1) / kBK;
 
-  float m[kRowsPerWarp], l[kRowsPerWarp], acc[kRowsPerWarp][kCols];
+  // this thread's rows ty + 16 i; S's keys tx + 16 j; O's columns
+  // 64 c + 4 tx + e
+  float m[kRQ], l[kRQ], o[kRQ][4 * kOC];
 #pragma unroll
-  for (int i = 0; i < kRowsPerWarp; ++i) {
+  for (int i = 0; i < kRQ; ++i) {
     m[i] = kNegInf;
     l[i] = 0.f;
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) acc[i][c] = 0.f;
+    for (int c = 0; c < 4 * kOC; ++c) o[i][c] = 0.f;
+  }
+
+  auto fill = [&](int s, int t) {
+    float* ks = stage(s);
+    load_rows<kDMax, kLd>(ks, kb, Sk, D, t * kBK, kBK, vec);
+    load_rows<kDMax, kLd>(ks + kBK * kLd, vb, Sk, D, t * kBK, kBK, vec);
+    tile_ring::cp_async_arrive(bar + s);
+  };
+  if (t_begin < t_end) {
+    if (threadIdx.x == 0) {
+      for (int s = 0; s < kStages; ++s)
+        tile_ring::mbar_init(bar + s, kThreads);
+      tile_ring::mbar_init_fence();
+    }
+    __syncthreads();
+    load_rows<kDMax, kLd>(qs, qb, Sq, D, q0, kBQ, vec);
+    for (int s = 0; s < kStages && t_begin + s < t_end; ++s)
+      fill(s, t_begin + s);  // the first arrival also covers Q
   }
 
   for (int t = t_begin; t < t_end; ++t) {
-    const int k0 = t * kBK;
-    __syncthreads();  // the previous tile (and, first time, Q) is consumed/ready
-    for (int i = threadIdx.x; i < kBK * D; i += kThreads) {
-      const int r = i / D, d = i % D;
-      const bool in = k0 + r < Sk;
-      const size_t g = static_cast<size_t>(k0 + r) * D + d;
-      ks[r * (D + 1) + d] = in ? to_float(kb[g]) : 0.f;
-      vs[r * D + d] = in ? to_float(vb[g]) : 0.f;
-    }
-    __syncthreads();
+    const int u = t - t_begin, st = u % kStages;
+    hopper::mbar_wait_or_trap(bar + st, (u / kStages) & 1);
+    const float* ks = stage(st);
+    const float* vs = ks + kBK * kLd;
 
-    const int kpos = k0 + lane;
+    // S = Q K^T over float4 columns: per column group, kRQ + kKJ vector
+    // loads for 4 kRQ kKJ FMAs
+    float sc[kRQ][kKJ];
 #pragma unroll
-    for (int i = 0; i < kRowsPerWarp; ++i) {
-      const int r = warp + kWarps * i;
-      if (q0 + r >= Sq) continue;  // warp-uniform
-      const int qpos = q_offset + q0 + r;
-      float s = 0.f;
-      const float* qr = qs + r * D;
-      const float* kr = ks + lane * (D + 1);
-      for (int d = 0; d < D; ++d) s = fmaf(qr[d], kr[d], s);
-      s *= scale;
-      bool valid = kpos < Sk;
-      if (causal) valid = valid && kpos <= qpos;
-      if (has_window) valid = valid && kpos > qpos - window;
-      s = valid ? s : kNegInf;
-      const float m_new = fmaxf(m[i], warp_max(s));
-      // every key so far masked: p = 0, so the row ends at 0 if none is
-      // in range (a later key in range scales what came before by 0)
-      const float p = m_new <= kNegInf ? 0.f : expf(s - m_new);
+    for (int i = 0; i < kRQ; ++i)
+#pragma unroll
+      for (int j = 0; j < kKJ; ++j) sc[i][j] = 0.f;
+#pragma unroll
+    for (int dd = 0; dd < kDMax / 4; ++dd) {
+      if (dd >= d4) break;
+      float4 qv[kRQ], kv[kKJ];
+#pragma unroll
+      for (int i = 0; i < kRQ; ++i)
+        qv[i] = *reinterpret_cast<const float4*>(qs + (ty + 16 * i) * kLd +
+                                                 4 * dd);
+#pragma unroll
+      for (int j = 0; j < kKJ; ++j)
+        kv[j] = *reinterpret_cast<const float4*>(ks + (tx + 16 * j) * kLd +
+                                                 4 * dd);
+#pragma unroll
+      for (int i = 0; i < kRQ; ++i)
+#pragma unroll
+        for (int j = 0; j < kKJ; ++j) {
+          float a = sc[i][j];
+          a = fmaf(qv[i].x, kv[j].x, a);
+          a = fmaf(qv[i].y, kv[j].y, a);
+          a = fmaf(qv[i].z, kv[j].z, a);
+          sc[i][j] = fmaf(qv[i].w, kv[j].w, a);
+        }
+    }
+
+    // scaled, masked where the tile is not all in range
+    const int k0 = t * kBK;
+    const bool full = k0 + kBK <= Sk &&
+                      (!causal || k0 + kBK - 1 <= q_first) &&
+                      (!has_window || k0 > q_last - window);
+#pragma unroll
+    for (int i = 0; i < kRQ; ++i)
+#pragma unroll
+      for (int j = 0; j < kKJ; ++j) {
+        float x = sc[i][j] * scale;
+        if (!full) {
+          const int kpos = k0 + tx + 16 * j;
+          const int qpos = q_offset + q0 + ty + 16 * i;
+          bool valid = kpos < Sk;
+          if (causal) valid = valid && kpos <= qpos;
+          if (has_window) valid = valid && kpos > qpos - window;
+          x = valid ? x : kNegInf;
+        }
+        sc[i][j] = x;
+      }
+
+    // online softmax; a row's 16 threads are a half-warp (tx), so its max
+    // and sum reduce over shuffles 8, 4, 2, 1.  A row whose keys so far
+    // are all masked keeps p = 0, so it ends at 0 if no key is in range
+#pragma unroll
+    for (int i = 0; i < kRQ; ++i) {
+      float mx = sc[i][0];
+#pragma unroll
+      for (int j = 1; j < kKJ; ++j) mx = fmaxf(mx, sc[i][j]);
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffff, mx, off));
+      const float m_new = fmaxf(m[i], mx);
+      const bool dead = m_new <= kNegInf;
       const float corr = expf(m[i] - m_new);
-      l[i] = l[i] * corr + warp_sum(p);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < kKJ; ++j) {
+        const float p = dead ? 0.f : expf(sc[i][j] - m_new);
+        ps[(ty + 16 * i) * kLdP + tx + 16 * j] = p;
+        sum += p;
+      }
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1)
+        sum += __shfl_xor_sync(0xffffffff, sum, off);
+      l[i] = l[i] * corr + sum;
       m[i] = m_new;
 #pragma unroll
-      for (int c = 0; c < kCols; ++c) acc[i][c] *= corr;
-#pragma unroll 8
-      for (int j = 0; j < kBK; ++j) {
-        const float pj = __shfl_sync(0xffffffff, p, j);
-        const float* vr = vs + j * D;
+      for (int c = 0; c < 4 * kOC; ++c) o[i][c] *= corr;
+    }
+    __syncthreads();  // P is in shared memory
+
+    // O += P V: per 4 keys, kRQ float4s of P and 4 kOC of V for
+    // 16 kRQ kOC FMAs
 #pragma unroll
-        for (int c = 0; c < kCols; ++c) {
-          const int d = lane + 32 * c;
-          if (d < D) acc[i][c] = fmaf(pj, vr[d], acc[i][c]);
+    for (int kk = 0; kk < kBK; kk += 4) {
+      float4 pv[kRQ];
+#pragma unroll
+      for (int i = 0; i < kRQ; ++i)
+        pv[i] = *reinterpret_cast<const float4*>(ps + (ty + 16 * i) * kLdP +
+                                                 kk);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+#pragma unroll
+        for (int c = 0; c < kOC; ++c) {
+          if (64 * c >= D) break;
+          const float4 vv = *reinterpret_cast<const float4*>(
+              vs + (kk + e) * kLd + 64 * c + 4 * tx);
+#pragma unroll
+          for (int i = 0; i < kRQ; ++i) {
+            const float p = tile_ring::elem(pv[i], e);
+            o[i][4 * c] = fmaf(p, vv.x, o[i][4 * c]);
+            o[i][4 * c + 1] = fmaf(p, vv.y, o[i][4 * c + 1]);
+            o[i][4 * c + 2] = fmaf(p, vv.z, o[i][4 * c + 2]);
+            o[i][4 * c + 3] = fmaf(p, vv.w, o[i][4 * c + 3]);
+          }
         }
       }
     }
+
+    __syncthreads();  // every thread is done with this stage and with P
+    if (t + kStages < t_end) fill(st, t + kStages);
   }
 
 #pragma unroll
-  for (int i = 0; i < kRowsPerWarp; ++i) {
-    const int r = warp + kWarps * i;
-    if (q0 + r >= Sq) continue;
-    const float inv = 1.f / fmaxf(l[i], 1e-30f);
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) {
-      const int d = lane + 32 * c;
-      if (d < D)
-        from_float(ob + static_cast<size_t>(q0 + r) * D + d, acc[i][c] * inv);
-    }
-    if (lse != nullptr && lane == 0)
-      lse[static_cast<size_t>(bh) * Sq + q0 + r] =
+  for (int i = 0; i < kRQ; ++i) {
+    const int r = q0 + ty + 16 * i;
+    if (r >= Sq) continue;
+    if (lse != nullptr && tx == 0)
+      lse[static_cast<size_t>(bh) * Sq + r] =
           l[i] > 0.f ? m[i] + logf(l[i]) : INFINITY;
+    const float inv = 1.f / fmaxf(l[i], 1e-30f);
+    float* orow = ob + static_cast<size_t>(r) * D;
+#pragma unroll
+    for (int c = 0; c < kOC; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 64 * c + 4 * tx + e;
+        if (col < D) orow[col] = o[i][4 * c + e] * inv;
+      }
   }
 }
 
-template <typename T, int kCols>
+template <int kDMax>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    float* lse, int B, int Hq, int Hkv, int Sq, int Sk, int D,
                    int causal, int has_window, int window, int q_offset,
                    cudaStream_t stream) {
-  const size_t smem = smem_bytes(D);
-  auto kernel = flash_attention_kernel<T, kCols>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  using G = Geom<kDMax>;
+  cudaError_t err =
+      hopper::allow_smem<flash_attention_f32<kDMax>>(G::kSmem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((Sq + kBQ - 1) / kBQ, B * Hq);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), lse, Hq, Hkv, Sq, Sk,
-      D, causal, has_window, window, q_offset,
+  const dim3 grid((Sq + G::kBQ - 1) / G::kBQ, B * Hq);
+  flash_attention_f32<kDMax><<<grid, kThreads, G::kSmem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), lse, Hq, Hkv,
+      Sq, Sk, D, causal, has_window, window, q_offset,
       1.f / sqrtf(static_cast<float>(D)));
   return cudaGetLastError();
 }
 
+size_t smem_bytes(int D) {
+  return D > 128 ? Geom<256>::kSmem
+                 : (D > 64 ? Geom<128>::kSmem : Geom<64>::kSmem);
+}
+
+}  // namespace f32
 
 // ---------------------------------------------------------------------------
 // bf16 on the tensor cores
@@ -508,10 +662,10 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     if (ld != D) return cudaErrorInvalidValue;
-    const bool wide = D > 128;  // 8 output columns a lane, else 4
-    return (wide ? launch<float, 8> : launch<float, 4>)(
-        q, k, v, out, static_cast<float*>(lse), B, Hq, Hkv, Sq, Sk, D,
-        causal, has_window, window, q_offset, s);
+    auto run = D > 128 ? f32::launch<256>
+                       : (D > 64 ? f32::launch<128> : f32::launch<64>);
+    return run(q, k, v, out, static_cast<float*>(lse), B, Hq, Hkv, Sq, Sk, D,
+               causal, has_window, window, q_offset, s);
   }
   if (dtype == 1) {
     if (ld % 8 != 0 || ld < D || ld > (D + 7) / 8 * 8)
@@ -533,6 +687,15 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
                D, ld, causal, has_window, window, q_offset, s);
   }
   return cudaErrorInvalidValue;
+}
+
+// Shared memory one block of the kernel for head dim D takes (ops.py's
+// fp32_geometry and the bf16 Geom give the same numbers).
+long long flash_attention_smem_bytes(int D, int dtype) {
+  if (dtype == 0) return static_cast<long long>(f32::smem_bytes(D));
+  return static_cast<long long>(
+      D > 128 ? tc::Geom<256>::kSmem
+              : (D > 64 ? tc::Geom<128>::kSmem : tc::Geom<64>::kSmem));
 }
 
 const char* flash_attention_error_string(int err) {

@@ -202,14 +202,7 @@ __device__ __forceinline__ void sem_post(int* sem, int v) {
   }
 }
 
-// 4-byte copy; zero-filled when src_bytes is 0.
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          uint32_t src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   tile_ring::smem_u32(dst)),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
+using tile_ring::cp_async4;  // 4-byte copy, zero-filled past src_bytes
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");

@@ -6,8 +6,8 @@ counts the plain version's products, every score of the Sq x Sk block
 computed, masked ones too); a CUDA tensor launches the kernel in
 ``csrc/flash_attention.cu`` on the current stream, which expands GQA by
 index and needs no padding of S.  bf16 runs on the tensor cores, fp32 on
-FMAs.  A bf16 head dim that is not a multiple of 8 is padded with zero
-columns here (never on the served models' shapes), so every row is a
+register-tiled FMAs in the tiles :func:`fp32_geometry` gives.  A bf16 head
+dim that is not a multiple of 8 is padded with zero columns here (never on the served models' shapes), so every row is a
 16-byte copy.  A v head dim ``Dv`` below q's and k's ``D`` (MLA: 96 for q
 and k, 64 for v) is padded with zero columns to ``D`` on the card, and the
 output sliced back: zero columns of v give zero columns of the output, and
@@ -29,7 +29,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -41,6 +41,24 @@ from .ref import attention_bwd_ref, attention_lse_ref, attention_ref
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
+#: the most shared memory a block may use on an H100 (227 KB)
+MAX_SMEM = 232448
+
+
+def fp32_geometry(D: int) -> Tuple[int, int, int]:
+    """(query rows a block, keys a tile, shared memory bytes) of the fp32
+    forward kernel for head dim ``D``, as ``csrc/flash_attention.cu`` lays
+    it out: the kernel is compiled for D up to 64, 128 or 256, with query
+    tiles of 64, 64 and 32 rows and key tiles of 64, 32 and 32 keys; rows
+    of Q, K and V padded to that width + 4 floats, P's to the key tile +
+    16; 128 bytes of barriers, Q, two stages of K and V, then P."""
+    if not 1 <= D <= MAX_HEAD_DIM:
+        raise ValueError(f"head dim {D} outside [1, {MAX_HEAD_DIM}]")
+    width = 64 if D <= 64 else (128 if D <= 128 else 256)
+    bq = 32 if width > 128 else 64
+    bk = 32 if width > 64 else 64
+    ld = width + 4
+    return bq, bk, 128 + 4 * (bq * ld + 2 * 2 * bk * ld + bq * (bk + 16))
 
 
 @functools.cache
@@ -52,6 +70,8 @@ def _library() -> ctypes.CDLL:
                                            + [ctypes.c_int] * 12
                                            + [ctypes.c_void_p])
     lib.flash_attention_launch.restype = ctypes.c_int
+    lib.flash_attention_smem_bytes.argtypes = [ctypes.c_int] * 2
+    lib.flash_attention_smem_bytes.restype = ctypes.c_longlong
     lib.flash_attention_error_string.argtypes = [ctypes.c_int]
     lib.flash_attention_error_string.restype = ctypes.c_char_p
     return lib

@@ -32,9 +32,11 @@
 // matrix, a map of depth 1 read at matrix 0 by every expert.  K is summed
 // in one chain, in order.
 //
-// fp32, any C: plain FMAs (no TF32, whose error misses the 2e-4
-// tolerance), each 32-deep K tile summed apart and added to the running
-// sum, in a 16- or 64-row block (tile_ring.cuh).
+// fp32, any C: queue_matmul's FMA block (tile_ring.cuh: 8 x 8 micro-tiles
+// of 128 x 128 tiles, smaller tiles where the experts' larger ones would
+// leave SMs idle, 1 x 4 of 16 x 64 at C <= 16; no TF32, whose error misses
+// the 2e-4 tolerance), each 32-deep K tile summed apart and added to the
+// running sum, x and w of a slot under one barrier.
 //
 // Bits: within a kernel every output element gets the same sequence of
 // operations whatever the depth, C or its row, so depths are bit-identical
@@ -85,79 +87,59 @@ namespace fma_path {
 
 using namespace tile_ring;
 
-template <int BM>
-size_t smem_bytes(int depth) {
-  return tiles_offset(depth) +
-         sizeof(float) * static_cast<size_t>(depth) * (BM * kBK + kBK * kBN);
+// one ring of `depth` slots, x and w of a slot under one barrier
+size_t smem_bytes(int M, int depth) {
+  return M <= 16 ? fma_smem_bytes<16>(depth, depth, depth)
+                 : fma_smem_bytes<128>(depth, depth, depth);
 }
 
-template <int BM>
-__global__ void __launch_bounds__(kThreads)
+template <int BM, int BN>
+__global__ void __launch_bounds__(kThreads,
+                      BM == 16 ? 4 : (BM == 64 ? 3 : (BN == 128 ? 1 : 2)))
     moe_gemm_fma(const float* __restrict__ x, const float* __restrict__ w,
                  float* __restrict__ out, const unsigned char* active, int M,
                  int N, int K, long long x_stride_e, int depth) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int e = blockIdx.z;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * kBN;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   float* oe = out + static_cast<size_t>(e) * M * N;
   if (inactive(active, e)) {
-    store_zeros(oe, M, N, m0, BM, n0, kBN, kThreads);
+    store_zeros(oe, M, N, m0, BM, n0, BN, kThreads);
     return;
   }
-  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
-  float* xs = reinterpret_cast<float*>(smem + tiles_offset(depth));
-  float* ws = xs + static_cast<size_t>(depth) * BM * kBK;
-  constexpr int kXTile = BM * kBK, kWTile = kBK * kBN;
-
-  const int nk = (K + kBK - 1) / kBK;
-  const float* xe = x + static_cast<long long>(e) * x_stride_e;
-  const float* we = w + static_cast<size_t>(e) * K * N;
-
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < depth; ++s) mbar_init(bar + s, kThreads);
-    mbar_init_fence();
-  }
-  __syncthreads();
-
-  // prologue: fill the ring
-  for (int t = 0; t < depth && t < nk; ++t) {
-    load_tile<float, BM, kBK>(xs + t * kXTile, xe, M, K, m0, t * kBK);
-    load_tile<float, kBK, kBN>(ws + t * kWTile, we, K, N, t * kBK, n0);
-    cp_async_arrive(bar + t);
-  }
-
-  FmaTile<BM> tile;
-  tile.zero();
-  for (int t = 0; t < nk; ++t) {
-    const int s = t % depth;
-    // queue pop: wait until both tiles of this slot have landed
-    mbar_wait(bar + s, (t / depth) & 1);
-    tile.mma(xs + s * kXTile, ws + s * kWTile);
-    __syncthreads();  // every thread is done with the slot
-    if (t + depth < nk) {
-      load_tile<float, BM, kBK>(xs + s * kXTile, xe, M, K, m0,
-                                (t + depth) * kBK);
-      load_tile<float, kBK, kBN>(ws + s * kWTile, we, K, N, (t + depth) * kBK,
-                                 n0);
-      cp_async_arrive(bar + s);
-    }
-  }
-  tile.store(oe, M, N, m0, n0);
+  fma_gemm<BM, BN, true>(x + static_cast<long long>(e) * x_stride_e,
+                         w + static_cast<size_t>(e) * K * N, oe, M, N, K,
+                         depth, depth, m0, n0, smem);
 }
 
-template <int BM>
-cudaError_t launch(const void* x, const void* w, void* out,
-                   const unsigned char* active, int E, int M, int N, int K,
-                   long long x_stride_e, int depth, cudaStream_t stream) {
-  const size_t smem = smem_bytes<BM>(depth);
+template <int BM, int BN>
+cudaError_t launch_tile(const void* x, const void* w, void* out,
+                        const unsigned char* active, int E, int M, int N,
+                        int K, long long x_stride_e, int depth,
+                        cudaStream_t stream) {
+  const size_t smem = smem_bytes(M, depth);
   if (smem > static_cast<size_t>(kMaxSmem)) return cudaErrorInvalidValue;
-  cudaError_t err = allow_smem<moe_gemm_fma<BM>>(smem);
+  cudaError_t err = allow_smem<moe_gemm_fma<BM, BN>>(smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((N + kBN - 1) / kBN, (M + BM - 1) / BM, E);
-  moe_gemm_fma<BM><<<grid, kThreads, smem, stream>>>(
+  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, E);
+  moe_gemm_fma<BM, BN><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(x), static_cast<const float*>(w),
       static_cast<float*>(out), active, M, N, K, x_stride_e, depth);
   return cudaGetLastError();
+}
+
+cudaError_t launch(const void* x, const void* w, void* out,
+                   const unsigned char* active, int E, int M, int N, int K,
+                   long long x_stride_e, int depth, cudaStream_t stream) {
+  auto run = launch_tile<64, 64>;
+  switch (fma_tile(M, N, E)) {
+    case kTile16x32: run = launch_tile<16, 32>; break;
+    case kTile16x64: run = launch_tile<16, 64>; break;
+    case kTile128x64: run = launch_tile<128, 64>; break;
+    case kTile128x128: run = launch_tile<128, 128>; break;
+    default: break;
+  }
+  return run(x, w, out, active, E, M, N, K, x_stride_e, depth, stream);
 }
 
 }  // namespace fma_path
@@ -325,10 +307,7 @@ int moe_gemm_launch(const void* x, const void* w, void* out,
   const auto* act = static_cast<const unsigned char*>(active);
   const bool small = M <= 16;
   if (dtype == 0)
-    return small ? fma_path::launch<16>(x, w, out, act, E, M, N, K,
-                                        x_stride_e, depth, s)
-                 : fma_path::launch<64>(x, w, out, act, E, M, N, K,
-                                        x_stride_e, depth, s);
+    return fma_path::launch(x, w, out, act, E, M, N, K, x_stride_e, depth, s);
   if (dtype == 1)
     return small ? thin_path::launch(x, w, out, act, E, M, N, K, x_stride_e,
                                      depth, split, s)
@@ -342,8 +321,7 @@ int moe_gemm_launch(const void* x, const void* w, void* out,
 long long moe_gemm_smem_bytes(int M, int depth, int dtype) {
   const bool small = M <= 16;
   if (dtype == 0)
-    return static_cast<long long>(small ? fma_path::smem_bytes<16>(depth)
-                                        : fma_path::smem_bytes<64>(depth));
+    return static_cast<long long>(fma_path::smem_bytes(M, depth));
   return static_cast<long long>(small ? ::thin::smem_bytes(depth, depth)
                                       : ::wide::smem_bytes(depth, depth));
 }

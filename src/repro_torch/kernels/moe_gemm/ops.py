@@ -43,8 +43,10 @@ decode over the slots) takes the thin kernel, bound by the active experts'
 weight bytes: queue_matmul's thin block with K split into :func:`split_k`
 parts, a function of (E, K, N) alone, summed in rank order in a cluster.
 bf16 with C > 16 takes the wide kernel, a grouped GEMM on TMA and
-``wgmma`` in 128 x 256 tiles, bound by operations.  fp32 takes the FMA
-kernel at any C.  Within a kernel every depth gives the same bits and a
+``wgmma`` in 128 x 256 tiles, bound by operations.  fp32 takes
+queue_matmul's register-tiled FMA block at any C (128 x 128 tiles,
+smaller where those would leave SMs idle, 16 x 64 at C <= 16), each
+element's sum in one fixed order whatever the tile.  Within a kernel every depth gives the same bits and a
 row's result does not depend on the other rows or on the mask; a bf16
 row's bits do depend on the regime.
 

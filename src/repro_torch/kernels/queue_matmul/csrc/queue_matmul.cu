@@ -48,9 +48,13 @@
 // and kernels/_csrc/thin_gemm.cuh (the whole block), which moe_gemm.cu
 // shares; this file adds the split-K epilogue and the launches.
 //
-// fp32, any M: plain FMAs (no TF32, whose error misses the 2e-4 tolerance),
-// each 32-deep K tile summed apart and added to the running sum, in a 16- or
-// 64-row block (tile_ring.cuh).  Unchanged since it was written.
+// fp32, any M: FMAs (no TF32, whose error misses the 2e-4 tolerance), bound
+// by the FMA rate (67 TFLOP/s) above decode's M <= 16 and by w's bytes at
+// it.  tile_ring.cuh's block: a thread keeps an 8 x 8 micro-tile of a
+// 128 x 128 tile (8 x 4 of 128 x 64 or 4 x 4 of 64 x 64 where the larger
+// tiles would leave SMs idle, 1 x 4 of 16 x 64 at M <= 16), reading x and w
+// as float4s; each 32-deep K tile is summed apart and added to the running
+// sum, so the bits are those of the 4 x 4 block it replaced.
 //
 // Bits: within a kernel every output element gets the same sequence of
 // operations whatever the depths, M or its row, so depths are bit-identical
@@ -80,83 +84,56 @@ using bf16 = __nv_bfloat16;
 using hopper::allow_smem;
 
 // ---------------------------------------------------------------------------
-// fp32: the cp.async ring of tile_ring.cuh
+// fp32: the FMA block of tile_ring.cuh, x and w through their own rings
 // ---------------------------------------------------------------------------
 
-template <typename T, int BM>
-size_t smem_bytes(int depth_x, int depth_w) {
-  return tiles_offset(depth_x + depth_w) +
-         sizeof(T) * (static_cast<size_t>(depth_x) * BM * kBK +
-                      static_cast<size_t>(depth_w) * kBK * kBN);
+namespace fma_path {
+
+size_t smem_bytes(int M, int depth_x, int depth_w) {
+  const int bars = depth_x + depth_w;
+  return M <= 16 ? fma_smem_bytes<16>(bars, depth_x, depth_w)
+                 : fma_smem_bytes<128>(bars, depth_x, depth_w);
 }
 
-template <typename T, int BM>
-__global__ void __launch_bounds__(kThreads)
-    queue_matmul_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                        T* __restrict__ out, int M, int N, int K, int depth_x,
-                        int depth_w) {
+template <int BM, int BN>
+__global__ void __launch_bounds__(kThreads,
+                      BM == 16 ? 4 : (BM == 64 ? 3 : (BN == 128 ? 1 : 2)))
+    queue_matmul_fma(const float* __restrict__ x, const float* __restrict__ w,
+                     float* __restrict__ out, int M, int N, int K,
+                     int depth_x, int depth_w) {
   extern __shared__ __align__(128) unsigned char smem[];
-  uint64_t* bar_x = reinterpret_cast<uint64_t*>(smem);
-  uint64_t* bar_w = bar_x + depth_x;
-  T* xs = reinterpret_cast<T*>(smem + tiles_offset(depth_x + depth_w));
-  T* ws = xs + static_cast<size_t>(depth_x) * BM * kBK;
-  constexpr int kXTile = BM * kBK, kWTile = kBK * kBN;
-
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * kBN;
-  const int nk = (K + kBK - 1) / kBK;
-
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < depth_x; ++s) mbar_init(bar_x + s, kThreads);
-    for (int s = 0; s < depth_w; ++s) mbar_init(bar_w + s, kThreads);
-    mbar_init_fence();
-  }
-  __syncthreads();
-
-  // prologue: fill each ring to its own depth
-  for (int t = 0; t < depth_x && t < nk; ++t) {
-    load_tile<T, BM, kBK>(xs + t * kXTile, x, M, K, m0, t * kBK);
-    cp_async_arrive(bar_x + t);
-  }
-  for (int t = 0; t < depth_w && t < nk; ++t) {
-    load_tile<T, kBK, kBN>(ws + t * kWTile, w, K, N, t * kBK, n0);
-    cp_async_arrive(bar_w + t);
-  }
-
-  FmaTile<BM> tile;
-  tile.zero();
-  for (int t = 0; t < nk; ++t) {
-    const int sx = t % depth_x, sw = t % depth_w;
-    // queue pop: wait until this slot's copies have landed
-    mbar_wait(bar_x + sx, (t / depth_x) & 1);
-    mbar_wait(bar_w + sw, (t / depth_w) & 1);
-    tile.mma(xs + sx * kXTile, ws + sw * kWTile);
-    __syncthreads();  // every thread is done with both slots
-    if (t + depth_x < nk) {
-      load_tile<T, BM, kBK>(xs + sx * kXTile, x, M, K, m0, (t + depth_x) * kBK);
-      cp_async_arrive(bar_x + sx);
-    }
-    if (t + depth_w < nk) {
-      load_tile<T, kBK, kBN>(ws + sw * kWTile, w, K, N, (t + depth_w) * kBK, n0);
-      cp_async_arrive(bar_w + sw);
-    }
-  }
-  tile.store(out, M, N, m0, n0);
+  fma_gemm<BM, BN, false>(x, w, out, M, N, K, depth_x, depth_w,
+                          blockIdx.y * BM, blockIdx.x * BN, smem);
 }
 
-template <typename T, int BM>
-cudaError_t launch(const void* x, const void* w, void* out, int M, int N,
-                   int K, int depth_x, int depth_w, cudaStream_t stream) {
-  const size_t smem = smem_bytes<T, BM>(depth_x, depth_w);
+template <int BM, int BN>
+cudaError_t launch_tile(const void* x, const void* w, void* out, int M, int N,
+                        int K, int depth_x, int depth_w, cudaStream_t stream) {
+  const size_t smem = smem_bytes(M, depth_x, depth_w);
   if (smem > static_cast<size_t>(kMaxSmem)) return cudaErrorInvalidValue;
-  auto kernel = queue_matmul_kernel<T, BM>;
-  cudaError_t err = allow_smem<queue_matmul_kernel<T, BM>>(smem);
+  cudaError_t err = allow_smem<queue_matmul_fma<BM, BN>>(smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((N + kBN - 1) / kBN, (M + BM - 1) / BM);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<T*>(out),
-      M, N, K, depth_x, depth_w);
+  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+  queue_matmul_fma<BM, BN><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w),
+      static_cast<float*>(out), M, N, K, depth_x, depth_w);
   return cudaGetLastError();
 }
+
+cudaError_t launch(const void* x, const void* w, void* out, int M, int N,
+                   int K, int depth_x, int depth_w, cudaStream_t stream) {
+  auto run = launch_tile<64, 64>;
+  switch (fma_tile(M, N, 1)) {
+    case kTile16x32: run = launch_tile<16, 32>; break;
+    case kTile16x64: run = launch_tile<16, 64>; break;
+    case kTile128x64: run = launch_tile<128, 64>; break;
+    case kTile128x128: run = launch_tile<128, 128>; break;
+    default: break;
+  }
+  return run(x, w, out, M, N, K, depth_x, depth_w, stream);
+}
+
+}  // namespace fma_path
 
 // ---------------------------------------------------------------------------
 // bf16, M > 16: producer warp with TMA, two wgmma consumer warpgroups
@@ -346,8 +323,7 @@ int queue_matmul_launch(const void* x, const void* w, void* out, void* work,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool small = M <= 16;
   if (dtype == 0)
-    return small ? launch<float, 16>(x, w, out, M, N, K, depth_x, depth_w, s)
-                 : launch<float, 64>(x, w, out, M, N, K, depth_x, depth_w, s);
+    return fma_path::launch(x, w, out, M, N, K, depth_x, depth_w, s);
   if (dtype == 1)
     return small ? thin_path::launch(x, w, out, M, N, K, depth_x, depth_w,
                                      split, s)
@@ -361,9 +337,7 @@ int queue_matmul_launch(const void* x, const void* w, void* out, void* work,
 long long queue_matmul_smem_bytes(int M, int depth_x, int depth_w, int dtype) {
   const bool small = M <= 16;
   if (dtype == 0)
-    return static_cast<long long>(
-        small ? smem_bytes<float, 16>(depth_x, depth_w)
-              : smem_bytes<float, 64>(depth_x, depth_w));
+    return static_cast<long long>(fma_path::smem_bytes(M, depth_x, depth_w));
   return static_cast<long long>(small ? thin::smem_bytes(depth_x, depth_w)
                                       : wide::smem_bytes(depth_x, depth_w));
 }

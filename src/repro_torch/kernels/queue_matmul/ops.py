@@ -25,7 +25,9 @@ takes the wide kernel, bound by operations: a producer warp issues TMA
 copies into the two rings and two ``wgmma`` warpgroups consume them, in
 128 x 256 tiles, with K split the same way where the tiles alone would
 leave SMs idle; its parts meet in an fp32 workspace allocated here.  fp32
-takes the FMA kernel at any M.  Within a regime every depth pair gives the
+takes the FMA kernel at any M: register-tiled, 128 x 128 tiles (128 x 64
+or 64 x 64 where those would leave SMs idle, 16 x 64 at M <= 16), each
+element's sum in one fixed order whatever the tile, M or depths.  Within a regime every depth pair gives the
 same bits, and a row's result does not depend on the other rows; a bf16
 row's bits do depend on the regime.
 

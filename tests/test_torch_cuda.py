@@ -16,7 +16,11 @@ sequential walk and is held to the same tolerances, at the edges of its
 chunks (16 steps) and segments (256).
 bf16 ``queue_matmul`` has two kernels, thin (M <= 16) and wide; each must
 give the same bits at every depth pair and for a row whatever rows come
-with it.  Training: ``flash_attention_bwd`` against its plain version on
+with it.  fp32 ``queue_matmul`` has one sum order for every M, tile and
+depth pair, so its rows keep their bits across all of them; the fp32
+attention forward is held to its plain version (output and log-sum-exp)
+at every head-dim class, gives 0 and a log-sum-exp of +inf on rows that
+see no key, and the same bits on two calls.  Training: ``flash_attention_bwd`` against its plain version on
 the same inputs (fp32 2e-4, bf16 2e-2) and equal to itself across calls,
 rows that see no key with zero gradients; so are the backward passes of
 ``rglru_scan`` (its kernel's reverse walk), ``ssm_scan`` (its backward
@@ -144,6 +148,43 @@ def test_queue_matmul_bf16_rows_do_not_depend_on_their_neighbours(card):
     assert torch.equal(queue_matmul(x[:16], w)[:4], four)
 
 
+@pytest.mark.parametrize("m", [4, 16, 17, 64, 65, 512])
+def test_queue_matmul_fp32_bits_across_depth_pairs(card, m):
+    """fp32 on a ragged K and N: K = 2120 (132.5 of the 16-deep stages
+    above M = 16, 66.25 of the 32-deep ones at M <= 16 and of the 32-deep
+    summing units) and N = 200 (1.6 tiles of 128 columns, 3.1 of 64).
+    Every depth pair gives the same bits, and they are the first m rows of
+    the 512-row product's."""
+    k, n = 2120, 200
+    x = torch.randn((512, k), generator=card, device="cuda")
+    w = torch.randn((k, n), generator=card, device="cuda") / k ** 0.5
+    full = queue_matmul(x, w, depth_x=4, depth_w=4)
+    before = queue_matmul.launches
+    outs = [queue_matmul(x[:m], w, depth_x=a, depth_w=b)
+            for a, b in ((1, 1), (4, 4), (8, 8), (2, 5), (1, 8))]
+    torch.cuda.synchronize()
+    assert queue_matmul.launches == before + 5
+    for o in outs:
+        assert o.dtype == torch.float32 and o.shape == (m, n)
+        assert torch.equal(o, outs[0])
+    assert torch.equal(outs[0], full[:m])
+    _close(outs[0], matmul_ref(x[:m], w), TOL[torch.float32])
+
+
+def test_queue_matmul_fp32_bits_do_not_depend_on_the_tile(card):
+    """1200 x 1800 outputs take 150 tiles of 128 x 128; its first 640
+    rows take 128 x 64 tiles (75 wide ones would leave SMs idle, 145
+    narrow ones do not), its first 65 rows 64 x 64 tiles, its first 16 the
+    16 x 64 block: every row keeps its bits."""
+    x = torch.randn((1200, 264), generator=card, device="cuda")
+    w = torch.randn((264, 1800), generator=card, device="cuda") / 264 ** 0.5
+    full = queue_matmul(x, w)
+    for rows in (slice(0, 640), slice(0, 65), slice(0, 16), slice(100, 101),
+                 slice(1000, 1200)):
+        assert torch.equal(queue_matmul(x[rows], w), full[rows])
+    _close(full, matmul_ref(x, w), TOL[torch.float32])
+
+
 def test_queue_matmul_refuses_rings_that_do_not_fit(card):
     """Rings at (16, 16) need 394752 bytes of shared memory in the wide
     kernel and 327936 in the thin one: refused before any launch.  Deep x
@@ -237,6 +278,58 @@ def test_flash_attention_with_a_narrower_v_against_plain(card, hq, hkv, sq,
     assert flash_attention.launches == before + 1
     assert out.shape == (2, hq, sq, dv)
     _close(out, _plain(q, k, v, True, None, q_offset), TOL[dtype])
+
+
+@pytest.mark.parametrize("d", [16, 64, 80, 96, 128, 200, 256])
+@pytest.mark.parametrize("hq,hkv,sq,sk,causal,window,q_offset", [
+    (4, 4, 130, 130, True, None, 0),
+    (6, 2, 70, 200, True, 64, 130),          # GQA, Sk != Sq, q_offset
+    (4, 2, 97, 97, False, 40, 0),            # a window without the mask
+    (2, 1, 33, 150, False, None, 0),         # Sk > Sq, every key
+])
+def test_flash_attention_fp32_forward_against_plain(card, d, hq, hkv, sq, sk,
+                                                   causal, window, q_offset):
+    """The fp32 forward at every head-dim class and between them, its
+    output and log-sum-exp against the plain version's, the same bits on
+    a second call."""
+    q = torch.randn((2, hq, sq, d), generator=card, device="cuda")
+    k = torch.randn((2, hkv, sk, d), generator=card, device="cuda")
+    v = torch.randn((2, hkv, sk, d), generator=card, device="cuda")
+    before = flash_attention.launches
+    out, lse = fa_ops._launch(q, k, v, causal, window, q_offset,
+                              with_lse=True)
+    again, lse2 = fa_ops._launch(q, k, v, causal, window, q_offset,
+                                 with_lse=True)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 2
+    assert torch.equal(out, again) and torch.equal(lse, lse2)
+    _close(out, _plain(q, k, v, causal, window, q_offset),
+           TOL[torch.float32])
+    _close(lse, fa_ops._plain_lse(q, k, causal, window, q_offset),
+           TOL[torch.float32])
+
+
+def test_flash_attention_fp32_rows_with_no_key(card):
+    """A window of 64 without the causal mask over 128 keys: query rows
+    from 191 on see no key, so they give 0 and a log-sum-exp of +inf; the
+    rows before them are the plain version's."""
+    q = torch.randn((1, 4, 300, 80), generator=card, device="cuda")
+    k = torch.randn((1, 2, 128, 80), generator=card, device="cuda")
+    v = torch.randn((1, 2, 128, 80), generator=card, device="cuda")
+    out, lse = fa_ops._launch(q, k, v, False, 64, 0, with_lse=True)
+    torch.cuda.synchronize()
+    assert bool((out[:, :, 191:] == 0).all())
+    assert bool((lse[:, :, 191:] == float("inf")).all())
+    assert bool(torch.isfinite(lse[:, :, :191]).all())
+    _close(out[:, :, :191], _plain(q, k, v, False, 64, 0)[:, :, :191],
+           TOL[torch.float32])
+
+
+def test_flash_attention_wrapper_and_kernel_agree_on_shared_memory(card):
+    lib = fa_ops._library()
+    for d in range(1, fa_ops.MAX_HEAD_DIM + 1):
+        assert lib.flash_attention_smem_bytes(d, 0) == \
+            fa_ops.fp32_geometry(d)[2]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

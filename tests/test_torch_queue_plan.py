@@ -52,9 +52,16 @@ def test_every_depth_pair_up_to_8_fits(m, dtype):
     (4, BF16, 1, 1, 128 + 4096 + 16384),
     (4, BF16, 4, 4, 128 + 4 * 4096 + 4 * 16384),
     (16, BF16, 2, 8, 128 + 2 * 4096 + 8 * 16384),
-    # fp32 (unchanged): 16- or 64-row x tiles 32 deep, 32 x 64 w tiles
+    # fp32, M <= 16: slots of x 16 rows x 32 k and w 32 k x 64 columns
     (4, FP32, 4, 4, 128 + 4 * 4 * (16 * 32 + 32 * 64)),
-    (512, FP32, 4, 4, 128 + 4 * 4 * (64 * 32 + 32 * 64)),
+    (16, FP32, 16, 16, 256 + 4 * 16 * (16 * 32 + 32 * 64)),
+    (1, FP32, 2, 8, 128 + 4 * (2 * 16 * 32 + 8 * 32 * 64)),
+    # fp32, M > 16: slots of x 128 rows x 16 k and w 16 k x 128 columns
+    # (the 128 x 64 tile fills half the w slot), the same bytes as 64 x 32
+    # and 32 x 64
+    (512, FP32, 4, 4, 128 + 4 * 4 * (128 * 16 + 16 * 128)),
+    (17, FP32, 8, 8, 128 + 4 * 8 * (128 * 16 + 16 * 128)),
+    (4096, FP32, 2, 5, 128 + 4 * (2 * 128 * 16 + 5 * 16 * 128)),
 ])
 def test_shared_memory_of_a_depth_pair(m, dtype, dx, dw, want):
     assert ops.smem_bytes(m, dx, dw, dtype) == want
