@@ -29,7 +29,8 @@ prints no result):
    sequence (Sk != Sq, ``q_offset``), ``ssm_scan`` also with its chunk
    states written (y's bits unchanged), ``rglru_scan`` (a chunked scan,
    whose rounding differs from the plain version's sequential walk) also
-   at 4096 steps, where it walks T in segments.  The products are those
+   at 4096 steps, where it walks T in segments, and at recurrentgemma's
+   training shape 2 x 512 x 2560 in fp32.  The products are those
    of the served models (nemotron-4-340b's at full width: a head weight of
    4.72e9 elements, an ffn wo summing K = 73728), of granite-moe-3b-a800m
    (trained in phase 5; its vocab of 49155 is not a multiple of 8), of
@@ -59,11 +60,12 @@ prints no result):
    ``RING_WINDOW``, so that its K/V ring wraps.  The kept layers are drawn
    at the full-depth model's scale, and olmoe's also at the fan-in scale
    (see ``PARITY``).
-4. serve   — phi3-mini-3.8b (32 layers), olmoe-1b-7b (16),
-   falcon-mamba-7b (64), recurrentgemma-2b (26), minicpm3-4b (62, MLA),
-   pixtral-12b (40) and nemotron-4-340b (2 of 96, ``SERVE_LAYERS``) at full
+4. serve   — phi3-mini-3.8b (32 layers), olmoe-1b-7b, falcon-mamba-7b,
+   recurrentgemma-2b, minicpm3-4b (MLA) and pixtral-12b (8 layers each)
+   and nemotron-4-340b (2 of 96; ``SERVE_LAYERS``) at full
    width, bf16, one after the other: the chunked-prefill engine serves 6
-   seeded requests, a token-prefill engine must give the same tokens, and
+   seeded requests (``SERVE_PROMPT``, ``SERVE_NEW``), a token-prefill engine
+   must give the same tokens, and
    one ``forward`` over 512 tokens (pixtral's with its 256 patch rows) runs
    ``flash_attention`` (and ``ssm_scan`` for falcon-mamba, ``rglru_scan``
    for recurrentgemma); then hubert-xlarge (48 layers), whose engine must
@@ -139,12 +141,13 @@ prints no result):
    ``moe_gemm``'s
    (``MOE_BWD``: a shared and a per-expert x, with and without an expert
    mask, beside ``torch.bmm``), and ``moe_apply``'s gradients equal with
-   the mask and without; ``rglru_scan``'s reverse walk at 2 x 512 x 2560
-   and ``ssm_scan_bwd`` at 2 x 512 x 8192 x 16, on the chunk states its
+   the mask and without; ``rglru_scan``'s reverse walk (a kernel of its
+   own, its launch geometry logged) at 2 x 512 x 2560 and ``ssm_scan_bwd`` at 2 x 512 x 8192 x 16, on the chunk states its
    forward writes; (b) the loss and every gradient leaf of
    ``GRAD_PARITY``'s models at full width and cut depth (phase 3's cut),
-   fp32 on the card, fp32 on the CPU and fp64 on the CPU, each leaf held
-   to ``FP64_RATIO`` as phase 3 holds logits, the loss to 2e-3 of fp64;
+   fp32 on the card (remat on), fp32 on the CPU and fp64 on the CPU
+   (remat off: it recomputes the same values), each leaf held to
+   ``FP64_RATIO`` as phase 3 holds logits, the loss to 2e-3 of fp64;
    (c) ``FaultTolerantTrainer`` on 2-layer phi3 at full width, a fault
    injected after the first checkpoint, the replayed losses equal bit for
    bit; (d) ``TRAIN_FULL``'s models at full width (falcon-mamba-7b's and
@@ -192,8 +195,13 @@ SERVED = ("phi3-mini-3.8b", "olmoe-1b-7b", "falcon-mamba-7b",
           "nemotron-4-340b")
 #: served models cut in depth: nemotron-4-340b's embedding and head alone
 #: are 18.9 GB in bf16 and each of its layers 6.9 GB, so 2 of its 96
-#: layers are served (phase 2 holds every product at its full shape)
-SERVE_LAYERS = {"nemotron-4-340b": 2}
+#: layers are served (phase 2 holds every product at its full shape); the
+#: others but phi3-mini-3.8b (served at full depth here, in phase 4b and in
+#: phase ``entry``'s prefill cell) at 8 layers, for the time limit: the
+#: host's dispatch, which sets a served step's wall, grows with the depth
+SERVE_LAYERS = {"olmoe-1b-7b": 8, "falcon-mamba-7b": 8,
+                "recurrentgemma-2b": 8, "minicpm3-4b": 8, "pixtral-12b": 8,
+                "nemotron-4-340b": 2}
 #: the encoder: phase 4 runs its ``forward`` only, and its engine must
 #: refuse it (no autoregressive decode, as in the reference)
 ENCODERS = ("hubert-xlarge",)
@@ -266,8 +274,8 @@ PATH_KERNELS = {"dense": ("queue_matmul", "flash_attention"),
                 "vlm": ("queue_matmul", "flash_attention"),
                 "audio": ("queue_matmul", "flash_attention")}
 #: the forward and backward launches each family's training path makes
-#: (``moe_gemm_bwd`` and ``rglru_scan_bwd`` count backward calls through
-#: their forward kernels' sources)
+#: (``moe_gemm_bwd`` counts backward calls through its forward kernel;
+#: ``rglru_scan_bwd`` is a kernel of its own in its forward's source)
 TRAIN_KERNELS = {
     "dense": ("queue_matmul", "flash_attention", "flash_attention_bwd"),
     "moe": ("queue_matmul", "flash_attention", "flash_attention_bwd",
@@ -299,6 +307,10 @@ WHERE = {
     # associative scan of the Mamba block with XLA's autodiff
     "ssm_scan_bwd": ("src/repro_torch/kernels/ssm_scan/csrc/ssm_scan_bwd.cu",
                      "src/repro/models/ssm.py:96"),
+    # no Pallas kernel: the JAX train path differentiates the plain
+    # associative scan of the RG-LRU block with XLA's autodiff
+    "rglru_scan_bwd": ("src/repro_torch/kernels/rglru_scan/csrc/"
+                       "rglru_scan.cu", "src/repro/models/rglru.py:77"),
 }
 
 
@@ -1177,24 +1189,28 @@ def check_moe_apply_grad_mask() -> None:
 
 
 def check_rglru_scan_bwd(gen, report) -> dict:
-    """``rglru_scan_bwd`` (the kernel's reverse walk) against
+    """``rglru_scan_bwd`` (the reverse walk's kernel) against
     :func:`rglru_scan_bwd_ref` on the forward kernel's h at
-    recurrentgemma's 2 x 512 x 2560, a in fp32 and bf16, g fp32; equal
-    across two calls.  No single PyTorch call computes it."""
+    recurrentgemma's training shape ``RGLRU_TRAIN``, a in fp32 and bf16, g
+    fp32; equal across two calls; its launch (``ops.bwd_geometry``)
+    logged.  No single PyTorch call computes it."""
     from repro_torch.kernels.rglru_scan import ops
     from repro_torch.kernels.rglru_scan.ref import rglru_scan_bwd_ref
     rep = None
     log("[train] rglru_scan_bwd  B    T     w  dtype  max_abs_err  ms  "
         "plain_ms  bound_ms")
-    b, t, w = 2, 512, 2560
+    b, t, w = RGLRU_TRAIN
     for dtype in (torch.float32, torch.bfloat16):
-        def rnd(*shape):
-            return torch.randn(shape, generator=gen, device="cuda")
-        a = torch.exp(-8.0 * math.log1p(math.e)
-                      * torch.sigmoid(rnd(b, t, w)))
-        bx = (torch.sqrt(1.0 - a * a) * rnd(b, t, w)).to(dtype)
-        a, g = a.to(dtype), rnd(b, t, w)
+        a, bx = rglru_inputs(gen, (b, t, w), dtype)
+        g = torch.randn((b, t, w), generator=gen, device="cuda")
         h = ops.rglru_scan(a, bx)
+        geo = ops.bwd_geometry(b, t, w, dtype)
+        log(f"[train] rglru_scan_bwd {str(dtype)[6:]} a: blocks of "
+            f"{geo.tile} channels x {geo.chunks} chunks of "
+            f"{ops.plan.STEPS} steps ({geo.threads} threads, "
+            f"{geo.segments} segments of {geo.segment}), {geo.blocks} "
+            f"blocks, {geo.resident} an SM on {geo.sms} SMs: "
+            f"{geo.waves} wave(s)")
 
         def run():
             return ops.rglru_scan_bwd(a, h, g)
@@ -1324,22 +1340,26 @@ TRAIN_FULL = (("phi3-mini-3.8b", None), ("granite-moe-3b-a800m", None),
 
 def phase_grad_parity(arch: str, scale: str, failures: list) -> None:
     """The loss and every gradient leaf of phase 3's cut depth at full
-    width (drawn as phase 3 draws them, at ``scale``), remat on, in fp32 on
-    the card (the kernels and their backward kernels), in fp32 on the CPU
-    and in fp64 on the CPU (the witness).  Each leaf's RMS distance from
-    fp64 on the card must be at most ``FP64_RATIO`` times the CPU fp32
-    run's, and the loss within 2e-3 of fp64."""
+    width (drawn as phase 3 draws them, at ``scale``) in fp32 on the card
+    (the kernels and their backward kernels, remat on, as the training path
+    runs them), in fp32 on the CPU and in fp64 on the CPU (the witness).
+    Each leaf's RMS distance from fp64 on the card must be at most
+    ``FP64_RATIO`` times the CPU fp32 run's, and the loss within 2e-3 of
+    fp64.  The two CPU runs go side by side in two threads, without remat
+    and with the head held transposed (``head_t``, as the serving engine
+    holds it); neither changes a bit of their gradients, whose ``head_t``
+    is transposed back.  The distances are taken on the card in fp64, one
+    leaf at a time."""
+    from concurrent.futures import ThreadPoolExecutor
     from repro_torch.config import RunConfig
     from repro_torch.configs import get_config
-    from repro_torch.models import init_model_params
     from repro_torch.models.layers import tree_map
     from repro_torch.models.layers import tree_leaves
     from repro_torch.train.step import _grads
     full = get_config(arch)
     cfg = cut_depth(full)
     t0 = time.time()
-    p_cpu = init_model_params(SEED, cfg, device="cpu")
-    redraw_scale(p_cpu, cfg, full, scale)
+    p_gpu = cut_weights(cfg, full, scale)
     rng = np.random.default_rng(SEED + 2)
     if cfg.frontend:
         seq = PARITY_SEQ.get(arch, 128)
@@ -1351,18 +1371,39 @@ def phase_grad_parity(arch: str, scale: str, failures: list) -> None:
     else:
         toks = torch.from_numpy(rng.integers(0, cfg.vocab, (1, 129)))
         batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
-    runs = {}
-    for name, dev, dtype in (("card", "cuda", "float32"),
-                             ("cpu", "cpu", "float32"),
-                             ("fp64", "cpu", "float64")):
-        p = tree_map(lambda a: a.to(dev, torch.float64 if dtype == "float64"
-                                    else a.dtype), p_cpu)
-        b = {k: v.to(dev) for k, v in batch.items()}
-        g, m = _grads(p, b, cfg, RunConfig(dtype=dtype, remat=True))
-        runs[name] = (float(m["loss"]), [x.cpu() for x in tree_leaves(g)])
-        del p, g
-        free_card()
-    names = _leaf_names(p_cpu)
+    laps = [f"weights {time.time() - t0:.1f}"]
+    t1 = time.time()
+    g, m = _grads(p_gpu, {k: v.cuda() for k, v in batch.items()}, cfg,
+                  RunConfig(dtype="float32", remat=True))
+    runs = {"card": (float(m["loss"]), tree_leaves(g))}
+    names = _leaf_names(p_gpu)
+    del g
+    laps.append(f"card {time.time() - t1:.1f}")
+    t1 = time.time()
+    p32 = tree_map(lambda a: a.cpu(),
+                   {k: v for k, v in p_gpu.items() if k != "head"})
+    if "head" in p_gpu:
+        p32["head_t"] = p_gpu["head"].t().contiguous().cpu()
+    del p_gpu
+    free_card()
+    p64 = tree_map(lambda a: a.double(), p32)
+    laps.append(f"host copies {time.time() - t1:.1f}")
+
+    def witness(p, dtype):
+        t = time.time()
+        g, m = _grads(p, batch, cfg, RunConfig(dtype=dtype, remat=False))
+        if "head_t" in g:
+            g["head"] = g.pop("head_t").t()
+        return float(m["loss"]), tree_leaves(g), time.time() - t
+
+    with ThreadPoolExecutor(2) as pool:
+        jobs = {"cpu": pool.submit(witness, p32, "float32"),
+                "fp64": pool.submit(witness, p64, "float64")}
+        for name, job in jobs.items():
+            loss, leaves, secs = job.result()
+            runs[name] = (loss, leaves)
+            laps.append(f"{name} {secs:.1f}")
+    del p32, p64, jobs
     what = f"{arch} ({cfg.n_layers} layers, {scale} scale) gradients"
     loss = {k: v[0] for k, v in runs.items()}
     log(f"[train] {what}: loss card {loss['card']:.7f}, CPU fp32 "
@@ -1371,10 +1412,12 @@ def phase_grad_parity(arch: str, scale: str, failures: list) -> None:
     if abs(loss["card"] - loss["fp64"]) > 2e-3:
         failures.append(f"{what}: loss {loss['card']} is more than 2e-3 "
                         f"from fp64's {loss['fp64']}")
+    t1 = time.time()
     worst = 0.0
     for name, card, cpu, exact in zip(names, runs["card"][1],
                                       runs["cpu"][1], runs["fp64"][1]):
-        r_card, r_cpu = rms(card, exact), rms(cpu, exact)
+        exact = exact.cuda()
+        r_card, r_cpu = rms(card, exact), rms(cpu.cuda(), exact)
         ratio = r_card / r_cpu if r_cpu > 0 else (0.0 if r_card == 0
                                                   else math.inf)
         worst = max(worst, ratio)
@@ -1384,8 +1427,13 @@ def phase_grad_parity(arch: str, scale: str, failures: list) -> None:
         if ratio > FP64_RATIO:
             failures.append(f"{what}: leaf {name} is {ratio:.2f} times "
                             f"farther from fp64 on the card than on the CPU")
+        del exact
+    del runs
+    free_card()
+    laps.append(f"distances {time.time() - t1:.1f}")
     log(f"[train] {what}: worst card/CPU rms ratio {worst:.3f} (at most "
-        f"{FP64_RATIO}); done in {time.time() - t0:.1f} s")
+        f"{FP64_RATIO}); done in {time.time() - t0:.1f} s (seconds "
+        f"{', '.join(laps)})")
 
 
 def _leaf_names(tree, prefix: str = "") -> list:
@@ -1664,10 +1712,10 @@ def profile_train_step(step, params, opt, batch, wall: float,
 
 #: the kernel-name groups of a training step's profile, each matched as a
 #: substring of the CUDA kernel's name in this order (the reverse walk of
-#: ``rglru_scan`` is its kernel's ``true`` instantiation)
+#: ``rglru_scan`` is ``rglru_scan_bwd_kernel``)
 PROFILE_GROUPS = ("flash_attention_bwd", "flash_attention", "queue_matmul",
                   "moe_gemm", "ssm_scan_bwd", "ssm_scan",
-                  "rglru_scan_kernel<float, float, true>", "rglru_scan")
+                  "rglru_scan_bwd_kernel", "rglru_scan")
 
 
 def routed_mask(gen, tokens: int, experts: int, k: int) -> torch.Tensor:
@@ -1820,45 +1868,60 @@ def check_ssm_scan(gen, report) -> dict:
     return rep
 
 
+#: (B, T, w) of phase 2's ``rglru_scan`` cases, a and bx in fp32 and in
+#: bf16: recurrentgemma-2b's width over the 512 tokens of phase 4's
+#: ``forward``, the 128 of phase 3's and 4096 (walked in segments)
+RGLRU_CASES = ((1, 512, 2560), (1, 128, 2560), (1, 4096, 2560))
+#: recurrentgemma-2b's training shape (phase 5 (d): 2 x 512 tokens), a
+#: forward case of phase 2 in fp32 (the model's inputs) and phase 5 (a)'s
+#: reverse walk
+RGLRU_TRAIN = (2, 512, 2560)
+
+
+def rglru_inputs(gen, shape, dtype):
+    """a and bx as the model's gates make them: a = exp(-8 softplus(1) r),
+    r a sigmoid; bx = sqrt(1 - a^2) x; both in ``dtype``."""
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    a = torch.exp(-8.0 * math.log1p(math.e) * torch.sigmoid(rnd(*shape)))
+    bx = torch.sqrt(1.0 - a * a) * rnd(*shape)
+    return a.to(dtype), bx.to(dtype)
+
+
 def check_rglru_scan(gen, report) -> dict:
-    """recurrentgemma-2b's scan: width 2560, over the 512 tokens of phase
-    4's ``forward``, the 128 of phase 3's and 4096 (walked in segments),
-    with a and bx drawn as the model's gates make them.  No single PyTorch
-    call computes it, so there is no library time."""
+    """recurrentgemma-2b's scan at ``RGLRU_CASES``, then at its training
+    shape ``RGLRU_TRAIN`` in fp32 (34 launches a training step), with a and
+    bx drawn as the model's gates make them.  No single PyTorch call
+    computes it, so there is no library time."""
     from repro_torch.kernels.rglru_scan import ops
     from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
     rep = None
     log("[kernels] rglru_scan  B    T     w  dtype  max_abs_err  ms  "
         "plain_ms  bound_ms")
-    for dtype in (torch.float32, torch.bfloat16):
-        for b, t, w in ((1, 512, 2560), (1, 128, 2560), (1, 4096, 2560)):
-            def rnd(*shape):
-                return torch.randn(shape, generator=gen, device="cuda")
-            # a = exp(-8 softplus(1) r), r a sigmoid; bx = sqrt(1 - a^2) x
-            a = torch.exp(-8.0 * math.log1p(math.e)
-                          * torch.sigmoid(rnd(b, t, w)))
-            bx = torch.sqrt(1.0 - a * a) * rnd(b, t, w)
-            a, bx = a.to(dtype), bx.to(dtype)
-            out = ops.rglru_scan(a, bx)
-            ref = rglru_scan_ref(a, bx)
-            torch.cuda.synchronize()
-            err = within(out, ref, TOL[dtype])
-            ms = cuda_ms(lambda: ops.rglru_scan(a, bx))
-            plain = cuda_ms(lambda: rglru_scan_ref(a, bx),
-                            iters=5 if t <= 512 else 1)
-            # a multiply and an add per element; a and bx read, h written
-            b_ms, b_by = bound(2.0 * b * t * w,
-                               b * t * w * (2 * a.element_size() + 4),
-                               torch.float32)
-            log(f"[kernels] rglru_scan {b:2d} {t:4d} {w:5d} "
-                f"{str(dtype)[6:]:>8s} {err:10.3e} {ms:8.4f} {plain:8.4f} "
-                f"{b_ms:8.4f} ({b_by}; {b_ms / ms:.2f} of the bound)")
-            row = {"B": b, "T": t, "w": w, "dtype": str(dtype)[6:],
-                   "max_abs_err": err, "ms": ms, "plain_ms": plain,
-                   "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
-            report.append({"kernel": "rglru_scan", **row})
-            if (t, dtype) == (512, torch.float32):   # the model's inputs
-                rep = row
+    cases = [(dtype, shape) for dtype in (torch.float32, torch.bfloat16)
+             for shape in RGLRU_CASES] + [(torch.float32, RGLRU_TRAIN)]
+    for dtype, (b, t, w) in cases:
+        a, bx = rglru_inputs(gen, (b, t, w), dtype)
+        out = ops.rglru_scan(a, bx)
+        ref = rglru_scan_ref(a, bx)
+        torch.cuda.synchronize()
+        err = within(out, ref, TOL[dtype])
+        ms = cuda_ms(lambda: ops.rglru_scan(a, bx))
+        plain = cuda_ms(lambda: rglru_scan_ref(a, bx),
+                        iters=5 if t <= 512 else 1)
+        # a multiply and an add per element; a and bx read, h written
+        b_ms, b_by = bound(2.0 * b * t * w,
+                           b * t * w * (2 * a.element_size() + 4),
+                           torch.float32)
+        log(f"[kernels] rglru_scan {b:2d} {t:4d} {w:5d} "
+            f"{str(dtype)[6:]:>8s} {err:10.3e} {ms:8.4f} {plain:8.4f} "
+            f"{b_ms:8.4f} ({b_by}; {b_ms / ms:.2f} of the bound)")
+        row = {"B": b, "T": t, "w": w, "dtype": str(dtype)[6:],
+               "max_abs_err": err, "ms": ms, "plain_ms": plain,
+               "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+        report.append({"kernel": "rglru_scan", **row})
+        if (b, t, dtype) == (1, 512, torch.float32):   # the model's inputs
+            rep = row
     return rep
 
 
@@ -1874,6 +1937,16 @@ def cut_depth(full):
         return dataclasses.replace(full, n_layers=2)
     pat = len(full.rglru.pattern)
     return dataclasses.replace(full, n_layers=pat + full.n_layers % pat)
+
+
+def cut_weights(cfg, full, scale: str):
+    """Phase 3's and 5 (b)'s seeded weights of the cut depth ``cfg``, drawn
+    on the card (its generator is faster than the host's) and rescaled to
+    ``scale`` (:func:`redraw_scale`)."""
+    from repro_torch.models import init_model_params
+    params = init_model_params(SEED, cfg, device="cuda")
+    redraw_scale(params, cfg, full, scale)
+    return params
 
 
 def fan_in(spec) -> int:
@@ -1976,16 +2049,15 @@ def phase_parity(arch: str, scale: str, hold: bool, failures: list) -> None:
     from repro_torch.config import RunConfig
     from repro_torch.configs import get_config
     from repro_torch.models import (decode_step, forward, init_cache,
-                                    init_model_params, prepare_params)
+                                    prepare_params)
     from repro_torch.models.layers import tree_map
     full = get_config(arch)
     cfg = cut_depth(full)
     rc = RunConfig(dtype="float32", remat=False)
     rc64 = RunConfig(dtype="float64", remat=False)
     t0 = time.time()
-    p_cpu = init_model_params(SEED, cfg, device="cpu")
-    redraw_scale(p_cpu, cfg, full, scale)
-    p_gpu = tree_map(lambda a: a.to("cuda"), p_cpu)
+    p_gpu = cut_weights(cfg, full, scale)
+    laps = [f"weights {time.time() - t0:.1f}"]
     rng = np.random.default_rng(SEED)
     seq = PARITY_SEQ.get(arch, 128)
     inputs = model_inputs(cfg, rng, 1, seq)
@@ -1993,13 +2065,32 @@ def phase_parity(arch: str, scale: str, hold: bool, failures: list) -> None:
     if cfg.frontend:
         log(f"[parity] {name}: inputs {sorted(inputs)}; {host_memory()}")
     routes = {"card": [], "cpu": [], "fp64": []}
+
+    def lap(what, t1):
+        laps.append(f"{what} {time.time() - t1:.1f}")
+    t1 = time.time()
+    # the weights prepared once for each run, as the engine holds them
+    # (cast, the head transposed), for the forward and every step; the
+    # host's from a copy of the card's, whose head the card transposed
+    prep = {"card": prepare_params(p_gpu, cfg, rc)}
+    prep["cpu"] = tree_map(lambda a: a.cpu(), prep["card"])
+    prep["fp64"] = prepare_params(prep["cpu"], cfg, rc64)
+    del p_gpu
+    lap("prepare", t1)
+    t1 = time.time()
     with routing(routes["card"]):
-        out_gpu = forward(p_gpu, {k: v.cuda() for k, v in inputs.items()},
-                          cfg, rc)
+        out_gpu = forward(prep["card"],
+                          {k: v.cuda() for k, v in inputs.items()}, cfg, rc)
+        torch.cuda.synchronize()
+    lap("card", t1)
+    t1 = time.time()
     with routing(routes["cpu"]):
-        out_cpu = forward(p_cpu, inputs, cfg, rc)
+        out_cpu = forward(prep["cpu"], inputs, cfg, rc)
+    lap("cpu", t1)
+    t1 = time.time()
     with routing(routes["fp64"]):
-        exact = forward(p_cpu, inputs, cfg, rc64)
+        exact = forward(prep["fp64"], inputs, cfg, rc64)
+    lap("fp64", t1)
     if cfg.moe:
         both = flips(routes["card"], routes["cpu"])
         log(f"[parity] {name} top-{cfg.moe.top_k} experts of "
@@ -2014,19 +2105,15 @@ def phase_parity(arch: str, scale: str, hold: bool, failures: list) -> None:
     del out_gpu, out_cpu, exact
     if not cfg.causal:
         log(f"[parity] {name}: an encoder, no decode; done in "
-            f"{time.time() - t0:.1f} s")
-        del p_gpu
+            f"{time.time() - t0:.1f} s (seconds {', '.join(laps)})")
+        del prep
         free_card()
         return
     caches = {"card": init_cache(cfg, 4, 16, torch.float32, device="cuda"),
               "cpu": init_cache(cfg, 4, 16, torch.float32, device="cpu"),
               "fp64": init_cache(cfg, 4, 16, torch.float64, device="cpu")}
     steps = torch.from_numpy(rng.integers(0, cfg.vocab, (4, 4)))
-    # the weights prepared once for each run, as the engine holds them
-    # (cast, the head transposed), not again at every step
-    prep = {"card": prepare_params(p_gpu, cfg, rc),
-            "cpu": prepare_params(p_cpu, cfg, rc),
-            "fp64": prepare_params(p_cpu, cfg, rc64)}
+    t1 = time.time()
     for t in range(4):
         tok = steps[:, t:t + 1]
         lg, caches["card"] = decode_step(prep["card"], caches["card"],
@@ -2037,33 +2124,34 @@ def phase_parity(arch: str, scale: str, hold: bool, failures: list) -> None:
                                          {"tokens": tok}, cfg, rc64)
         against_witness(f"{name} decode_step {t}", lg, lc, le, hold,
                         failures)
-    del caches, prep
+    del caches
+    lap("decode", t1)
     if cfg.family == "hybrid":
-        ring_parity(p_gpu, p_cpu, cfg, rng, name, hold, failures)
-    del p_gpu
+        t1 = time.time()
+        ring_parity(prep, cfg, rng, name, hold, failures)
+        lap("ring", t1)
+    del prep
     free_card()
-    log(f"[parity] {name} done in {time.time() - t0:.1f} s")
+    log(f"[parity] {name} done in {time.time() - t0:.1f} s (seconds "
+        f"{', '.join(laps)})")
 
 
-def ring_parity(p_gpu, p_cpu, cfg, rng, name: str, hold: bool,
+def ring_parity(prep: dict, cfg, rng, name: str, hold: bool,
                 failures: list) -> None:
     """The hybrid model with its window cut to ``RING_WINDOW``: a
     ``prefill_step`` of ``RING_PROMPT`` tokens into caches of
     ``RING_MAX_LEN``, whose K/V ring of ``RING_WINDOW`` slots wraps, then 4
-    ``decode_step``s, on the card, on the CPU and in fp64, each held as in
-    :func:`phase_parity`.  The weights are prepared once for each run
-    (the head transposed, as the engine holds it), not at every body."""
+    ``decode_step``s, on the card, on the CPU and in fp64 (on
+    :func:`phase_parity`'s prepared weights ``prep``, which the window does
+    not change), each held as in :func:`phase_parity`."""
     from repro_torch.config import RunConfig
-    from repro_torch.models import (decode_step, init_cache, prefill_step,
-                                    prepare_params)
+    from repro_torch.models import decode_step, init_cache, prefill_step
     wcfg = dataclasses.replace(
         cfg, rglru=dataclasses.replace(cfg.rglru, window=RING_WINDOW))
-    runs = {}
-    for k, p, dev, dtype in (("card", p_gpu, "cuda", "float32"),
-                             ("cpu", p_cpu, "cpu", "float32"),
-                             ("fp64", p_cpu, "cpu", "float64")):
-        rc = RunConfig(dtype=dtype, remat=False)
-        runs[k] = (prepare_params(p, wcfg, rc), dev, rc)
+    runs = {k: (prep[k], dev, RunConfig(dtype=dtype, remat=False))
+            for k, dev, dtype in (("card", "cuda", "float32"),
+                                  ("cpu", "cpu", "float32"),
+                                  ("fp64", "cpu", "float64"))}
     caches = {k: init_cache(wcfg, 2, RING_MAX_LEN, rc.dtype, device=dev)
               for k, (_, dev, rc) in runs.items()}
     prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (2, RING_PROMPT)))
@@ -2111,17 +2199,20 @@ def launch_counters():
             "rglru_scan": rglru_scan, "rglru_scan_bwd": rglru_scan_bwd}
 
 
-#: phase 4's engine: slots, cache length and prefill chunk
+#: phase 4's engine: slots, cache length and prefill chunk; and the
+#: requests' prompt lengths (least, most) and new tokens (phases 4 and 4b)
 SERVE_ENGINE = dict(batch_slots=4, max_len=256, prefill_chunk=8)
+SERVE_PROMPT, SERVE_NEW = (8, 32), 8
 #: phase 4's tokens by model, one list per request, for the policy phase
 SERVED_TOKENS = {}
 
 
 def serve_prompts(cfg, rng) -> list:
-    """Phase 4's 6 requests: 16-64 prompt tokens each, drawn from ``rng``
-    (``SEED`` + 1)."""
+    """Phase 4's 6 requests: ``SERVE_PROMPT`` prompt tokens each, drawn
+    from ``rng`` (``SEED`` + 1)."""
+    lo, hi = SERVE_PROMPT
     return [[int(t) for t in rng.integers(0, cfg.vocab,
-                                          int(rng.integers(16, 65)))]
+                                          int(rng.integers(lo, hi + 1)))]
             for _ in range(6)]
 
 
@@ -2157,7 +2248,7 @@ def phase_serve(arch: str) -> dict:
     eng = ServeEngine(params, cfg, rc, **SERVE_ENGINE)
     del params
     check_serve_state(eng, cfg, rc)
-    rids = [eng.submit(p, max_new=16) for p in prompts]
+    rids = [eng.submit(p, max_new=SERVE_NEW) for p in prompts]
     t0 = time.time()
     done = eng.run()
     torch.cuda.synchronize()
@@ -2165,8 +2256,9 @@ def phase_serve(arch: str) -> dict:
     if sorted(done) != sorted(rids):
         raise AssertionError(f"unfinished requests: {set(rids) - set(done)}")
     n_tok = sum(len(r.generated) for r in done.values())
-    if n_tok != 16 * len(rids):
-        raise AssertionError(f"{n_tok} tokens generated, want {16 * len(rids)}")
+    if n_tok != SERVE_NEW * len(rids):
+        raise AssertionError(f"{n_tok} tokens generated, want "
+                             f"{SERVE_NEW * len(rids)}")
     SERVED_TOKENS[arch] = [done[r].generated for r in rids]
     log(f"[serve] {arch} chunked prefill: {len(done)} requests, {n_tok} "
         f"tokens in {wall:.2f} s wall = {n_tok / wall:.2f} tok/s; "
@@ -2176,7 +2268,7 @@ def phase_serve(arch: str) -> dict:
 
     tok_eng = ServeEngine(eng.params, cfg, rc, batch_slots=4, max_len=256,
                           prefill="token")
-    rids_t = [tok_eng.submit(p, max_new=16) for p in prompts]
+    rids_t = [tok_eng.submit(p, max_new=SERVE_NEW) for p in prompts]
     t0 = time.time()
     done_t = tok_eng.run()
     torch.cuda.synchronize()
@@ -2384,11 +2476,11 @@ POLICY_CALIBRATION = dict(kernels=["dequant_dot", "expf"], grid_kw=dict(
 
 
 def serve_until_done(eng, prompts, on_step=None):
-    """Submit ``prompts`` (16 new tokens each) and step ``eng`` until every
-    request is done; ``on_step()`` runs after each step.  Returns the
-    generated tokens per request, the wall seconds and the token count.
-    At most 1000 steps, as ``ServeEngine.run`` takes."""
-    rids = [eng.submit(p, max_new=16) for p in prompts]
+    """Submit ``prompts`` (``SERVE_NEW`` new tokens each) and step ``eng``
+    until every request is done; ``on_step()`` runs after each step.
+    Returns the generated tokens per request, the wall seconds and the token
+    count.  At most 1000 steps, as ``ServeEngine.run`` takes."""
+    rids = [eng.submit(p, max_new=SERVE_NEW) for p in prompts]
     t0 = time.time()
     for _ in range(1000):
         if not eng.sched.busy:
@@ -2659,13 +2751,13 @@ def phase_dist(smi: str) -> dict:
 # entry: the entry scripts on the card
 # ---------------------------------------------------------------------------
 
-#: phase ``entry``'s cuts for the script's time limit: the card ran the
-#: whole script in 1161 s on a slow host (NVIDIA H100 80GB HBM3, 700.00 W),
-#: past its 1100 s budget, so train_lm takes 200 of the reference's 300
-#: steps and the prefill cell 3 of its 5 trials (the reference's smoke
-#: value)
+#: phase ``entry``'s cuts for the script's time limit: train_lm takes 200
+#: of the reference's 300 steps, and the prefill cell one timed trial of
+#: its 5 after its warm run (hosts differ up to 2x in a served step's
+#: wall, NVIDIA H100 80GB HBM3, 700.00 W, so the script keeps to well
+#: under its 1200 s)
 TRAIN_LM = dict(preset="100m", steps=200)
-PREFILL_TRIALS = 3
+PREFILL_TRIALS = 1
 #: phase ``entry``'s host step, run in a child: the reference's ten host
 #: smoke sections, then the port's drift gate on the committed artifacts
 #: and this run's prefill cell (``sys.argv[1]``).  The sweep floors read the
@@ -3024,7 +3116,8 @@ def main() -> int:
             check_queue_matmul_grads(gen, report)
             check_moe_gemm_bwd(gen, report)
             check_moe_apply_grad_mask()
-            check_rglru_scan_bwd(gen, report)
+            kernels.append(("rglru_scan_bwd",
+                            check_rglru_scan_bwd(gen, report)))
             kernels.append(("ssm_scan_bwd", check_ssm_scan_bwd(gen, report)))
             lap("phase train (a)")
         if "b" in parts:

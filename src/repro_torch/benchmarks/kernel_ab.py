@@ -1,12 +1,14 @@
-"""A/B of the port's fp32 kernels against another checkout's, on one card.
+"""A/B of the port's fp32 kernels and ``rglru_scan`` against another
+checkout's, on one card.
 
   python -m repro_torch.benchmarks.kernel_ab --other DIR [--out FILE]
 
 ``DIR`` is the root of another checkout of this repository (a ``git
 archive`` of an earlier commit unpacked under ``build/``, say).  Its
-``queue_matmul``, ``moe_gemm`` and ``flash_attention`` sources are built
-into ``DIR/build/kernels/`` and launched through this checkout's wrappers,
-whose C interfaces the two must share; none of ``DIR``'s Python runs.
+``queue_matmul``, ``moe_gemm``, ``flash_attention`` and ``rglru_scan``
+sources are built into ``DIR/build/kernels/`` and launched through this
+checkout's wrappers, whose C interfaces the two must share; none of
+``DIR``'s Python runs.
 
 - Bits: every fp32 product ``chip_smoke.py``'s phase 2 checks
   (``queue_matmul`` over the served, trained and scored models and the entry
@@ -20,6 +22,14 @@ whose C interfaces the two must share; none of ``DIR``'s Python runs.
   device time taken in turns (other, this, this, other), beside one
   library call's (``torch.matmul`` and ``torch.bmm`` in full fp32, SDPA)
   and the work's bound on an H100 (``repro_torch.roofline``).
+- ``rglru_scan``: the bits of every forward output at ``chip_smoke.py``'s
+  phase 2 shapes (``RGLRU_CASES`` and ``RGLRU_TRAIN``, a and bx in fp32
+  and in bf16) through both builds; the reverse walk at phase 5 (a)'s
+  shape (``RGLRU_TRAIN``, a in fp32 and in bf16) timed in turns, back to
+  back (its inputs partly in L2) and with the L2 flushed before each call
+  (``timing.cold_ms``), each build's max abs distance from the plain
+  version beside its byte bound; this build's forward at that shape in
+  fp32 timed both ways too.
 
 Prints one line a case and, with ``--out``, writes the rows as JSON with
 the card's name and power limit.  Needs a CUDA card.
@@ -42,13 +52,15 @@ import torch
 from ..kernels.flash_attention import ops as fa_ops
 from ..kernels.moe_gemm import ops as mg_ops
 from ..kernels.queue_matmul import ops as qm_ops
+from ..kernels.rglru_scan import ops as rg_ops
+from ..kernels.rglru_scan.ref import rglru_scan_bwd_ref
 from ..roofline import HBM_BW, PEAK_FLOPS_BY_DTYPE
-from .timing import event_ms
+from .timing import cold_ms, event_ms
 
 ROOT = Path(__file__).resolve().parents[3]
 #: the wrapper module of each kernel, whose ``_library`` is swapped
 WRAPPERS = {"queue_matmul": qm_ops, "moe_gemm": mg_ops,
-            "flash_attention": fa_ops}
+            "flash_attention": fa_ops, "rglru_scan": rg_ops}
 
 
 def other_libraries(other: Path) -> Dict[str, object]:
@@ -100,12 +112,12 @@ def launching(name: str, lib):
         ops._library = own
 
 
-def turns(fn_other, fn_this, iters: int):
+def turns(fn_other, fn_this, iters: int, timer=event_ms):
     """Device ms of each, taken in turns: other, this, this, other."""
-    a1 = event_ms(fn_other, iters)
-    b1 = event_ms(fn_this, iters)
-    b2 = event_ms(fn_this, iters)
-    a2 = event_ms(fn_other, iters)
+    a1 = timer(fn_other, iters)
+    b1 = timer(fn_this, iters)
+    b2 = timer(fn_this, iters)
+    a2 = timer(fn_other, iters)
     return (a1 + a2) / 2, (b1 + b2) / 2
 
 
@@ -169,6 +181,72 @@ ATTENTION = ((8, 8, 4, 512, 64), (8, 4, 4, 64, 16), (1, 32, 32, 512, 96),
              (1, 32, 8, 512, 128), (1, 10, 1, 512, 256))
 
 
+def rglru_forward_cases(cs) -> List[tuple]:
+    """(B, T, w) of every ``rglru_scan`` forward case of ``chip_smoke.py``'s
+    phase 2, each compared in fp32 and in bf16."""
+    return list(cs.RGLRU_CASES) + [cs.RGLRU_TRAIN]
+
+
+def rglru_bwd_cases(cs) -> List[tuple]:
+    """(B, T, w) of the reverse walk timed in turns: phase 5 (a)'s."""
+    return [cs.RGLRU_TRAIN]
+
+
+def rglru_ab(cs, lib, g, report) -> int:
+    """The ``rglru_scan`` rows: forward bits of both builds, then the
+    reverse walk in turns.  Returns the forward outputs that differ."""
+    differ = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, t, w in rglru_forward_cases(cs):
+            a, bx = cs.rglru_inputs(g, (b, t, w), dtype)
+            with launching("rglru_scan", lib):
+                other = rg_ops.rglru_scan(a, bx)
+            equal = bool(torch.equal(other, rg_ops.rglru_scan(a, bx)))
+            differ += not equal
+            row = {"kernel": "rglru_scan", "case": f"{b},{t},{w} "
+                   f"{str(dtype)[6:]}", "equal": equal}
+            if (b, t, w) in rglru_bwd_cases(cs) and dtype == torch.float32:
+                # the training shape's forward, this build, warm and cold
+                row["this_ms"] = event_ms(lambda: rg_ops.rglru_scan(a, bx),
+                                          50)
+                row["this_cold_ms"] = cold_ms(
+                    lambda: rg_ops.rglru_scan(a, bx), 50)
+                row["bound_ms"] = b * t * w * (2 * a.element_size() + 4) \
+                    / HBM_BW * 1e3
+            report(row)
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, t, w in rglru_bwd_cases(cs):
+            a, bx = cs.rglru_inputs(g, (b, t, w), dtype)
+            gr = torch.randn((b, t, w), generator=g, device="cuda")
+            h = rg_ops.rglru_scan(a, bx)
+
+            def other():
+                with launching("rglru_scan", lib):
+                    return rg_ops.rglru_scan_bwd(a, h, gr)
+            ref = rglru_scan_bwd_ref(a, h, gr)
+            outs = other(), rg_ops.rglru_scan_bwd(a, h, gr)
+            errs = [max((x - r).abs().max().item() for x, r in zip(o, ref))
+                    for o in outs]
+            again = rg_ops.rglru_scan_bwd(a, h, gr)
+            row = {"kernel": "rglru_scan_bwd", "case": f"{b},{t},{w} a "
+                   f"{str(dtype)[6:]}", "other_err": errs[0],
+                   "this_err": errs[1],
+                   "deterministic": all(torch.equal(x, y) for x, y
+                                        in zip(outs[1], again))}
+            row["other_ms"], row["this_ms"] = turns(
+                other, lambda: rg_ops.rglru_scan_bwd(a, h, gr), 50)
+            row["other_cold_ms"], row["this_cold_ms"] = turns(
+                other, lambda: rg_ops.rglru_scan_bwd(a, h, gr), 50,
+                timer=cold_ms)
+            # a (its dtype), g and h read, dh and da written (fp32)
+            row["bound_ms"] = b * t * w * (a.element_size() + 16) \
+                / HBM_BW * 1e3
+            row["this_of_bound"] = row["bound_ms"] / row["this_ms"]
+            report(row)
+            del outs, again, ref
+    return differ
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--other", required=True, type=Path,
@@ -195,9 +273,9 @@ def main(argv=None) -> int:
                                  else f"{k}={v}" for k, v in row.items()),
               flush=True)
 
-    for label, m, k, n in product_cases(cs) + [
+    for label, m, k, n in (product_cases(cs) + [
             ("train_lm head dX", 4096, 32768, 512),
-            ("train_lm head dW", 512, 4096, 32768)]:
+            ("train_lm head dW", 512, 4096, 32768)]):
         x = torch.randn((m, k), generator=g, device="cuda")
         w = torch.randn((k, n), generator=g, device="cuda").div_(math.sqrt(k))
         with launching("queue_matmul", libs["queue_matmul"]):
@@ -279,8 +357,12 @@ def main(argv=None) -> int:
                                    4.0 * b * (hq + hkv) * s * 2 * d)
         report(row)
 
-    products = sum(r["kernel"] != "flash_attention" for r in rows)
+    products = sum(r["kernel"] in ("queue_matmul", "moe_gemm") for r in rows)
     print(f"[ab] {differ} of {products} products differ in bits", flush=True)
+    scans = rglru_ab(cs, libs["rglru_scan"], g, report)
+    forward = sum(r["kernel"] == "rglru_scan" for r in rows)
+    print(f"[ab] {scans} of {forward} rglru_scan forward outputs differ in "
+          f"bits", flush=True)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps({"card": smi, "rows": rows},

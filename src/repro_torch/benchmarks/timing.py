@@ -36,6 +36,24 @@ def event_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def cold_ms(fn, iters: int) -> float:
+    """Mean device time of ``fn()`` in ms with the L2 cache flushed before
+    each call (256 MB written, five times an H100's 50 MB of L2), so its
+    inputs come from device memory, as a caller's do when other work ran
+    in between: CUDA events around each call alone."""
+    flush = torch.empty(64 << 20, device="cuda")
+    fn()
+    pairs = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+    for start, end in pairs:
+        flush.zero_()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in pairs) / iters
+
+
 def host_us(fn, reps: int, barrier: Optional[Callable[[], object]] = None
             ) -> float:
     """Mean host-clock microseconds of ``fn()`` over ``reps`` calls after a

@@ -18,9 +18,12 @@ counts its forward launches.
 Gradients: on the card, when a or bx requires grad (and grad mode is on),
 the scan goes through :class:`_RglruScanFn`, whose forward is the same
 launch (the same bits) and saves a and h; its backward is
-:func:`rglru_scan_bwd`, the same kernel run in reverse (its ``kRev``
-instantiation: ``dh_t = g_t + a_{t+1} dh_{t+1}``, then ``dbx = dh`` and
-``da_t = dh_t h_{t-1}``), one launch a call, counted by
+:func:`rglru_scan_bwd`, the reverse walk (``dh_t = g_t + a_{t+1} dh_{t+1}``,
+then ``dbx = dh`` and ``da_t = dh_t h_{t-1}``), a kernel of its own in the
+same source (``rglru_scan_bwd_kernel``): a chunked scan sized to fill the
+card in one wave (:mod:`.plan`; :func:`bwd_geometry` reports the launch),
+a, g and h of a segment loaded together, the chunks' start states
+composed by a shuffle scan.  One launch a call, counted by
 ``rglru_scan_bwd.launches``.  Its plain version is
 :func:`rglru_scan_bwd_ref`.
 """
@@ -33,6 +36,7 @@ from typing import Tuple
 import torch
 
 from .. import _build
+from . import plan
 from .ref import rglru_scan_bwd_ref, rglru_scan_meta, rglru_scan_ref
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -51,6 +55,11 @@ def _library() -> ctypes.CDLL:
                                           + [ctypes.c_int] * 4
                                           + [ctypes.c_void_p])
     lib.rglru_scan_bwd_launch.restype = ctypes.c_int
+    lib.rglru_scan_bwd_geometry.argtypes = ([ctypes.c_int] * 4
+                                            + [ctypes.c_void_p])
+    lib.rglru_scan_bwd_geometry.restype = ctypes.c_int
+    lib.rglru_scan_bwd_residency.argtypes = [ctypes.c_int] * 2
+    lib.rglru_scan_bwd_residency.restype = ctypes.c_int
     lib.rglru_scan_error_string.argtypes = [ctypes.c_int]
     lib.rglru_scan_error_string.restype = ctypes.c_char_p
     return lib
@@ -103,12 +112,38 @@ def _launch_bwd(a, h, g) -> Tuple[torch.Tensor, torch.Tensor]:
     return da, dh
 
 
+def bwd_geometry(B: int, T: int, w: int, dtype: torch.dtype,
+                 device=None) -> plan.Geometry:
+    """The launch :func:`rglru_scan_bwd` makes for (B, T, w) with ``a`` of
+    ``dtype`` on a CUDA device (the current one by default), as the
+    kernel's library computes it."""
+    out = (ctypes.c_int * 5)()
+    with torch.cuda.device(device):
+        err = _library().rglru_scan_bwd_geometry(B, T, w,
+                                                 _DTYPE_CODES[dtype], out)
+    _check(err, "rglru_scan_bwd geometry")
+    tile, chunks, tiles, resident, sms = out
+    return plan.Geometry(B, T, w, tile, chunks, tiles, resident, sms)
+
+
+def bwd_residency(dtype: torch.dtype, threads: int, device=None) -> int:
+    """Blocks of ``threads`` threads (a power of two up to 512, the sizes
+    the launch makes) of the reverse walk (``a`` of ``dtype``) that fit one
+    SM of a CUDA device, by the occupancy query."""
+    with torch.cuda.device(device):
+        r = _library().rglru_scan_bwd_residency(_DTYPE_CODES[dtype], threads)
+    if r < 0:
+        raise RuntimeError(f"rglru_scan_bwd residency query failed for "
+                           f"{threads} threads (a power of two up to 512)")
+    return r
+
+
 def rglru_scan_bwd(a: torch.Tensor, h: torch.Tensor,
                    g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """The gradient of :func:`rglru_scan` from its input ``a``, its output
     ``h`` and the gradient ``g`` on h, all (B, T, w): returns (da, dbx) in
     fp32.  A CPU tensor takes the plain version; a CUDA tensor launches
-    the kernel's reverse walk."""
+    the reverse walk's kernel."""
     if a.ndim != 3 or h.shape != a.shape or g.shape != a.shape:
         raise ValueError(f"rglru_scan_bwd takes a, h and g of one shape "
                          f"(B, T, w), got {tuple(a.shape)}, "
@@ -164,6 +199,6 @@ def rglru_scan(a: torch.Tensor, bx: torch.Tensor) -> torch.Tensor:
 
 #: kernel launches since the count was last set to 0
 rglru_scan.launches = 0
-#: backward launches (the kernel's reverse walk) since the count was last
+#: backward launches (the reverse walk's kernel) since the count was last
 #: set to 0
 rglru_scan_bwd.launches = 0

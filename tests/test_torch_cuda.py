@@ -13,7 +13,8 @@ bf16 it has two kernels, thin (C <= 16) and wide, and a row's bits may
 differ between them, never within one.  ``rglru_scan`` is a chunked scan
 that composes the chunks' decays, so it rounds unlike its plain version's
 sequential walk and is held to the same tolerances, at the edges of its
-chunks (16 steps) and segments (256).
+chunks (16 steps) and segments (256); its reverse walk, a kernel of its
+own, also at a slow decay over 4096 steps, T = 1, and a grid past one wave.
 bf16 ``queue_matmul`` has two kernels, thin (M <= 16) and wide; each must
 give the same bits at every depth pair and for a row whatever rows come
 with it.  fp32 ``queue_matmul`` has one sum order for every M, tile and
@@ -23,7 +24,7 @@ at every head-dim class, gives 0 and a log-sum-exp of +inf on rows that
 see no key, and the same bits on two calls.  Training: ``flash_attention_bwd`` against its plain version on
 the same inputs (fp32 2e-4, bf16 2e-2) and equal to itself across calls,
 rows that see no key with zero gradients; so are the backward passes of
-``rglru_scan`` (its kernel's reverse walk), ``ssm_scan`` (its backward
+``rglru_scan`` (its reverse walk's kernel), ``ssm_scan`` (its backward
 kernel, on the chunk states its forward writes without changing y's bits)
 and ``moe_gemm`` (two grouped products through its kernels, an inactive
 expert's dW exact zeros); the autograd Functions run the kernels in their
@@ -785,6 +786,96 @@ def test_rglru_scan_bwd_kernel_against_plain(card, b, t, w, dtype):
         assert x.dtype == torch.float32 and x.shape == (b, t, w)
         assert torch.equal(x, y)
         _close(x, r, TOL[dtype])
+
+
+def _bwd_walk(a, h, g, dtype, hold_da=True):
+    """The reverse walk twice, one launch each: equal bits across the two
+    calls, and (da, dh) against the plain version (da only if
+    ``hold_da``).  Returns the kernel's (da, dh) and the plain version's."""
+    before = rglru_scan_bwd.launches
+    got, again = rglru_scan_bwd(a, h, g), rglru_scan_bwd(a, h, g)
+    torch.cuda.synchronize()
+    assert rglru_scan_bwd.launches == before + 2
+    ref = rglru_scan_bwd_ref(a, h, g)
+    for x, y, r, held in zip(got, again, ref, (hold_da, True)):
+        assert x.dtype == torch.float32 and x.shape == a.shape
+        assert torch.equal(x, y)
+        if held:
+            _close(x, r, TOL[dtype])
+    return got, ref
+
+
+#: the slow decays: 1 - 1e-3 in fp32; bf16 rounds that to 1.0, so there
+#: the slowest decay under 1 it holds, 1 - 2^-8
+SLOW_DECAY = {torch.float32: 1.0 - 1e-3, torch.bfloat16: 1.0 - 2.0 ** -8}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rglru_scan_bwd_carries_a_slow_decay_across_segments(card, dtype):
+    """A slow decay over 4096 steps: dh sums hundreds of g's, so every
+    chunk's start state comes mostly from the carry (the backward twin of
+    the forward's slow-decay test).  h sums hundreds of inputs too, so
+    ``da = dh h_{t-1}`` magnifies dh's rounding, the kernel's and the
+    plain walk's alike, some 30 times where dh crosses zero: dh is held to
+    the plain version, da to the kernel's own dh times h_{t-1} (one
+    rounded product) bit for bit, and dh's and da's RMS distances from
+    the walk in fp64 each to at most twice the plain fp32 walk's (phase
+    3's ratio)."""
+    a = torch.full((2, 4096, 300), SLOW_DECAY[dtype], device="cuda").to(dtype)
+    assert (a < 1.0).all()
+    bx = torch.randn((2, 4096, 300), generator=card, device="cuda").to(dtype)
+    h = rglru_scan(a, bx)
+    g = torch.randn((2, 4096, 300), generator=card, device="cuda")
+    (da, dh), (da_ref, dh_ref) = _bwd_walk(a, h, g, dtype, hold_da=False)
+    assert dh.abs().max() > 20.0
+    assert torch.equal(da[:, 0], torch.zeros_like(da[:, 0]))
+    assert torch.equal(da[:, 1:], dh[:, 1:] * h[:, :-1])
+    da64, dh64 = rglru_scan_bwd_ref(a.double(), h.double(), g.double())
+
+    def rms(x, ref):
+        return (x.double() - ref).pow(2).mean().sqrt().item()
+    assert rms(dh, dh64) <= 2.0 * rms(dh_ref, dh64)
+    assert rms(da, da64) <= 2.0 * rms(da_ref, da64)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rglru_scan_bwd_past_one_wave(card, dtype):
+    """recurrentgemma's width at the least B >= 8 whose launch needs more
+    than one wave on this card: blocks past the resident ones run after
+    them and are still right."""
+    from repro_torch.kernels.rglru_scan.ops import bwd_geometry
+    t, w = 128, 2560
+    b = 8
+    while bwd_geometry(b, t, w, dtype).waves < 2:
+        b *= 2
+    a, bx, g = _grad_inputs(card, "rglru", dtype, (b, t, w))
+    _bwd_walk(a, rglru_scan(a, bx), g, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rglru_scan_bwd_single_step(card, dtype):
+    """T = 1 at B = 3 and an odd w: dh = g and da = 0."""
+    a, bx, g = _grad_inputs(card, "rglru", dtype, (3, 1, 37))
+    (da, dh), _ = _bwd_walk(a, rglru_scan(a, bx), g, dtype)
+    assert torch.equal(dh, g)
+    assert torch.equal(da, torch.zeros_like(da))
+
+
+def test_rglru_scan_bwd_launch_is_the_plan(card):
+    """The launch the library sizes equals ``plan.geometry`` at the card's
+    own residency, and recurrentgemma's training shape is one wave."""
+    from repro_torch.kernels.rglru_scan import plan
+    from repro_torch.kernels.rglru_scan.ops import (bwd_geometry,
+                                                    bwd_residency)
+    for dtype in (torch.float32, torch.bfloat16):
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        for b, t, w in [(1, 1, 1), (3, 1, 37), (2, 37, 20), (3, 257, 37),
+                        (1, 700, 64), (2, 512, 2560), (8, 512, 2560),
+                        (1, 4096, 300), (64, 64, 2560)]:
+            got = bwd_geometry(b, t, w, dtype)
+            assert got == plan.geometry(
+                b, t, w, sms, lambda n: bwd_residency(dtype, n)), (b, t, w)
+        assert bwd_geometry(2, 512, 2560, dtype).waves == 1
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -1,6 +1,7 @@
 """``repro_torch.benchmarks.kernel_ab`` without a card: the fp32 products
 it compares are those ``chip_smoke.py``'s phase 2 checks, each once, the
-shapes it times are among them, and it refuses to run without a card."""
+shapes it times are among them, its ``rglru_scan`` cases are phase 2's and
+phase 5 (a)'s, and it refuses to run without a card."""
 import sys
 from pathlib import Path
 
@@ -49,3 +50,31 @@ def test_it_needs_a_card(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert kernel_ab.main(["--other", str(ROOT)]) == 1
     assert "needs a CUDA card" in capsys.readouterr().err
+
+
+def _names_in(smoke, fn):
+    """The module-level names a function of chip_smoke.py reads."""
+    import ast
+    import inspect
+    tree = ast.parse(inspect.getsource(getattr(smoke, fn)))
+    return {n.id for n in ast.walk(tree) if isinstance(n, ast.Name)}
+
+
+def test_the_rglru_cases_are_phase_2s_and_phase_5as(smoke):
+    """The forward bits are compared at phase 2's ``rglru_scan`` shapes
+    and the reverse walk timed at phase 5 (a)'s: recurrentgemma-2b's width
+    at its training shape (2 x 512 tokens)."""
+    from repro_torch.configs import get_config
+    assert "rglru_scan" in kernel_ab.WRAPPERS
+    assert {"RGLRU_CASES", "RGLRU_TRAIN"} <= _names_in(smoke,
+                                                      "check_rglru_scan")
+    assert "RGLRU_TRAIN" in _names_in(smoke, "check_rglru_scan_bwd")
+    fwd = kernel_ab.rglru_forward_cases(smoke)
+    assert fwd == list(smoke.RGLRU_CASES) + [smoke.RGLRU_TRAIN]
+    assert len(set(fwd)) == len(fwd)
+    assert kernel_ab.rglru_bwd_cases(smoke) == [smoke.RGLRU_TRAIN]
+    cfg = get_config("recurrentgemma-2b")
+    width = cfg.rglru.lru_width or cfg.d_model
+    assert smoke.RGLRU_TRAIN == (2, 512, width)
+    assert all(w == width for _, _, w in smoke.RGLRU_CASES)
+
