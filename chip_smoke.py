@@ -75,9 +75,16 @@ prints no result):
    have run.  The engine's weights (the leaves ``param_specs`` names) and
    cache must hold exactly the bytes the dry run counts for them
    (``repro_torch.launch.dryrun.device_state_bytes`` on a 1 x 1 mesh at the
-   engine's slots and length).  Then a profile of a
-   decode body: launches, kernel time by kernel, the device's idle share,
-   and for olmoe the experts each layer's mask keeps.
+   engine's slots and length).  Each engine runs its decode step and each
+   chunk width as one CUDA graph (``repro_torch.serve.graphs``): every
+   program it ran must be captured, and its capture seconds, replays,
+   launches a replay and pool bytes are logged; its requests are served
+   once more on the same engine, warm, giving the same tokens.  Then a
+   profile of a decode body, eager and replayed: launches, wall, kernels
+   and kernel time by kernel, the device's idle share of each, and for
+   olmoe the experts each layer's mask keeps; and of the widest chunk
+   program replayed with every count 0 (the cache must stay unchanged),
+   a column's wall and kernels.
 4b. policy — the serve path on a calibrated operating point: the port's
    machine model calibrates a smoke grid on the host (``POLICY_CALIBRATION``,
    in-process), ``REPRO_CALIBRATION_DIR`` points at the artifacts, and the
@@ -86,7 +93,9 @@ prints no result):
    4's slots, prompts and seed in measured-traffic mode: the same tokens as
    phase 4, every retarget and the report on calibrated points, each traffic
    level charged what ``StepCostModel.from_operating_point`` gives for its
-   point, every ``queue_matmul`` launch at the calibrated depths (its own
+   point, every ``queue_matmul`` launch at the calibrated depths, those
+   its graphs captured included, and the launch counts equal to the eager
+   launches plus each graph's replays times its captured launches (its own
    main path); then its wall and tokens/s, a profile of its decode body
    (kernel time and idle share at the calibrated depths), and
    ``repro_torch.examples.copiftv2_demo``'s depth-1 against
@@ -114,8 +123,10 @@ prints no result):
    ``serve_slo.run_prefill(PREFILL_CARD)`` (full-width phi3-mini-3.8b in
    bf16, ``PREFILL_TRIALS`` trials) with its hard gates (equal tokens and
    cache rows, the cycles-domain TTFT gain, the chunk-program bound) and
-   its wall-clock gain printed beside the reference's bar, which is
-   recorded, not enforced; then ``kernel_bench`` at the reference's shapes and
+   its wall-clock gain printed beside the reference's bar, then the
+   reference's own cells ``PREFILL_SMOKE`` and ``PREFILL_FULL`` (reduced
+   phi3, fp32) on the card, the same gates and the wall gain printed
+   beside their bars (1.2, 2.0); the bars are recorded, not enforced; then ``kernel_bench`` at the reference's shapes and
    ``--shapes main`` (``queue_matmul``'s depths over rounds, their bits
    equal) and ``collective_policy`` on one NCCL rank in its child process;
    then, in a child of its own (``HOST_STEP``), the reference's ten host
@@ -2186,17 +2197,25 @@ def free_card() -> None:
 # ---------------------------------------------------------------------------
 
 def launch_counters():
-    from repro_torch.kernels import (flash_attention, moe_gemm, queue_matmul,
-                                     rglru_scan, ssm_scan)
-    from repro_torch.kernels.flash_attention import flash_attention_bwd
-    from repro_torch.kernels.moe_gemm import moe_gemm_bwd
-    from repro_torch.kernels.rglru_scan import rglru_scan_bwd
-    from repro_torch.kernels.ssm_scan import ssm_scan_bwd
-    return {"queue_matmul": queue_matmul, "flash_attention": flash_attention,
-            "flash_attention_bwd": flash_attention_bwd,
-            "moe_gemm": moe_gemm, "moe_gemm_bwd": moe_gemm_bwd,
-            "ssm_scan": ssm_scan, "ssm_scan_bwd": ssm_scan_bwd,
-            "rglru_scan": rglru_scan, "rglru_scan_bwd": rglru_scan_bwd}
+    from repro_torch.kernels import launch_counters as counters
+    return counters()
+
+
+def log_programs(eng, arch: str, what: str) -> None:
+    """Log each step program ``eng`` ran (its capture seconds, replays,
+    launches a replay and pool bytes); raises unless every one is a
+    captured CUDA graph."""
+    progs = eng.programs()
+    for name, p in progs.items():
+        log(f"[serve] {arch} {what} program {name}: {p['kind']}, "
+            f"{p['calls']} calls, {p['replays']} replays, captured in "
+            f"{p['capture_s']:.3f} s, pool +{p['pool_bytes'] / 2**20:.1f} "
+            f"MiB; launches a replay {p['launches_per_replay']}")
+    if eng.program_kind != "cuda_graph" or not progs or not all(
+            p["kind"] == "cuda_graph" and p["captured"]
+            for p in progs.values()):
+        raise AssertionError(f"{arch} {what}: a step program was not "
+                             f"captured as a CUDA graph: {progs}")
 
 
 #: phase 4's engine: slots, cache length and prefill chunk; and the
@@ -2265,6 +2284,20 @@ def phase_serve(arch: str) -> dict:
         f"{eng._n_steps} steps; launches "
         f"{ {k: c.launches for k, c in counters.items()} }; prefill widths "
         f"{sorted(eng._prefill_fns)}")
+    log_programs(eng, arch, "chunked")
+    # the same requests again on the same engine, its programs captured:
+    # the warm rate, and readmitted slots giving the first run's tokens
+    rids_w = [eng.submit(p, max_new=SERVE_NEW) for p in prompts]
+    t0 = time.time()
+    eng.run()
+    torch.cuda.synchronize()
+    wall_w = time.time() - t0
+    if [eng.finished[r].generated for r in rids_w] != SERVED_TOKENS[arch]:
+        raise AssertionError(f"{arch}: the warm run's tokens differ from "
+                             f"the first run's")
+    log(f"[serve] {arch} chunked prefill again, programs captured: same "
+        f"tokens; {n_tok} tokens in {wall_w:.2f} s wall = "
+        f"{n_tok / wall_w:.2f} tok/s")
 
     tok_eng = ServeEngine(eng.params, cfg, rc, batch_slots=4, max_len=256,
                           prefill="token")
@@ -2281,6 +2314,7 @@ def phase_serve(arch: str) -> dict:
     log(f"[serve] {arch} token prefill: same tokens for all {len(rids)} "
         f"requests; {n_tok / wall_t:.2f} tok/s wall; {tok_eng._n_steps} "
         f"steps")
+    log_programs(tok_eng, arch, "token")
     del tok_eng
 
     inputs = {k: v.cuda() for k, v in model_inputs(cfg, rng, 1, 512).items()}
@@ -2305,7 +2339,7 @@ def phase_serve(arch: str) -> dict:
     log(f"[serve] {arch} launches on the main path: {counts}; peak memory "
         f"{peak:.2f} GiB")
     log(f"[serve] {arch} first tokens: {done[rids[0]].generated}")
-    profile_decode(eng.params, eng.cache, cfg, eng.rc, arch)
+    profile_decode(eng, arch)
     del eng
     free_card()
     return counts
@@ -2408,22 +2442,47 @@ def phase_encode(arch: str) -> dict:
     return counts
 
 
-def profile_decode(params, cache, cfg, rc, arch: str, n: int = 5) -> None:
-    """Launches per decode body over the engine's slots, its wall time
-    (host clock, no profiler), and the kernel time inside it
-    (torch.profiler, CUDA activity only), by kernel: the device's idle
-    share is one minus their ratio.  Runs after the launch counts are
-    read."""
+def _profiled(step, n: int):
+    """Mean wall ms of ``step()`` over ``n`` calls back to back (host
+    clock, no profiler), the device ms by kernel name of ``n`` more calls
+    (torch.profiler, CUDA activity only), and the device kernels a
+    call."""
     from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for _ in range(n):
+        step()
+    torch.cuda.synchronize()
+    wall = (time.time() - t0) / n * 1e3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+    ran = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    return (wall, {e.key: e.self_device_time_total / n / 1e3 for e in ran},
+            sum(e.count for e in ran) / n)
+
+
+def profile_decode(eng, arch: str, n: int = 5) -> None:
+    """A decode body over the engine's slots, eager (``decode_step``) and
+    as the engine runs it (its captured CUDA graph replayed, the tokens
+    copied in): launches per body, its wall time (host clock, no
+    profiler), and the kernel time inside it (torch.profiler, CUDA
+    activity only), by kernel; the device's idle share is one minus their
+    ratio.  Runs after the launch counts are read."""
     from repro_torch.models import decode_step
-    tok = torch.zeros((cache["len"].shape[0], 1), dtype=torch.long,
-                      device="cuda")
-    step = lambda: decode_step(params, cache, {"tokens": tok}, cfg, rc)
+    cfg = eng.cfg
+    slots = eng.cache["len"].shape[0]
+    tok = torch.zeros((slots, 1), dtype=torch.long, device="cuda")
+    tok_np = np.zeros((slots, 1), np.int64)
+    eager = lambda: decode_step(eng.params, eng.cache, {"tokens": tok}, cfg,
+                                eng.rc)
+    replay = lambda: eng._step(tokens=tok_np)
     counters = launch_counters()
     before = {k: c.launches for k, c in counters.items()}
     routes = []
     with routing(routes):
-        step()
+        eager()
     torch.cuda.synchronize()
     per_body = {k: c.launches - before[k] for k, c in counters.items()
                 if c.launches > before[k]}
@@ -2431,35 +2490,56 @@ def profile_decode(params, cache, cfg, rc, arch: str, n: int = 5) -> None:
         # the experts each MoE layer's mask keeps: those its slots route to
         act = [len(torch.unique(r)) for r in routes]
         log(f"[profile] {arch} active experts per MoE layer of a decode "
-            f"body ({tok.shape[0]} slots, top-{cfg.moe.top_k} of "
+            f"body ({slots} slots, top-{cfg.moe.top_k} of "
             f"{cfg.moe.num_experts}): mean {sum(act) / len(act):.2f}, "
             f"{act}")
-    t0 = time.time()
-    for _ in range(n):
-        step()
-    torch.cuda.synchronize()
-    body_ms = (time.time() - t0) / n * 1e3
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            step()
-        torch.cuda.synchronize()
-    dev = {e.key: e.self_device_time_total / n / 1e3
-           for e in prof.key_averages() if e.self_device_time_total > 0}
-    busy = sum(dev.values())
-    if busy == 0:
-        log(f"[profile] {arch} idle share: not measured (the profiler saw "
-            f"no device time)")
+    replay()                      # captures the graph if it has none yet
+    for what, step in (("eager", eager), ("replayed", replay)):
+        wall, dev, kernels = _profiled(step, n)
+        busy = sum(dev.values())
+        if busy == 0:
+            log(f"[profile] {arch} {what} decode body: {wall:.2f} ms wall; "
+                f"idle share not measured (the profiler saw no device "
+                f"time)")
+            continue
+        ours = {k: sum(v for key, v in dev.items() if k in key)
+                for k in per_body}
+        log(f"[profile] {arch} {what} decode body ({slots} slots, "
+            f"{cfg.n_layers} layers): launches {per_body}; {wall:.2f} ms "
+            f"wall, {busy:.2f} ms in {kernels:.0f} kernels ("
+            + ", ".join(f"{v:.2f} {k}" for k, v in ours.items())
+            + f", {busy - sum(ours.values()):.2f} other); device idle share "
+            f"{1 - busy / wall:.3f}")
+        if what == "eager":
+            for k, v in sorted(dev.items(), key=lambda kv: -kv[1])[:8]:
+                log(f"[profile]   {v:8.3f} ms  {k[:90]}")
+    profile_chunk(eng, arch, n)
+
+
+def profile_chunk(eng, arch: str, n: int) -> None:
+    """The engine's widest chunk program replayed with every count 0 (a
+    no-op on the cache by construction): wall and kernel time a column,
+    beside a decode body's, and its largest kernels."""
+    if not eng._prefill_fns:
         return
-    ours = {k: sum(v for key, v in dev.items() if k in key)
-            for k in per_body}
-    log(f"[profile] {arch} decode body ({tok.shape[0]} slots, "
-        f"{cfg.n_layers} layers): launches {per_body}; {body_ms:.2f} ms "
-        f"wall, {busy:.2f} ms in kernels ("
-        + ", ".join(f"{v:.2f} {k}" for k, v in ours.items())
-        + f", {busy - sum(ours.values()):.2f} other); device idle share "
-        f"{1 - busy / body_ms:.3f}")
+    width = max(eng._prefill_fns)
+    prog = eng._prefill_fns[width]
+    slots = eng.cache["len"].shape[0]
+    tok = np.zeros((slots, width), np.int64)
+    zero = np.zeros((slots,), np.int32)
+    before = {k: v.clone() for k, v in eng.cache.items()}
+    wall, dev, kernels = _profiled(lambda: prog(tokens=tok, n_tokens=zero),
+                                   n)
+    for k, v in eng.cache.items():
+        if not torch.equal(v, before[k]):
+            raise AssertionError(f"{arch}: a chunk of zero counts changed "
+                                 f"the cache leaf {k}")
+    busy = sum(dev.values())
+    log(f"[profile] {arch} replayed chunk of width {width} ({slots} slots, "
+        f"counts 0, the cache unchanged): {wall / width:.2f} ms wall and "
+        f"{busy / width:.2f} ms in {kernels / width:.0f} kernels a column")
     for k, v in sorted(dev.items(), key=lambda kv: -kv[1])[:8]:
-        log(f"[profile]   {v:8.3f} ms  {k[:90]}")
+        log(f"[profile]   {v / width:8.3f} ms a column  {k[:90]}")
 
 
 # ---------------------------------------------------------------------------
@@ -2550,10 +2630,14 @@ def phase_policy(smi: str) -> dict:
                                  dir=os.path.join(ROOT, "build"))
     before_env = os.environ.get("REPRO_CALIBRATION_DIR")
     launch = qm_ops._launch
+    # launches by ring depths, in eager calls and in graph captures
     depths = {}
+    captured = {}
 
     def recording_launch(x, w, depth_x, depth_w):
-        depths[(depth_x, depth_w)] = depths.get((depth_x, depth_w), 0) + 1
+        into = (captured if torch.cuda.is_current_stream_capturing()
+                else depths)
+        into[(depth_x, depth_w)] = into.get((depth_x, depth_w), 0) + 1
         return launch(x, w, depth_x, depth_w)
 
     try:
@@ -2619,8 +2703,16 @@ def phase_policy(smi: str) -> dict:
                 f"cycles and {cost.energy_decode_token!r} energy per decode "
                 f"token, {cost.cycles_prefill_token!r} cycles per prefill "
                 f"token ({cost.source}), the machine model's")
-        log(f"[policy] queue_matmul launches by ring depths (x, w): {depths}"
-            f"; launches on the main path {counts}")
+        graphs = [p for p in eng.programs().values() if p["captured"]]
+        per_graph = sum(p["launches_per_replay"].get("queue_matmul", 0)
+                        for p in graphs)
+        replayed = sum(p["replays"]
+                       * p["launches_per_replay"].get("queue_matmul", 0)
+                       for p in graphs)
+        log(f"[policy] queue_matmul launches by ring depths (x, w): eager "
+            f"{depths}, captured in {len(graphs)} CUDA graphs {captured} "
+            f"(replayed {replayed}); launches on the main path {counts}")
+        log_programs(eng, POLICY_ARCH, "calibrated")
         if tokens != want:
             bad = [i for i, (a, b) in enumerate(zip(tokens, want)) if a != b]
             raise AssertionError(f"{POLICY_ARCH}: calibrated tokens differ "
@@ -2630,19 +2722,23 @@ def phase_policy(smi: str) -> dict:
             raise AssertionError(f"not calibrated: report "
                                  f"{report.cost_source}, history "
                                  f"{eng.traffic_history}")
-        if set(depths) != {qm.effective_depths()} or \
-                counts["queue_matmul"] != sum(depths.values()) or \
-                counts["queue_matmul"] <= 0:
-            raise AssertionError(f"queue_matmul launched at {depths} "
-                                 f"({counts['queue_matmul']} counted), "
-                                 f"calibrated {qm.effective_depths()}")
+        if set(depths) | set(captured) != {qm.effective_depths()} or \
+                sum(captured.values()) != per_graph or \
+                counts["queue_matmul"] != sum(depths.values()) + replayed \
+                or replayed <= 0:
+            raise AssertionError(f"queue_matmul launched at {depths}, "
+                                 f"captured at {captured} ({per_graph} a "
+                                 f"replay of each graph, {replayed} "
+                                 f"replayed; {counts['queue_matmul']} "
+                                 f"counted), calibrated "
+                                 f"{qm.effective_depths()}")
         log(f"[policy] same tokens as phase 4 for all {len(tokens)} "
             f"requests; every queue_matmul launch at the calibrated depths "
-            f"{qm.effective_depths()}")
+            f"{qm.effective_depths()}, eager, captured and replayed")
 
         # (c) the device's idle share of a decode body at the calibrated
         # depths, beside phase 4's at the default ones
-        profile_decode(eng.params, eng.cache, cfg, eng.rc, POLICY_ARCH)
+        profile_decode(eng, POLICY_ARCH)
         del eng, params
         free_card()
         t0 = time.time()
@@ -2751,13 +2847,13 @@ def phase_dist(smi: str) -> dict:
 # entry: the entry scripts on the card
 # ---------------------------------------------------------------------------
 
-#: phase ``entry``'s cuts for the script's time limit: train_lm takes 200
-#: of the reference's 300 steps, and the prefill cell one timed trial of
-#: its 5 after its warm run (hosts differ up to 2x in a served step's
+#: phase ``entry``'s cut for the script's time limit: train_lm takes 200
+#: of the reference's 300 steps (hosts differ up to 2x in a served step's
 #: wall, NVIDIA H100 80GB HBM3, 700.00 W, so the script keeps to well
-#: under its 1200 s)
+#: under its 1200 s).  The full-width prefill cell runs its 5 timed trials
+#: after its warm run, as its steps replay CUDA graphs
 TRAIN_LM = dict(preset="100m", steps=200)
-PREFILL_TRIALS = 1
+PREFILL_TRIALS = 5
 #: phase ``entry``'s host step, run in a child: the reference's ten host
 #: smoke sections, then the port's drift gate on the committed artifacts
 #: and this run's prefill cell (``sys.argv[1]``).  The sweep floors read the
@@ -2877,7 +2973,8 @@ def entry_serve_batch(counters, smi: str) -> dict:
         f"{cfg.n_kv_heads} heads of {cfg.resolved_head_dim}): {fwd_s:.3f} s "
         f"wall; launches on the main path {counts}; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {smi}")
-    profile_decode(eng.params, eng.cache, cfg, eng.rc, ENTRY_ARCH)
+    log_programs(eng, ENTRY_ARCH, "serve_batch chunked")
+    profile_decode(eng, ENTRY_ARCH)
     del eng, chunked, res
     free_card()
     return counts
@@ -2934,39 +3031,67 @@ def entry_benchmarks(smi: str) -> None:
             f"(mesh {data['mesh']}; {smi})")
 
 
-def entry_prefill(counters, smi: str) -> dict:
-    """``serve_slo.run_prefill(PREFILL_CARD)`` at ``PREFILL_TRIALS`` trials:
-    full-width phi3-mini-3.8b in bf16, its hard gates (equal tokens and cache rows, the
-    cycles-domain gain, the chunk-program bound); the wall-clock gain
-    printed beside the reference's bar."""
+def _prefill_cell(counters, cfg, out_path: str, min_wall_gain: float,
+                  what: str, smi: str) -> dict:
+    """``serve_slo.run_prefill(cfg)`` on the card as its own main path (the
+    counts set to 0 just before it, read just after): its gates, TTFTs,
+    gains and programs logged.  Returns its launches."""
     from repro_torch.benchmarks import serve_slo
     _reset(counters)
     t0 = time.time()
-    serve_slo.run_prefill(dict(serve_slo.PREFILL_CARD,
-                               trials=PREFILL_TRIALS),
-                          out_path=serve_slo.PREFILL_CARD_OUT_PATH,
-                          device="cuda")
-    counts = _read(counters, ("queue_matmul",), "the prefill cell")
-    with open(serve_slo.PREFILL_CARD_OUT_PATH) as f:
+    serve_slo.run_prefill(dict(cfg), out_path=out_path,
+                          min_wall_gain=min_wall_gain, device="cuda")
+    counts = _read(counters, ("queue_matmul",), f"the prefill cell {what}")
+    with open(out_path) as f:
         rep = json.load(f)
-    head, ttft = rep["headline"], rep["ttft"]
-    log(f"[entry] prefill cell (phi3-mini-3.8b full width, bf16, prompt "
-        f"{rep['config']['prompt_len']}, chunk "
-        f"{rep['config']['prefill_chunk']}, {rep['config']['trials']} "
-        f"trials) in {time.time() - t0:.1f} s: bit-exact "
-        f"{head['bit_exact']}; cycles-domain TTFT gain "
-        f"{head['ttft_cycles_gain']:.3f} (gate >= "
+    head, ttft, c = rep["headline"], rep["ttft"], rep["config"]
+    log(f"[entry] prefill cell {what} ({c['arch']}"
+        f"{' full width' if c.get('full') else ' reduced'}, "
+        f"{c.get('dtype', 'float32')}, prompt {c['prompt_len']}, chunk "
+        f"{c['prefill_chunk']}, {c['trials']} trials) in "
+        f"{time.time() - t0:.1f} s: bit-exact {head['bit_exact']}; "
+        f"cycles-domain TTFT gain {head['ttft_cycles_gain']:.3f} (gate >= "
         f"{serve_slo.MIN_PREFILL_TTFT_GAIN}); {rep['prefill_compiles']} "
-        f"chunk programs (<= {rep['max_prefill_compiles']}); steps "
-        f"{rep['steps']}; launches {counts}")
-    log(f"[entry] prefill wall TTFT: chunked {ttft['wall_s_chunked_median']:.4f}"
-        f" s, token {ttft['wall_s_token_median']:.4f} s (medians of "
+        f"chunk programs (<= {rep['max_prefill_compiles']}), "
+        f"{rep['program_kind']}; steps {rep['steps']}; launches {counts}")
+    for path, progs in rep["programs"].items():
+        log(f"[entry] prefill cell {what} {path} programs: "
+            + "; ".join(f"{k} {p['kind']} {p['calls']} calls, captured in "
+                        f"{p['capture_s']:.3f} s, pool +"
+                        f"{p['pool_bytes'] / 2**20:.1f} MiB"
+                        for k, p in progs.items()))
+    log(f"[entry] prefill cell {what} wall TTFT: chunked "
+        f"{ttft['wall_s_chunked_median']:.4f} s, token "
+        f"{ttft['wall_s_token_median']:.4f} s (medians of "
         f"{ttft['wall_s_chunked']} and {ttft['wall_s_token']}); "
         f"ttft_wall_gain {head['ttft_wall_gain']:.4f}, min_required "
         f"{head['min_required']}, meets_wall_bar {head['meets_wall_bar']} "
         f"(recorded, not enforced); {smi}")
     free_card()
     return counts
+
+
+def entry_prefill(counters, smi: str) -> dict:
+    """The prefill cells on the card, each its own main path:
+    ``PREFILL_CARD`` at ``PREFILL_TRIALS`` trials (full-width
+    phi3-mini-3.8b in bf16: its hard gates, the wall gain recorded beside
+    the reference's bar), then the reference's own ``PREFILL_SMOKE`` and
+    ``PREFILL_FULL`` (reduced phi3, fp32; their bars of 1.2 and 2.0
+    recorded).  Returns their launches by kernel."""
+    from repro_torch.benchmarks import serve_slo
+    launches = {}
+    for cfg, path, bar, what in (
+            (dict(serve_slo.PREFILL_CARD, trials=PREFILL_TRIALS),
+             serve_slo.PREFILL_CARD_OUT_PATH, serve_slo.MIN_PREFILL_TTFT_GAIN,
+             "PREFILL_CARD"),
+            (serve_slo.PREFILL_SMOKE, serve_slo.PREFILL_SMOKE_OUT_PATH,
+             serve_slo.MIN_PREFILL_TTFT_GAIN_SMOKE, "PREFILL_SMOKE"),
+            (serve_slo.PREFILL_FULL, serve_slo.PREFILL_OUT_PATH,
+             serve_slo.MIN_PREFILL_TTFT_GAIN, "PREFILL_FULL")):
+        for name, n in _prefill_cell(counters, cfg, path, bar, what,
+                                     smi).items():
+            launches[name] = launches.get(name, 0) + n
+    return launches
 
 
 def entry_host(smi: str) -> None:

@@ -10,5 +10,20 @@ from .ssm_scan import ssm_scan
 KERNELS = ("queue_matmul", "flash_attention", "flash_attention_bwd",
            "moe_gemm", "ssm_scan", "ssm_scan_bwd", "rglru_scan")
 
-__all__ = ["KERNELS", "flash_attention", "moe_gemm", "queue_matmul",
-           "rglru_scan", "ssm_scan"]
+
+def launch_counters():
+    """Every wrapper that counts its launches (``fn.launches``), by kernel
+    name: the forward wrappers and the backward ones."""
+    from .flash_attention import flash_attention_bwd
+    from .moe_gemm import moe_gemm_bwd
+    from .rglru_scan import rglru_scan_bwd
+    from .ssm_scan import ssm_scan_bwd
+    return {"queue_matmul": queue_matmul, "flash_attention": flash_attention,
+            "flash_attention_bwd": flash_attention_bwd,
+            "moe_gemm": moe_gemm, "moe_gemm_bwd": moe_gemm_bwd,
+            "ssm_scan": ssm_scan, "ssm_scan_bwd": ssm_scan_bwd,
+            "rglru_scan": rglru_scan, "rglru_scan_bwd": rglru_scan_bwd}
+
+
+__all__ = ["KERNELS", "flash_attention", "launch_counters", "moe_gemm",
+           "queue_matmul", "rglru_scan", "ssm_scan"]

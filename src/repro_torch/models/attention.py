@@ -110,8 +110,7 @@ def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
     mask = pos[None] < lv
     if window is not None:
         mask = mask & (pos[None] >= lv - window)
-    s = torch.where(mask[:, None, None], s,
-                    torch.tensor(NEG_INF, device=q.device))
+    s = torch.where(mask[:, None, None], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhgt,bhtd->bhgd", p, upcast(v_cache))
     return out.reshape(B, Hq, 1, Dv).to(v_cache.dtype)
@@ -168,10 +167,27 @@ def gqa_apply(p, x: torch.Tensor, cfg: ModelConfig, *,
     return _out_project(o, p["wo"], policy)
 
 
+def _write_slot_rows(cache: torch.Tensor, slot: torch.Tensor,
+                     new: torch.Tensor,
+                     active: Optional[torch.Tensor]) -> None:
+    """``cache[b, ..., slot[b], :] = new[b]`` in place for every slot b of
+    the (B,) mask ``active`` (all when None), the others' rows written back
+    as they were: a gather, a select and a scatter of B rows, nothing that
+    depends on the data.  ``cache`` is (B, T, D) or (B, H, T, D), ``new``
+    (B, D) or (B, H, D)."""
+    b = torch.arange(cache.shape[0], device=cache.device)
+    at = (b, slot) if cache.ndim == 3 else (b, slice(None), slot)
+    new = new.to(cache.dtype)
+    if active is not None:
+        new = torch.where(active.reshape((-1,) + (1,) * (new.ndim - 1)),
+                          new, cache[at])
+    cache[at] = new
+
+
 def gqa_decode(p, x: torch.Tensor, cfg: ModelConfig, k_cache: torch.Tensor,
                v_cache: torch.Tensor, length: torch.Tensor, *,
                window: Optional[int] = None,
-               rows: Optional[torch.Tensor] = None,
+               active: Optional[torch.Tensor] = None,
                policy: Optional[ExecutionPolicy] = None
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One-token step.  x: (B, 1, d); caches (B, Hkv, T, hd); ``length``
@@ -179,10 +195,10 @@ def gqa_decode(p, x: torch.Tensor, cfg: ModelConfig, k_cache: torch.Tensor,
 
     The caches are written in place (the JAX step returns new arrays): each
     slot's new K/V row lands at ``length % T`` (a ring for windowed
-    layers).  ``rows`` (indices into the batch, default all) selects the
-    slots whose rows are written — a masked scatter, so any other slot's
-    rows stay untouched, which is what the JAX chunked prefill's per-slot
-    merge leaves."""
+    layers).  ``active`` (a (B,) bool mask, default all) selects the slots
+    whose rows take the new values; any other slot's row is written back
+    unchanged, which is what the JAX chunked prefill's per-slot merge
+    leaves."""
     B = x.shape[0]
     length = torch.as_tensor(length, dtype=torch.int64,
                              device=x.device).expand(B)
@@ -196,10 +212,8 @@ def gqa_decode(p, x: torch.Tensor, cfg: ModelConfig, k_cache: torch.Tensor,
         k = apply_rope(k, cos[:, None, None], sin[:, None, None])
     T = k_cache.shape[2]
     slot = length % T
-    if rows is None:
-        rows = torch.arange(B, device=x.device)
-    k_cache[rows, :, slot[rows]] = k[rows, :, 0].to(k_cache.dtype)
-    v_cache[rows, :, slot[rows]] = v[rows, :, 0].to(v_cache.dtype)
+    _write_slot_rows(k_cache, slot, k[:, :, 0], active)
+    _write_slot_rows(v_cache, slot, v[:, :, 0], active)
     if window is None:
         o = decode_attention_ref(q, k_cache, v_cache, length + 1)
     else:
@@ -269,7 +283,8 @@ def mla_apply(p, x: torch.Tensor, cfg: ModelConfig, *, q_offset: int = 0,
 
 def mla_decode(p, x: torch.Tensor, cfg: ModelConfig,
                latent_cache: torch.Tensor, rope_cache: torch.Tensor,
-               length: torch.Tensor, *, rows: Optional[torch.Tensor] = None,
+               length: torch.Tensor, *,
+               active: Optional[torch.Tensor] = None,
                policy: Optional[ExecutionPolicy] = None
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The absorbed form, for decode: the caches hold only the latent
@@ -278,8 +293,9 @@ def mla_decode(p, x: torch.Tensor, cfg: ModelConfig,
     ``length`` per-sequence (B,).  Returns (out (B, 1, d), latent_cache,
     rope_cache).
 
-    The caches are written in place, the rows of ``rows`` only (default
-    all), at ``min(length, T - 1)``: the reference writes with
+    The caches are written in place, the slots of the (B,) mask
+    ``active`` only (default all; the others' rows are written back
+    unchanged), at ``min(length, T - 1)``: the reference writes with
     ``dynamic_update_slice`` at ``length``, which JAX clamps to the last
     row once a slot's length reaches T (the engine advances free slots'
     lengths too), where GQA's ring writes at ``length % T``.  Every
@@ -292,10 +308,8 @@ def mla_decode(p, x: torch.Tensor, cfg: ModelConfig,
                                                policy)
     T = latent_cache.shape[1]
     slot = torch.clamp(length, max=T - 1)
-    if rows is None:
-        rows = torch.arange(B, device=x.device)
-    latent_cache[rows, slot[rows]] = lat_t[rows, 0].to(latent_cache.dtype)
-    rope_cache[rows, slot[rows]] = k_rope_t[rows, 0].to(rope_cache.dtype)
+    _write_slot_rows(latent_cache, slot, lat_t[:, 0], active)
+    _write_slot_rows(rope_cache, slot, k_rope_t[:, 0], active)
 
     q_eff = torch.einsum("bhsk,rhk->bhsr", q_nope, p["wuk"])   # (B,H,1,r)
     lat = upcast(latent_cache)
@@ -304,8 +318,7 @@ def mla_decode(p, x: torch.Tensor, cfg: ModelConfig,
                         upcast(rope_cache)))
     s = s / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
     mask = torch.arange(T, device=x.device)[None] <= length[:, None]
-    s = torch.where(mask[:, None, None], s,
-                    torch.tensor(NEG_INF, dtype=s.dtype, device=x.device))
+    s = torch.where(mask[:, None, None], s, NEG_INF)
     o_lat = torch.einsum("bhst,btr->bhsr", torch.softmax(s, dim=-1), lat)
     o = torch.einsum("bhsr,rhk->bhsk", o_lat.to(x.dtype), p["wuv"])
     return _out_project(o, p["wo"], policy), latent_cache, rope_cache

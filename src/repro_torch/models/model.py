@@ -47,7 +47,6 @@ from __future__ import annotations
 
 from typing import Any, Dict, Iterator, List, Optional, Tuple
 
-import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
@@ -392,27 +391,29 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
                                              torch_dtype(dtype)).items()}
 
 
-def _write_rows(leaf: torch.Tensor, i: int, rows: Optional[torch.Tensor],
+def _write_rows(leaf: torch.Tensor, i: int, active: Optional[torch.Tensor],
                 new: torch.Tensor) -> None:
-    """Layer ``i``'s state in a stacked cache leaf, in place: the rows of
-    ``rows`` (every slot when None) take ``new``'s."""
-    if rows is None:
-        leaf[i] = new.to(leaf.dtype)
-    else:
-        leaf[i, rows] = new[rows].to(leaf.dtype)
+    """Layer ``i``'s state in a stacked cache leaf, in place: the slots of
+    the (B,) mask ``active`` (every slot when None) take ``new``'s rows,
+    the others keep theirs (a select, so nothing depends on the data)."""
+    new = new.to(leaf.dtype)
+    if active is not None:
+        new = torch.where(active.reshape((-1,) + (1,) * (new.ndim - 1)),
+                          new, leaf[i])
+    leaf[i] = new
 
 
 def _decode_body(params: Pytree, cache: Pytree, tokens: torch.Tensor,
                  cfg: ModelConfig, rc: RunConfig,
-                 rows: Optional[torch.Tensor]) -> torch.Tensor:
+                 active: Optional[torch.Tensor]) -> torch.Tensor:
     """One token for every slot; writes the K/V rows, latent and rope rows,
-    SSM states or RG-LRU states of ``rows`` (all slots when None) in place
-    and returns fp32 logits (B, vocab).  ``len`` is left to the caller.
-    Each kind of layer has its own cursor into the cache leaves it owns
-    (the hybrid family's recurrent layers into ``h``/``conv``, its attention
-    layers into the ``k``/``v`` ring of ``slot = len % W``; MLA's rows go
-    to ``min(len, max_len - 1)``, as the reference's clamped write puts
-    them)."""
+    SSM states or RG-LRU states of the slots of the (B,) mask ``active``
+    (all slots when None) in place and returns fp32 logits (B, vocab).
+    ``len`` is left to the caller.  Each kind of layer has its own cursor
+    into the cache leaves it owns (the hybrid family's recurrent layers
+    into ``h``/``conv``, its attention layers into the ``k``/``v`` ring of
+    ``slot = len % W``; MLA's rows go to ``min(len, max_len - 1)``, as the
+    reference's clamped write puts them)."""
     dtype = torch_dtype(rc.dtype)
     x = params["embed"][tokens].to(dtype)
     length = cache["len"]
@@ -426,24 +427,25 @@ def _decode_body(params: Pytree, cache: Pytree, tokens: torch.Tensor,
             y, ssm_s, conv_s = ssm_mod.mamba_decode(
                 bp["mamba"], hn, cfg, cache["ssm"][i], cache["conv"][i],
                 rc.policy)
-            _write_rows(cache["ssm"], i, rows, ssm_s)
-            _write_rows(cache["conv"], i, rows, conv_s)
+            _write_rows(cache["ssm"], i, active, ssm_s)
+            _write_rows(cache["conv"], i, active, conv_s)
             x = x + y
             continue
         if kind == "rec":
             y, h_s, conv_s = rglru_mod.rglru_decode(
                 bp["rglru"], hn, cfg, cache["h"][i], cache["conv"][i],
                 rc.policy)
-            _write_rows(cache["h"], i, rows, h_s)
-            _write_rows(cache["conv"], i, rows, conv_s)
+            _write_rows(cache["h"], i, active, h_s)
+            _write_rows(cache["conv"], i, active, conv_s)
         elif cfg.mla:
             y, _, _ = attn.mla_decode(bp["attn"], hn, cfg,
                                       cache["latent"][i], cache["rope"][i],
-                                      length, rows=rows, policy=rc.policy)
+                                      length, active=active,
+                                      policy=rc.policy)
         else:
             y, _, _ = attn.gqa_decode(bp["attn"], hn, cfg, cache["k"][i],
                                       cache["v"][i], length, window=window,
-                                      rows=rows, policy=rc.policy)
+                                      active=active, policy=rc.policy)
         x = x + y
         hn = rms_norm(x, bp["ln2"], cfg.norm_eps)
         y = (moe_mod.moe_apply(bp["ffn"], hn, cfg, rc.policy) if cfg.moe
@@ -493,29 +495,30 @@ def prefill_step(params: Pytree, cache: Pytree,
     ``(logits, cache)`` with ``logits[i]`` the fp32 next-token logits after
     slot ``i``'s last valid column.
 
-    Each column runs the same body as :func:`decode_step` over the whole
-    batch, so the chunked path is bit-exact with token-by-token prefill.
-    The per-slot merge of the JAX step is done without copies: the K/V,
-    latent, SSM and RG-LRU state writes of a column go to its active slots only (a
-    masked scatter), an inactive slot's ``len`` stays put (:func:`_merge_masked`),
-    and its logits keep their previous value.
+    As the reference's ``lax.scan``, every one of the C columns runs the
+    same body as :func:`decode_step` over the whole batch under the
+    device-side mask ``active = j < n_tokens``, so the chunked path is
+    bit-exact with token-by-token prefill.  Nothing is read back to the
+    host and no shape depends on the data, so one call is one CUDA graph
+    (:mod:`repro_torch.serve.graphs`); a column whose mask is empty is a
+    no-op by construction.  The per-slot merge of the JAX step is done in
+    place: each state write of a column is a select between the new and
+    the old row (:func:`_write_rows`), an inactive slot's ``len`` stays
+    put (:func:`_merge_masked`, copied into the leaf), and its logits keep
+    their previous value.
     """
     _check_family(cfg)
-    tokens, n_tokens = batch["tokens"], batch["n_tokens"]
+    tokens = batch["tokens"]
+    n_tokens = torch.as_tensor(batch["n_tokens"], device=tokens.device)
     B, C = tokens.shape
-    n_host = n_tokens.cpu()
     logits = torch.zeros((B, cfg.vocab), dtype=torch.float32,
                          device=tokens.device)
+    length = cache["len"]
     for j in range(C):
-        active_host = n_host > j
-        if not bool(active_host.any()):
-            break
-        active = active_host.to(tokens.device)
-        rows = torch.from_numpy(np.flatnonzero(active_host.numpy())).to(
-            tokens.device)
+        active = n_tokens > j
         step_logits = _decode_body(params, cache, tokens[:, j:j + 1], cfg,
-                                   rc, rows)
-        cache["len"] = _merge_masked(active, cache["len"] + 1, cache["len"])
+                                   rc, active)
+        length.copy_(_merge_masked(active, length + 1, length))
         logits = torch.where(active[:, None], step_logits, logits)
     return logits, cache
 

@@ -11,11 +11,23 @@ Prompt ingestion is chunked: any step with a prefilling slot runs
 :func:`~repro_torch.models.model.prefill_step`, up to ``prefill_chunk``
 prompt tokens per prefilling slot while decoding neighbours ride along with
 a one-token chunk — bit-exact with the token-by-token path, because the
-chunk runs the decode body column by column.  Chunk widths are bucketed to
-powers of two, and the engine keeps one step callable per width
-(``prefill_compiles`` counts them; on the card a CUDA graph per width is the
-later form of this cache).  ``prefill="token"`` keeps one-token steps as the
-TTFT baseline.  Every step is charged through the
+chunk runs the decode body column by column under a device-side mask.
+Chunk widths are bucketed to powers of two.  ``prefill="token"`` keeps
+one-token steps as the TTFT baseline.
+
+As the reference jits its decode step and one prefill program per chunk
+width, the engine runs each as one program
+(:class:`~repro_torch.serve.graphs.CapturedStep`): on the card a CUDA
+graph, captured after the step's first (eager) call and replayed from then
+on, all of an engine's graphs in one memory pool; on the CPU the eager call
+on the same static input buffers.  There is no switch: on the card the
+engine always captures, and a capture that fails raises.
+``prefill_compiles`` counts the prefill programs, one per width on either
+device, as the reference counts its compilations.  A capture freezes what
+the step resolves on the host — ring depths from ``rc.policy`` and the
+policy table, the thin or wide kernel, the split over K — which is sound
+because the engine's ``rc`` is fixed for its life: retargeting to a new
+traffic level swaps only the accounting.  Every step is charged through the
 :class:`~repro_torch.serve.scheduler.StepCostModel` (full batch width plus
 the ingested prompt tokens at ``PREFILL_FRACTION``), so the engine clock is
 in cycles-equivalent, as in the virtual-time ``simulate_serve``.
@@ -34,7 +46,6 @@ once at load (:func:`~repro_torch.models.model.prepare_params`): cast to
 """
 from __future__ import annotations
 
-import functools
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -47,6 +58,7 @@ from ..core.policy import OperatingPoint, PolicyTable, default_table
 from ..device import DeviceLike, resolve_device
 from ..models.model import (decode_step, init_cache, prefill_step,
                             prepare_params)
+from .graphs import CapturedStep, graph_pool
 from .scheduler import (AdmissionControl, ContinuousScheduler, HostDispatch,
                         ServeReport, ServeSLO, StepCostModel,
                         TrafficEstimator, build_report)
@@ -139,11 +151,13 @@ class ServeEngine:
         self.requests: Dict[int, Request] = {}
         self.cache = init_cache(cfg, batch_slots, max_len, rc.dtype,
                                 device=self.device)
-        self._step = functools.partial(decode_step, cfg=cfg, rc=rc)
-        #: chunk width -> prefill step callable.  Widths are powers of two,
-        #: so at most log2(prefill_chunk)+1 entries; ``prefill_compiles``
-        #: counts them.
-        self._prefill_fns: Dict[int, Callable] = {}
+        self._pool = graph_pool(self.device)
+        self._step = self._program(decode_step, 1)
+        #: chunk width -> prefill program.  Widths are powers of two, so at
+        #: most log2(prefill_chunk)+1 entries; ``prefill_compiles`` counts
+        #: them (a CUDA graph each on the card, as the reference's jit
+        #: compiles one program each).
+        self._prefill_fns: Dict[int, CapturedStep] = {}
         self.prefill_compiles = 0
         self._next_rid = 0
         self.finished: Dict[int, Request] = {}
@@ -184,13 +198,38 @@ class ServeEngine:
         """Smallest power of two >= n."""
         return 1 << max(n - 1, 0).bit_length()
 
-    def _prefill_fn(self, width: int) -> Callable:
+    def _program(self, step: Callable, width: int) -> CapturedStep:
+        """``step`` (``decode_step`` or ``prefill_step``) over the engine's
+        weights and cache as one program over static inputs: ``tokens``
+        (slots, width), and ``n_tokens`` (slots,) for a chunk."""
+        params, cache, cfg, rc = self.params, self.cache, self.cfg, self.rc
+        n = self.sched.n_slots
+        inputs = {"tokens": ((n, width), torch.int64)}
+        if step is prefill_step:
+            inputs["n_tokens"] = ((n,), torch.int32)
+        return CapturedStep(lambda batch: step(params, cache, batch, cfg,
+                                               rc)[0],
+                            inputs, self.device, self._pool)
+
+    def _prefill_fn(self, width: int) -> CapturedStep:
         fn = self._prefill_fns.get(width)
         if fn is None:
-            fn = self._prefill_fns[width] = functools.partial(
-                prefill_step, cfg=self.cfg, rc=self.rc)
+            fn = self._prefill_fns[width] = self._program(prefill_step,
+                                                          width)
             self.prefill_compiles += 1
         return fn
+
+    @property
+    def program_kind(self) -> str:
+        """What a step program is here: ``"cuda_graph"`` or ``"eager"``."""
+        return self._step.kind
+
+    def programs(self) -> Dict[str, Dict[str, Any]]:
+        """Each step program that has run (``"decode"``, ``"prefill/<width>"``)
+        with its :meth:`~repro_torch.serve.graphs.CapturedStep.stats`."""
+        progs = {"decode": self._step, **{
+            f"prefill/{w}": fn for w, fn in sorted(self._prefill_fns.items())}}
+        return {k: fn.stats() for k, fn in progs.items() if fn.calls}
 
     def _next_tokens(self, logits: torch.Tensor) -> np.ndarray:
         return torch.argmax(logits, dim=-1).cpu().numpy()
@@ -223,10 +262,7 @@ class ServeEngine:
                 tokens[i, 0] = (req.generated[-1] if req.generated
                                 else req.prompt[-1])
                 counts[i] = 1
-        logits, self.cache = self._prefill_fn(width)(
-            self.params, self.cache,
-            {"tokens": torch.from_numpy(tokens).to(self.device),
-             "n_tokens": torch.from_numpy(counts)})
+        logits = self._prefill_fn(width)(tokens=tokens, n_tokens=counts)
         return self._next_tokens(logits), counts, prefill_tokens
 
     def _token_forward(self, active) -> Tuple[np.ndarray, np.ndarray, int]:
@@ -244,9 +280,7 @@ class ServeEngine:
             else:
                 tokens[i, 0] = req.prompt[-1]
             counts[i] = 1
-        logits, self.cache = self._step(
-            self.params, self.cache,
-            {"tokens": torch.from_numpy(tokens).to(self.device)})
+        logits = self._step(tokens=tokens)
         return self._next_tokens(logits), counts, 0
 
     # -- measured-traffic retargeting --------------------------------------

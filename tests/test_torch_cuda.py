@@ -65,7 +65,8 @@ from repro_torch.kernels.queue_matmul.ref import matmul_ref
 from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
 from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
 from repro_torch.models import (decode_step, forward, init_cache,
-                                init_model_params, prefill_step)
+                                init_model_params, prefill_step,
+                                prepare_params)
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import tree_map
 from repro_torch.serve import ServeEngine
@@ -1184,17 +1185,20 @@ def test_prefill_smoke_cell_on_the_card(card, tmp_path):
     """``run_prefill(PREFILL_SMOKE)`` on the card: tokens and the serving
     slot's cache rows equal between chunked and token prefill, the
     cycles-domain gain and the chunk-program bound (the wall bar
-    recorded)."""
+    recorded); every program a captured CUDA graph."""
     import json
     from repro_torch.benchmarks import serve_slo
     out = tmp_path / "prefill.json"
     serve_slo.run_prefill(dict(serve_slo.PREFILL_SMOKE), out_path=str(out),
                           min_wall_gain=serve_slo.MIN_PREFILL_TTFT_GAIN_SMOKE,
                           device="cuda")
-    head = json.loads(out.read_text())["headline"]
+    rep = json.loads(out.read_text())
+    head = rep["headline"]
     assert head["bit_exact"] is True
     assert head["ttft_cycles_gain"] >= serve_slo.MIN_PREFILL_TTFT_GAIN
     assert "meets_wall_bar" in head
+    assert rep["program_kind"] == "cuda_graph"
+    assert all(p["captured"] for p in rep["programs"]["chunked"].values())
 
 
 @pytest.mark.parametrize("prefill", ["chunked", "token"])
@@ -1210,3 +1214,140 @@ def test_serve_batch_on_the_card_matches_the_cpu(card, prefill):
            for dev, p in (("cuda", p_gpu), ("cpu", p_cpu))}
     for key in ("tokens", "steps", "prefill_compiles", "traffic_history"):
         assert got["cuda"][key] == got["cpu"][key], key
+
+
+# --- the serve step as one CUDA graph per chunk width ---------------------------
+
+PROGRAM_ARCHS = ["phi3-mini-3.8b", "olmoe-1b-7b", "falcon-mamba-7b",
+                 "recurrentgemma-2b", "minicpm3-4b"]
+
+
+def _program(step, params, cache, cfg, rc, width, slots):
+    from repro_torch.serve.graphs import CapturedStep, graph_pool
+    inputs = {"tokens": ((slots, width), torch.int64)}
+    if step is prefill_step:
+        inputs["n_tokens"] = ((slots,), torch.int32)
+    return CapturedStep(lambda b: step(params, cache, b, cfg, rc)[0], inputs,
+                        torch.device("cuda"), graph_pool(torch.device("cuda")))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", PROGRAM_ARCHS)
+def test_replay_equals_the_eager_call(card, arch, dtype):
+    """A chunk at each width 1-16 and a decode step, each as a captured
+    program over one cache and as eager calls over a copy: after the
+    warm-up and after two replays, the logits and every cache leaf are
+    equal bit for bit (counts mix 0, 1, a partial and a whole chunk)."""
+    cfg = get_reduced(arch)
+    rc = RunConfig(dtype=dtype, param_dtype=dtype, remat=False)
+    params = prepare_params(init_model_params(0, cfg, device="cuda"), cfg,
+                            rc)
+    rng = np.random.default_rng(0)
+    for width in (1, 2, 4, 8, 16, "decode"):
+        graph_cache = init_cache(cfg, 4, 64, rc.dtype, device="cuda")
+        eager_cache = {k: v.clone() for k, v in graph_cache.items()}
+        decode = width == "decode"
+        w = 1 if decode else width
+        step = decode_step if decode else prefill_step
+        prog = _program(step, params, graph_cache, cfg, rc, w, 4)
+        for call in range(3):
+            toks = rng.integers(0, cfg.vocab, (4, w))
+            n = np.array([0, 1, max(w // 2, 1), w], np.int32)
+            arrays = {"tokens": toks} if decode else {"tokens": toks,
+                                                      "n_tokens": n}
+            got = prog(**arrays)
+            batch = {k: torch.from_numpy(v).cuda() for k, v in arrays.items()}
+            want, _ = step(params, eager_cache, batch, cfg, rc)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (width, call)
+            for k in eager_cache:
+                assert torch.equal(graph_cache[k], eager_cache[k]), (
+                    width, call, k)
+        assert prog.graph is not None and prog.replays == 2
+
+
+def test_replays_add_the_captured_launches(card):
+    """The warm-up launches k kernels; the capture adds none to the
+    counters; each of N replays adds k."""
+    from repro_torch.kernels import launch_counters
+    cfg = get_reduced("olmoe-1b-7b")
+    rc = RunConfig(dtype="bfloat16", param_dtype="bfloat16", remat=False)
+    params = prepare_params(init_model_params(0, cfg, device="cuda"), cfg,
+                            rc)
+    cache = init_cache(cfg, 4, 32, rc.dtype, device="cuda")
+    prog = _program(prefill_step, params, cache, cfg, rc, 4, 4)
+    counters = launch_counters()
+    for c in counters.values():
+        c.launches = 0
+    toks = np.ones((4, 4), np.int64)
+    n = np.array([4, 2, 0, 1], np.int32)
+    prog(tokens=toks, n_tokens=n)                # warm-up, then capture
+    eager = {k: c.launches for k, c in counters.items() if c.launches}
+    assert eager["queue_matmul"] > 0 and eager["moe_gemm"] > 0
+    assert prog.per_replay == eager
+    for _ in range(5):
+        prog(tokens=toks, n_tokens=n)
+    torch.cuda.synchronize()
+    assert {k: c.launches for k, c in counters.items() if c.launches} == {
+        k: 6 * v for k, v in eager.items()}
+
+
+def test_engine_graphs_launch_the_calibrated_depths(card, monkeypatch,
+                                                    isolated_calibration):
+    """An engine built under the calibrated table of ``chip_smoke.py``'s
+    phase 4b (the port's smoke calibration: COPIFTv2 at ring depth 2)
+    captures its steps with every ``queue_matmul`` at depths (2, 2), and
+    its counters count each replay's launches."""
+    from repro_torch.core import calibrate, clear_policy_table_cache
+    from repro_torch.kernels import launch_counters
+    calibrate(workers=1, out_dir=str(isolated_calibration),
+              kernels=["dequant_dot", "expf"],
+              grid_kw=dict(queue_depths=(1, 2), queue_latencies=(1,),
+                           unrolls=(4, 8), n_samples=16))
+    clear_policy_table_cache()
+    assert qm_ops.operating_point().effective_depths() == (2, 2)
+    launch, captured = qm_ops._launch, {}
+
+    def recording(x, w, depth_x, depth_w):
+        if torch.cuda.is_current_stream_capturing():
+            captured[(depth_x, depth_w)] = captured.get(
+                (depth_x, depth_w), 0) + 1
+        return launch(x, w, depth_x, depth_w)
+
+    monkeypatch.setattr(qm_ops, "_launch", recording)
+    cfg = get_reduced("phi3-mini-3.8b")
+    rc = RunConfig(dtype="bfloat16", param_dtype="bfloat16", remat=False)
+    eng = ServeEngine(init_model_params(0, cfg, device="cuda"), cfg, rc,
+                      batch_slots=2, max_len=64, prefill_chunk=4)
+    counters = launch_counters()
+    for c in counters.values():
+        c.launches = 0
+    for i in range(3):
+        eng.submit([1 + i, 5, 9, 2, 7, 3], max_new=4)
+    eng.run()
+    progs = eng.programs()
+    assert eng.program_kind == "cuda_graph"
+    assert set(captured) == {(2, 2)}
+    graphs = [p for p in progs.values() if p["captured"]]
+    assert graphs and all(p["kind"] == "cuda_graph" for p in graphs)
+    assert captured[(2, 2)] == sum(p["launches_per_replay"]["queue_matmul"]
+                                   for p in graphs)
+    eager = sum(p["launches_per_replay"]["queue_matmul"]
+                for p in graphs)   # each captured program ran once eagerly
+    assert queue_matmul.launches == eager + sum(
+        p["replays"] * p["launches_per_replay"]["queue_matmul"]
+        for p in graphs)
+
+
+def test_a_host_read_fails_the_capture(card):
+    """A step that reads a tensor back to the host runs eagerly, then its
+    capture raises; the card still works after."""
+    from repro_torch.serve.graphs import CapturedStep
+    prog = CapturedStep(lambda b: b["tokens"] * int(b["tokens"].sum()),
+                        {"tokens": ((2, 1), torch.int64)},
+                        torch.device("cuda"))
+    with pytest.raises(RuntimeError):
+        prog(tokens=np.ones((2, 1), np.int64))
+    torch.cuda.synchronize()
+    assert prog.graph is None
+    assert float(torch.ones(3, device="cuda").sum()) == 3.0

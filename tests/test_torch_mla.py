@@ -97,7 +97,7 @@ def test_mla_decode_matches_reference_with_the_clamped_write(lengths):
 
 
 def test_mla_decode_writes_the_given_rows_only():
-    """``rows`` (the chunked prefill's active slots): the other slots'
+    """``active`` (the chunked prefill's mask of slots): the other slots'
     cache rows keep their bits, the given slots' rows equal a write of
     every slot."""
     cfg, _, pt = _layer0()
@@ -110,7 +110,7 @@ def test_mla_decode_writes_the_given_rows_only():
     some = [torch.from_numpy(lat.copy()), torch.from_numpy(rope.copy())]
     tattn.mla_decode(pt, x, get_reduced(ARCH), *full, n)
     tattn.mla_decode(pt, x, get_reduced(ARCH), *some, n,
-                     rows=torch.tensor([0, 2]))
+                     active=torch.tensor([True, False, True]))
     for a, b, orig in zip(full, some, (lat, rope)):
         assert torch.equal(a[[0, 2]], b[[0, 2]])
         assert np.array_equal(b[1].numpy(), orig[1])
