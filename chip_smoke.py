@@ -7,9 +7,10 @@
 Phases, each of which raises on failure (the run then exits non-zero and
 prints no result):
 
-1. build   — compile the seven CUDA sources in the checkout (the five
-   kernels, ``flash_attention_bwd`` and ``ssm_scan_bwd``), one ``nvcc``
-   each, all at once.
+1. build   — compile the nine CUDA sources in the checkout (the five
+   kernels, ``flash_attention_bwd``, ``ssm_scan_bwd`` and the serve
+   bodies' ``rms_norm`` and ``decode_attention``), one ``nvcc`` each, all
+   at once.
 2. kernels — each kernel against its plain PyTorch version on the card at
    the serve paths' shapes, with its device time (``cuda_ms``), its bound
    and the time of one library call that computes the same function where
@@ -44,7 +45,14 @@ prints no result):
    and heads (8 x 64 tokens, 4 of 16), train_lm 100m's products (fp32, M =
    4096) and heads (8 x 512 tokens, 8 over 4 of 64), the prefill cell's
    decode products (phi3 over 2 slots, bf16) and serve_batch's (glm4-9b
-   over 3 slots, bf16).
+   over 3 slots, bf16).  Then the batched chunk bodies' layer products
+   row by row (``CHUNK_ROWS``: 32 rows in slabs of 4 slots for phi3,
+   pixtral and nemotron, glm4-9b's 24 in slabs of 3, reduced phi3's 32 in
+   fp32), every slab's rows equal to a call over the slab alone; the
+   row-wise ``rms_norm`` (``NORM_CASES``) and ``decode_attention``
+   (``ATTN_CASES``: decode bodies and chunks over the served models'
+   heads) against their plain versions, each row or column equal to
+   itself computed alone, beside ``F.rms_norm`` and masked SDPA.
 3. parity  — phi3-mini-3.8b, olmoe-1b-7b, falcon-mamba-7b, minicpm3-4b,
    pixtral-12b (with 256 patch rows, over 512 positions) and
    hubert-xlarge (on frames) at full width, depth cut to 2 layers, and
@@ -84,7 +92,9 @@ prints no result):
    and kernel time by kernel, the device's idle share of each, and for
    olmoe the experts each layer's mask keeps; and of the widest chunk
    program replayed with every count 0 (the cache must stay unchanged),
-   a column's wall and kernels.
+   its wall, kernels and kernel time a chunk and a prompt token (one
+   batched body for phi3, pixtral and nemotron, a decode body a column
+   for the others).
 4b. policy — the serve path on a calibrated operating point: the port's
    machine model calibrates a smoke grid on the host (``POLICY_CALIBRATION``,
    in-process), ``REPRO_CALIBRATION_DIR`` points at the artifacts, and the
@@ -122,11 +132,12 @@ prints no result):
    must improve); the live chunked-prefill cell
    ``serve_slo.run_prefill(PREFILL_CARD)`` (full-width phi3-mini-3.8b in
    bf16, ``PREFILL_TRIALS`` trials) with its hard gates (equal tokens and
-   cache rows, the cycles-domain TTFT gain, the chunk-program bound) and
-   its wall-clock gain printed beside the reference's bar, then the
-   reference's own cells ``PREFILL_SMOKE`` and ``PREFILL_FULL`` (reduced
-   phi3, fp32) on the card, the same gates and the wall gain printed
-   beside their bars (1.2, 2.0); the bars are recorded, not enforced; then ``kernel_bench`` at the reference's shapes and
+   cache rows, the cycles-domain TTFT gain, the chunk-program bound, the
+   wall-clock gain at the reference's bar of 2.0), then the reference's
+   own cells ``PREFILL_SMOKE`` and ``PREFILL_FULL`` (reduced phi3, fp32)
+   on the card, the same gates at their wall bars (1.2, 2.0); a miss
+   fails the run; then
+   ``kernel_bench`` at the reference's shapes and
    ``--shapes main`` (``queue_matmul``'s depths over rounds, their bits
    equal) and ``collective_policy`` on one NCCL rank in its child process;
    then, in a child of its own (``HOST_STEP``), the reference's ten host
@@ -284,6 +295,22 @@ PATH_KERNELS = {"dense": ("queue_matmul", "flash_attention"),
                 "hybrid": ("queue_matmul", "flash_attention", "rglru_scan"),
                 "vlm": ("queue_matmul", "flash_attention"),
                 "audio": ("queue_matmul", "flash_attention")}
+#: the kernels the decode and chunk bodies of a family that batches a
+#: chunk's columns add to its path (``models.model.batches_columns``)
+COLUMN_KERNELS = ("rms_norm", "decode_attention")
+
+
+def path_kernels(cfg) -> tuple:
+    """The kernels ``cfg``'s serve path runs: its family's, the batched
+    bodies' norm and attention, and for the other families with GQA layers
+    (MoE, hybrid) the decode attention."""
+    from repro_torch.models.model import batches_columns
+    if batches_columns(cfg):
+        return PATH_KERNELS[cfg.family] + COLUMN_KERNELS
+    gqa = cfg.family in ("moe", "hybrid")
+    return PATH_KERNELS[cfg.family] + (("decode_attention",) if gqa else ())
+
+
 #: the forward and backward launches each family's training path makes
 #: (``moe_gemm_bwd`` counts backward calls through its forward kernel;
 #: ``rglru_scan_bwd`` is a kernel of its own in its forward's source)
@@ -309,6 +336,15 @@ WHERE = {
                  "src/repro/kernels/ssm_scan/kernel.py:45"),
     "rglru_scan": ("src/repro_torch/kernels/rglru_scan/csrc/rglru_scan.cu",
                    "src/repro/kernels/rglru_scan/kernel.py:33"),
+    # no Pallas kernel: the JAX package norms in jnp (XLA fuses it); the
+    # port's serve bodies need a norm whose row bits ignore the row count
+    "rms_norm": ("src/repro_torch/kernels/rms_norm/csrc/rms_norm.cu",
+                 "src/repro/models/layers.py:67"),
+    # no Pallas kernel: the JAX package's decode attention is jnp; the
+    # port's serve bodies need one whose query bits ignore the row count
+    "decode_attention": ("src/repro_torch/kernels/decode_attention/csrc/"
+                         "decode_attention.cu",
+                         "src/repro/models/attention.py:137"),
     # no Pallas kernel: the JAX train path differentiates the plain
     # blocked attention with XLA's autodiff
     "flash_attention_bwd": ("src/repro_torch/kernels/flash_attention/csrc/"
@@ -562,6 +598,19 @@ def entry_paths():
              None)]
 
 
+#: (model, rows, slab, dtype) of the batched chunk bodies' products:
+#: phase 4's chunks of 8 over 4 slots, serve_batch's over 3 (glm4-9b), the
+#: prefill cells' of 16 over 2 (full width in bf16, reduced in fp32), each
+#: row by row in slabs of the slots
+CHUNK_ROWS = (("phi3-mini-3.8b", False, 32, 4, torch.bfloat16),
+              ("pixtral-12b", False, 32, 4, torch.bfloat16),
+              ("nemotron-4-340b", False, 32, 4, torch.bfloat16),
+              ("glm4-9b", False, 24, 3, torch.bfloat16),
+              ("phi3-mini-3.8b", True, 32, 2, torch.float32))
+#: the generator offset of those products' inputs (see ``OWN_DRAWS``)
+CHUNK_DRAW = 29
+
+
 #: ring depth pairs every queue_matmul case must give the same bits at
 QM_DEPTHS = ((1, 1), (2, 2), (4, 4), (2, 4), (8, 8), (1, 8))
 
@@ -582,13 +631,14 @@ def check_queue_matmul(gen, report) -> dict:
     log("[kernels] queue_matmul  model product  M     K     N    dtype  "
         "max_abs_err  ms  plain_ms  library_ms  bound_ms")
 
-    def one(model, label, name, m, k, n, dtype, g) -> dict:
+    def one(model, label, name, m, k, n, dtype, g, slab=None) -> dict:
         x = torch.randn((m, k), generator=g, device="cuda").to(dtype)
         # scaled in place: nemotron's head is 18.9 GB in fp32
         w = torch.randn((k, n), generator=g, device="cuda").div_(
             math.sqrt(k)).to(dtype)
         ref = matmul_ref(x, w).to(dtype)
-        outs = {d: ops.queue_matmul(x, w, depth_x=d[0], depth_w=d[1])
+        outs = {d: ops.queue_matmul(x, w, depth_x=d[0], depth_w=d[1],
+                                    slab=slab)
                 for d in QM_DEPTHS}
         torch.cuda.synchronize()
         base = outs[(1, 1)]
@@ -597,6 +647,16 @@ def check_queue_matmul(gen, report) -> dict:
                 raise AssertionError(
                     f"queue_matmul depths {d} differ from depth 1 at "
                     f"{model} {name} M={m} K={k} N={n} {dtype}")
+        if slab is not None:
+            # a chunk's rows: each slab's bits are the decode body's
+            for i in range(0, m, slab):
+                if not torch.equal(ops.queue_matmul(x[i:i + slab], w,
+                                                    slab=slab),
+                                   base[i:i + slab]):
+                    raise AssertionError(
+                        f"queue_matmul row by row: rows {i}-{i + slab} of "
+                        f"{m} differ from their slab alone at {model} "
+                        f"{name} K={k} N={n} {dtype}")
         err = within(base, ref, TOL[dtype])
         del outs, ref
         copies = max(2, math.ceil(100e6 / (w.numel() * w.element_size())))
@@ -604,9 +664,11 @@ def check_queue_matmul(gen, report) -> dict:
                            for _ in range(copies - 1)]
         make = cycling(args)
         n_it = 3 if 2.0 * m * n * k > 1e12 else 20
-        ms = cuda_ms(make(lambda a, b: ops.queue_matmul(a, b)), n_it)
-        wall = wall_ms(make(lambda a, b: ops.queue_matmul(a, b)), n_it)
-        host = host_ms(make(lambda a, b: ops.queue_matmul(a, b)),
+        ms = cuda_ms(make(lambda a, b: ops.queue_matmul(a, b, slab=slab)),
+                     n_it)
+        wall = wall_ms(make(lambda a, b: ops.queue_matmul(a, b, slab=slab)),
+                       n_it)
+        host = host_ms(make(lambda a, b: ops.queue_matmul(a, b, slab=slab)),
                        5 * n_it)
         plain = cuda_ms(make(lambda a, b: matmul_ref(a, b).to(a.dtype)),
                         n_it)
@@ -616,18 +678,22 @@ def check_queue_matmul(gen, report) -> dict:
                            dtype)
         del args, make, w, base       # before the next draw: heads are GBs
         # the kernel this M takes (older trees have one kernel)
-        kind = (ops.regime(m, dtype) if hasattr(ops, "regime")
-                else "ring")
+        kind = (ops.regime(m, dtype, slab is not None)
+                if hasattr(ops, "regime") else "ring")
         log(f"[kernels] queue_matmul {label:>6s} "
             f"{name:>8s} {m:4d} {k:5d} {n:5d} {str(dtype)[6:]:>8s} "
             f"{err:10.3e} {ms:8.4f} {plain:8.4f} {lib:8.4f} {b_ms:8.4f} "
             f"({b_by}; {kind}"
             + (f", split {ops.split_k(k, n)}" if kind == "thin" else "")
+            + (f", row by row in slabs of {slab}"
+               + (f", {ops.thin_tiles(m, 4, 4)} tiles a block"
+                  if kind == "thin" else "")
+               if slab is not None else "")
             + f"; {2.0 * m * n * k / ms / 1e9:.1f} TFLOP/s, "
             f"{(m * k + k * n + m * n) * x.element_size() / ms / 1e6:.0f}"
             f" GB/s; wall {wall:.4f}, host {host:.4f})")
         row = {"model": model, "product": name, "M": m, "K": k, "N": n,
-               "dtype": str(dtype)[6:], "regime": kind,
+               "dtype": str(dtype)[6:], "regime": kind, "slab": slab,
                "max_abs_err": err, "ms": ms, "wall_ms": wall,
                "host_ms": host,
                "plain_ms": plain, "library_ms": lib, "bound_ms": b_ms,
@@ -668,6 +734,17 @@ def check_queue_matmul(gen, report) -> dict:
                 seen.add((m, k, n, dtype))
                 one(cfg.name, path.split()[0], name, m, k, n, dtype, g)
             free_card()
+    # a chunk's batched body (its head runs on the slots' rows only, as
+    # decode's): each layer product row by row, from a generator of its
+    # own, at CHUNK_ROWS
+    from repro_torch.configs import get_config, get_reduced
+    g = torch.Generator(device="cuda").manual_seed(SEED + CHUNK_DRAW)
+    for arch, reduced, m, slab, dtype in CHUNK_ROWS:
+        cfg = (get_reduced if reduced else get_config)(arch)
+        for name, k, n, dtypes in matmul_shapes(cfg):
+            if name != "head" and dtype in dtypes:
+                one(cfg.name, "chunk", name, m, k, n, dtype, g, slab)
+        free_card()
     return rep
 
 
@@ -1721,12 +1798,14 @@ def profile_train_step(step, params, opt, batch, wall: float,
         log(f"[profile]   {v:9.3f} ms  {k[:160]}")
 
 
-#: the kernel-name groups of a training step's profile, each matched as a
-#: substring of the CUDA kernel's name in this order (the reverse walk of
-#: ``rglru_scan`` is ``rglru_scan_bwd_kernel``)
+#: the kernel-name groups of a training step's profile, one for every
+#: kernel of the port, each matched as a substring of the CUDA kernel's name
+#: in this order (the reverse walk of ``rglru_scan`` is
+#: ``rglru_scan_bwd_kernel``)
 PROFILE_GROUPS = ("flash_attention_bwd", "flash_attention", "queue_matmul",
                   "moe_gemm", "ssm_scan_bwd", "ssm_scan",
-                  "rglru_scan_bwd_kernel", "rglru_scan")
+                  "rglru_scan_bwd_kernel", "rglru_scan", "rms_norm",
+                  "decode_attention")
 
 
 def routed_mask(gen, tokens: int, experts: int, k: int) -> torch.Tensor:
@@ -1932,6 +2011,143 @@ def check_rglru_scan(gen, report) -> dict:
                "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
         report.append({"kernel": "rglru_scan", **row})
         if (b, t, dtype) == (1, 512, torch.float32):   # the model's inputs
+            rep = row
+    return rep
+
+
+#: (model, rows, d, dtype, gamma's dtype) of phase 2's ``rms_norm`` cases:
+#: the norms of the serve path's decode bodies (B rows) and chunks (B x C
+#: rows) at phase 4's 4 slots and chunk 8, the final norm's fp32 gamma,
+#: serve_batch's 3 slots (glm4-9b) and the reduced prefill cells' 2 x 16
+#: rows in fp32
+NORM_CASES = (("phi3", 4, 3072, torch.bfloat16, torch.bfloat16),
+              ("phi3", 32, 3072, torch.bfloat16, torch.bfloat16),
+              ("phi3 final", 4, 3072, torch.bfloat16, torch.float32),
+              ("pixtral", 32, 5120, torch.bfloat16, torch.bfloat16),
+              ("nemotron", 4, 18432, torch.bfloat16, torch.bfloat16),
+              ("nemotron", 32, 18432, torch.bfloat16, torch.bfloat16),
+              ("glm4", 24, 4096, torch.bfloat16, torch.bfloat16),
+              ("phi3-smoke", 32, 64, torch.float32, torch.float32))
+
+
+def check_rms_norm(gen, report) -> dict:
+    """The row-wise norm of the decode and chunk bodies at ``NORM_CASES``
+    against its plain version (the model's norm), every row's bits equal
+    to that row normed alone; beside ``F.rms_norm`` with the weight
+    ``1 + gamma`` made beforehand (one library call, the same function)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import rms_norm
+    from repro_torch.kernels.rms_norm.ref import rms_norm_ref
+    rep = None
+    log("[kernels] rms_norm  model  rows  d  dtype  gamma  max_abs_err  ms  "
+        "plain_ms  library_ms  bound_ms")
+    for model, rows, d, dtype, gdt in NORM_CASES:
+        x = (3 * torch.randn((rows, d), generator=gen, device="cuda")
+             ).to(dtype)
+        g = (0.1 * torch.randn((d,), generator=gen, device="cuda")).to(gdt)
+        out = rms_norm(x, g)
+        err = within(out, rms_norm_ref(x, g), TOL[dtype])
+        for i in (0, rows - 1):
+            if not torch.equal(rms_norm(x[i:i + 1], g), out[i:i + 1]):
+                raise AssertionError(f"rms_norm: row {i} of {rows} differs "
+                                     f"from the row alone at d={d} {dtype}")
+        ms = cuda_ms(lambda: rms_norm(x, g))
+        plain = cuda_ms(lambda: rms_norm_ref(x, g))
+        weight = (1.0 + g.float()).to(dtype)
+        lib = cuda_ms(lambda: F.rms_norm(x, (d,), weight, 1e-5))
+        # x read and y written, gamma read; a square, an add and two
+        # multiplies an element
+        b_ms, b_by = bound(4.0 * rows * d,
+                           2 * rows * d * x.element_size()
+                           + d * g.element_size(), torch.float32)
+        log(f"[kernels] rms_norm {model:>10s} {rows:3d} {d:5d} "
+            f"{str(dtype)[6:]:>8s} {str(gdt)[6:]:>8s} {err:10.3e} "
+            f"{ms:8.4f} {plain:8.4f} {lib:8.4f} {b_ms:8.4f} ({b_by}; rows "
+            f"equal alone)")
+        row = {"model": model, "rows": rows, "d": d, "dtype": str(dtype)[6:],
+               "gamma": str(gdt)[6:], "max_abs_err": err, "ms": ms,
+               "plain_ms": plain, "library_ms": lib, "bound_ms": b_ms,
+               "bound_by": b_by}
+        report.append({"kernel": "rms_norm", **row})
+        if (model, rows) == ("phi3", 32):
+            rep = row
+    return rep
+
+
+#: (model, slots B, columns C, query heads, K/V heads, cache rows T, head
+#: dim, dtype, the slots' lengths) of phase 2's ``decode_attention``
+#: cases: phase 4's decode bodies (C 1; olmoe's and recurrentgemma's too,
+#: whose chunks run a decode body a column) and chunks of 8 over 4 slots of
+#: 256 rows, the prefill cells' chunks of 16 over 2 slots of 80 rows (full
+#: width in bf16, reduced in fp32) and serve_batch's 3 slots of 128 rows
+ATTN_CASES = (
+    ("phi3", 4, 1, 32, 32, 256, 96, torch.bfloat16, (40, 17, 33, 8)),
+    ("phi3", 4, 8, 32, 32, 256, 96, torch.bfloat16, (24, 0, 9, 16)),
+    ("phi3 cell", 2, 16, 32, 32, 80, 96, torch.bfloat16, (48, 0)),
+    ("pixtral", 4, 8, 32, 8, 256, 128, torch.bfloat16, (24, 0, 9, 16)),
+    ("nemotron", 4, 8, 96, 8, 256, 192, torch.bfloat16, (24, 0, 9, 16)),
+    ("glm4", 3, 8, 32, 2, 128, 128, torch.bfloat16, (5, 0, 12)),
+    ("phi3-smoke", 2, 16, 4, 4, 80, 16, torch.float32, (48, 0)),
+    ("olmoe", 4, 1, 16, 16, 256, 128, torch.bfloat16, (40, 17, 33, 8)),
+    ("rgemma", 4, 1, 10, 1, 256, 256, torch.bfloat16, (40, 17, 33, 8)))
+
+
+def check_decode_attention(gen, report) -> dict:
+    """The decode and chunk bodies' attention at ``ATTN_CASES`` (query
+    (c, b) sees rows [0, len[b] + c + 1)) against its plain version, every
+    column's queries equal bit for bit to the column alone (a decode
+    step's call); beside SDPA with a boolean mask over the GQA heads (one
+    library call, the same function)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention
+    from repro_torch.kernels.decode_attention.ref import (
+        decode_attention_rows_ref)
+    rep = None
+    log("[kernels] decode_attention  model  B  C  Hq/Hkv  T  D  dtype  "
+        "max_abs_err  ms  plain_ms  library_ms  bound_ms")
+    for model, b, c, hq, hkv, t, d, dtype, lens in ATTN_CASES:
+        def rnd(*shape):
+            return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        q, k, v = rnd(c, b, hq, d), rnd(b, hkv, t, d), rnd(b, hkv, t, d)
+        valid = (torch.tensor(lens, device="cuda")[None] + 1
+                 + torch.arange(c, device="cuda")[:, None]).clamp(max=t)
+        valid = valid.to(torch.int32)
+        out = decode_attention(q, k, v, valid)
+        err = within(out, decode_attention_rows_ref(q, k, v, valid),
+                     TOL[dtype])
+        for j in range(c):
+            if not torch.equal(decode_attention(q[j:j + 1], k, v,
+                                                valid[j:j + 1]),
+                               out[j:j + 1]):
+                raise AssertionError(f"decode_attention: column {j} of {c} "
+                                     f"differs from the column alone "
+                                     f"({model} {dtype})")
+        ms = cuda_ms(lambda: decode_attention(q, k, v, valid))
+        plain = cuda_ms(lambda: decode_attention_rows_ref(q, k, v, valid),
+                        iters=5)
+        qs = q.permute(1, 2, 0, 3)                      # (B, Hq, C, D)
+        mask = (torch.arange(t, device="cuda")[None, None]
+                < valid.t()[:, :, None])[:, None]       # (B, 1, C, T)
+        lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qs, k, v, attn_mask=mask, enable_gqa=True))
+        # each query: its visible rows' scores and weighted sum; each slot's
+        # K/V rows up to its longest column's length read once
+        seen = valid.long().sum().item()
+        flops = 4.0 * seen * d * (hq // hkv) * hkv
+        rows = valid.long().max(dim=0).values.sum().item()
+        es = q.element_size()
+        nbytes = 2 * q.numel() * es + 2 * rows * hkv * d * es + valid.numel() * 4
+        b_ms, b_by = bound(flops, nbytes, torch.float32)
+        log(f"[kernels] decode_attention {model:>10s} {b:2d} {c:3d} "
+            f"{hq:3d}/{hkv:<3d} {t:4d} {d:4d} {str(dtype)[6:]:>8s} "
+            f"{err:10.3e} {ms:8.4f} {plain:8.4f} {lib:8.4f} {b_ms:8.4f} "
+            f"({b_by}; columns equal alone)")
+        row = {"model": model, "B": b, "C": c, "Hq": hq, "Hkv": hkv, "T": t,
+               "D": d, "dtype": str(dtype)[6:], "max_abs_err": err, "ms": ms,
+               "plain_ms": plain, "library_ms": lib, "bound_ms": b_ms,
+               "bound_by": b_by}
+        report.append({"kernel": "decode_attention", **row})
+        if (model, c) == ("phi3", 8):
             rep = row
     return rep
 
@@ -2331,7 +2547,7 @@ def phase_serve(arch: str) -> dict:
     log(f"[serve] {arch} forward B=1 S=512: {fwd_s:.3f} s wall; launches "
         f"{ {k: c.launches - before[k] for k, c in counters.items()} }")
     counts = {k: c.launches for k, c in counters.items()}
-    for name in PATH_KERNELS[cfg.family]:
+    for name in path_kernels(cfg):
         if counts[name] <= 0:
             raise AssertionError(f"{name} never launched on {arch}'s main "
                                  f"path")
@@ -2518,8 +2734,12 @@ def profile_decode(eng, arch: str, n: int = 5) -> None:
 
 def profile_chunk(eng, arch: str, n: int) -> None:
     """The engine's widest chunk program replayed with every count 0 (a
-    no-op on the cache by construction): wall and kernel time a column,
-    beside a decode body's, and its largest kernels."""
+    no-op on the cache by construction; a count changes which rows are
+    kept, not the work): wall, kernels and kernel time a chunk and a
+    prompt token of a full chunk (slots x width of them), and its largest
+    kernels.  A family that batches a chunk's columns runs one body over
+    the chunk's rows; the others one decode body a column."""
+    from repro_torch.models.model import batches_columns
     if not eng._prefill_fns:
         return
     width = max(eng._prefill_fns)
@@ -2534,12 +2754,16 @@ def profile_chunk(eng, arch: str, n: int) -> None:
         if not torch.equal(v, before[k]):
             raise AssertionError(f"{arch}: a chunk of zero counts changed "
                                  f"the cache leaf {k}")
-    busy = sum(dev.values())
+    busy, per = sum(dev.values()), slots * width
+    body = ("one batched body" if batches_columns(eng.cfg)
+            else "a decode body a column")
     log(f"[profile] {arch} replayed chunk of width {width} ({slots} slots, "
-        f"counts 0, the cache unchanged): {wall / width:.2f} ms wall and "
-        f"{busy / width:.2f} ms in {kernels / width:.0f} kernels a column")
+        f"{body}; counts 0, the cache unchanged): a chunk {wall:.2f} ms "
+        f"wall, {busy:.2f} ms in {kernels:.0f} kernels; a prompt token "
+        f"{wall / per:.3f} ms wall, {busy / per:.3f} ms in "
+        f"{kernels / per:.1f} kernels")
     for k, v in sorted(dev.items(), key=lambda kv: -kv[1])[:8]:
-        log(f"[profile]   {v / width:8.3f} ms a column  {k[:90]}")
+        log(f"[profile]   {v:8.3f} ms a chunk  {k[:90]}")
 
 
 # ---------------------------------------------------------------------------
@@ -2634,11 +2858,11 @@ def phase_policy(smi: str) -> dict:
     depths = {}
     captured = {}
 
-    def recording_launch(x, w, depth_x, depth_w):
+    def recording_launch(x, w, depth_x, depth_w, **kw):
         into = (captured if torch.cuda.is_current_stream_capturing()
                 else depths)
         into[(depth_x, depth_w)] = into.get((depth_x, depth_w), 0) + 1
-        return launch(x, w, depth_x, depth_w)
+        return launch(x, w, depth_x, depth_w, **kw)
 
     try:
         # (a) calibrate on the host
@@ -2968,7 +3192,7 @@ def entry_serve_batch(counters, smi: str) -> dict:
                              f"{counters['flash_attention'].launches - fa} "
                              f"times, want {cfg.n_layers}")
     del logits
-    counts = _read(counters, PATH_KERNELS[cfg.family], ENTRY_ARCH)
+    counts = _read(counters, path_kernels(cfg), ENTRY_ARCH)
     log(f"[entry] {ENTRY_ARCH} forward B=1 S=512 ({cfg.n_heads}/"
         f"{cfg.n_kv_heads} heads of {cfg.resolved_head_dim}): {fwd_s:.3f} s "
         f"wall; launches on the main path {counts}; peak memory "
@@ -3041,7 +3265,8 @@ def _prefill_cell(counters, cfg, out_path: str, min_wall_gain: float,
     t0 = time.time()
     serve_slo.run_prefill(dict(cfg), out_path=out_path,
                           min_wall_gain=min_wall_gain, device="cuda")
-    counts = _read(counters, ("queue_matmul",), f"the prefill cell {what}")
+    counts = _read(counters, ("queue_matmul",) + COLUMN_KERNELS,
+                   f"the prefill cell {what}")
     with open(out_path) as f:
         rep = json.load(f)
     head, ttft, c = rep["headline"], rep["ttft"], rep["config"]
@@ -3066,7 +3291,7 @@ def _prefill_cell(counters, cfg, out_path: str, min_wall_gain: float,
         f"{ttft['wall_s_chunked']} and {ttft['wall_s_token']}); "
         f"ttft_wall_gain {head['ttft_wall_gain']:.4f}, min_required "
         f"{head['min_required']}, meets_wall_bar {head['meets_wall_bar']} "
-        f"(recorded, not enforced); {smi}")
+        f"(enforced); {smi}")
     free_card()
     return counts
 
@@ -3074,10 +3299,10 @@ def _prefill_cell(counters, cfg, out_path: str, min_wall_gain: float,
 def entry_prefill(counters, smi: str) -> dict:
     """The prefill cells on the card, each its own main path:
     ``PREFILL_CARD`` at ``PREFILL_TRIALS`` trials (full-width
-    phi3-mini-3.8b in bf16: its hard gates, the wall gain recorded beside
-    the reference's bar), then the reference's own ``PREFILL_SMOKE`` and
-    ``PREFILL_FULL`` (reduced phi3, fp32; their bars of 1.2 and 2.0
-    recorded).  Returns their launches by kernel."""
+    phi3-mini-3.8b in bf16: its hard gates and the reference's wall bar of
+    2.0), then the reference's own ``PREFILL_SMOKE`` and ``PREFILL_FULL``
+    (reduced phi3, fp32; their bars of 1.2 and 2.0).  A cell that misses
+    its bar fails the run.  Returns their launches by kernel."""
     from repro_torch.benchmarks import serve_slo
     launches = {}
     for cfg, path, bar, what in (
@@ -3199,7 +3424,10 @@ def main() -> int:
                    ("flash_attention", check_flash_attention(gen, report)),
                    ("moe_gemm", check_moe_gemm(gen, report)),
                    ("ssm_scan", check_ssm_scan(gen, report)),
-                   ("rglru_scan", check_rglru_scan(gen, report))]
+                   ("rglru_scan", check_rglru_scan(gen, report)),
+                   ("rms_norm", check_rms_norm(gen, report)),
+                   ("decode_attention",
+                    check_decode_attention(gen, report))]
         free_card()
         lap("phase kernels")
     if "parity" in phases:

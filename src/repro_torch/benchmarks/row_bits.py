@@ -1,0 +1,170 @@
+"""Which ops of a decode body give a row other bits when they run over more
+rows: each candidate op over a chunk's B x C rows against the same op over
+each column's B rows alone, on the card, at phi3-mini-3.8b's full widths.
+
+A chunk of C columns can run as one batched body (``models.model``'s
+``prefill_step``) and keep token prefill's bits only if every op it runs
+gives a row the bits that the decode body, over B rows, gives it.  This
+reports, for every candidate, whether the rows are bit-equal and the
+largest difference where they are not: the products in each regime of
+``queue_matmul`` and run row by row (``slab``), the norm and decode
+attention in their plain PyTorch form and as the port's kernels, RoPE, the
+embedding gather and the FFN's elementwise ops.
+
+  PYTHONPATH=src python -m repro_torch.benchmarks.row_bits [--out PATH]
+
+On the card unless ``--device cpu``; prints one JSON object a
+candidate, then the device's name.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+from typing import Callable, Dict, List
+
+import torch
+import torch.nn.functional as F
+
+from ..device import resolve_device
+
+#: phi3-mini-3.8b's decode widths: d, heads of 96 (as many K/V heads), vocab
+D, HEADS, HD, VOCAB = 3072, 32, 96, 32064
+#: what a chunk's batched body runs, each of which must keep a row's bits
+BODY_OPS = ("queue_matmul row by row", "rms_norm (kernel)", "apply_rope",
+            "silu(a) * b, residual add", "relu(a)^2, gelu(a)",
+            "embedding gather", "decode_attention (kernel)")
+#: a chunk: B slots of C columns, a cache of T positions
+B, C, T = 4, 8, 256
+
+
+def _rows_equal(name: str, dtype: torch.dtype,
+                op: Callable[[slice], torch.Tensor], rows: int,
+                slab: int) -> Dict[str, object]:
+    """``op`` over rows ``[0, rows)`` at once against ``op`` over each
+    ``slab`` of them alone (``op`` takes the rows as a slice)."""
+    full = op(slice(0, rows))
+    parts = torch.cat([op(slice(i, i + slab)) for i in range(0, rows,
+                                                             slab)])
+    diff = (full.float() - parts.float()).abs().max().item()
+    return {"op": name, "dtype": str(dtype).replace("torch.", ""),
+            "rows": rows, "slab": slab,
+            "bit_equal": bool(torch.equal(full, parts)), "max_abs": diff}
+
+
+def _attention_batched(q, k, v, valid):
+    """``decode_attention_ref``'s arithmetic over C queries a slot at once:
+    q (B, H, C, D), valid (B, C)."""
+    from ..device import upcast
+    from ..kernels.decode_attention.ref import NEG_INF
+    scale = 1.0 / q.shape[-1] ** 0.5
+    s = torch.einsum("bhcd,bhtd->bhct", upcast(q), upcast(k)) * scale
+    pos = torch.arange(k.shape[2], device=q.device)
+    mask = pos[None, None] < valid[:, :, None]
+    s = torch.where(mask[:, None], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhct,bhtd->bhcd", p, upcast(v)).to(v.dtype)
+
+
+def candidates(device: torch.device, seed: int = 0,
+               dtypes=(torch.float32, torch.bfloat16)
+               ) -> List[Dict[str, object]]:
+    """Every candidate op at B x C rows against B rows, in each of
+    ``dtypes``."""
+    from ..kernels import decode_attention, queue_matmul
+    from ..kernels import rms_norm as rms_norm_kernel
+    from ..kernels.decode_attention.ref import decode_attention_ref
+    from ..models.layers import apply_rope, rms_norm, rope_angles
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+
+    out = []
+    for dtype in dtypes:
+        w = (randn(D, D) / D ** 0.5).to(dtype)
+        x = randn(B * C, D).to(dtype)
+        # the products: thin (bf16, M <= 16) within 16 rows, and the
+        # regime B x C rows take (wide in bf16) against the slabs' (thin)
+        n = B * C
+        out.append(_rows_equal("queue_matmul, 16 rows against 4", dtype,
+                               lambda r: queue_matmul(x[r], w), 16, B))
+        out.append(_rows_equal("queue_matmul, 32 rows against 4", dtype,
+                               lambda r: queue_matmul(x[r], w), n, B))
+        xx = randn(4 * n, D).to(dtype)
+        for rows in (n, 4 * n):
+            out.append(_rows_equal(
+                f"queue_matmul row by row (slab {B}), {rows} rows against "
+                f"{B}", dtype, lambda r: queue_matmul(xx[r], w, slab=B),
+                rows, B))
+        gamma = (0.1 * randn(D)).to(dtype)
+        out.append(_rows_equal("rms_norm (plain)", dtype,
+                               lambda r: rms_norm(x[r], gamma), n, B))
+        out.append(_rows_equal("rms_norm (kernel)", dtype,
+                               lambda r: rms_norm_kernel(x[r], gamma), n, B))
+        # RoPE at positions len + j, one row a (column, slot)
+        cos, sin = rope_angles(torch.arange(n, device=device) + 3, HD,
+                               10000.0)
+        qh = x.reshape(n, HEADS, HD)
+        out.append(_rows_equal(
+            "apply_rope", dtype,
+            lambda r: apply_rope(qh[r], cos[r, None], sin[r, None]), n, B))
+        out.append(_rows_equal("silu(a) * b, residual add", dtype,
+                               lambda r: F.silu(x[r]) * x[r] + x[r], n, B))
+        out.append(_rows_equal("relu(a)^2, gelu(a)", dtype,
+                               lambda r: torch.square(F.relu(x[r]))
+                               + F.gelu(x[r], approximate="tanh"), n, B))
+        table = randn(VOCAB, D).to(dtype)
+        toks = torch.randint(0, VOCAB, (n,), generator=gen, device=device)
+        out.append(_rows_equal("embedding gather", dtype,
+                               lambda r: table[toks[r]], n, B))
+        # decode attention: C queries a slot in one call against one
+        # column's queries (the decode body's call) at a time
+        kc, vc = randn(B, HEADS, T, HD).to(dtype), randn(B, HEADS, T,
+                                                         HD).to(dtype)
+        q = randn(B, HEADS, C, HD).to(dtype)
+        lens = torch.tensor([5, 17, 100, 200], device=device)
+        valid = lens[:, None] + torch.arange(C, device=device)[None] + 1
+        full = _attention_batched(q, kc, vc, valid)
+        cols = torch.stack([decode_attention_ref(
+            q[:, :, j:j + 1], kc, vc, valid[:, j])[:, :, 0]
+            for j in range(C)], dim=2)
+        out.append({"op": "decode_attention_ref, C queries against 1",
+                    "dtype": str(dtype).replace("torch.", ""),
+                    "rows": B * C, "slab": B,
+                    "bit_equal": bool(torch.equal(full, cols)),
+                    "max_abs": (full.float() - cols.float()).abs().max()
+                    .item()})
+        # the kernel, queries (C, B, H, D): column c's rows are slab c
+        qk = q.permute(2, 0, 1, 3).contiguous()
+        vk = valid.t().contiguous()
+        out.append(_rows_equal(
+            "decode_attention (kernel), C queries against 1", dtype,
+            lambda r: decode_attention(
+                qk[r.start // B:r.stop // B], kc, vc,
+                vk[r.start // B:r.stop // B]).reshape(-1, HEADS, HD),
+            n, B))
+    return out
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", default=None, help="also write the rows here")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the CUDA card; 'cpu' "
+                         "checks the plain versions there)")
+    args = ap.parse_args(argv)
+    dev = resolve_device(args.device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rows = candidates(dev)
+    for r in rows:
+        print(json.dumps(r))
+    name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+            else dev.type)
+    print(f"# {name}; torch {torch.__version__}")
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump({"device": name, "rows": rows}, f, indent=1)
+
+
+if __name__ == "__main__":
+    main()

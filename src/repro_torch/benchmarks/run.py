@@ -1,12 +1,10 @@
 """The port's benchmark entry point, the counterpart of the reference's
-``benchmarks/run.py``: its sections in its order and with its titles,
-except that the full prefill cell's title drops the ">=2x" wall-clock gate
-the port records but does not enforce, and the last three (kernels,
-collective policy, roofline) are the port's own and also run under
-``--smoke``, after the reference's eleven.  The machine-model and
-scheduler sections run on the host; the prefill cell, the kernels and the
-collective policy on the card unless ``--device cpu`` is given.  Prints
-``name,us_per_call,derived`` CSV.
+``benchmarks/run.py``: its sections in its order and with its titles; the
+last three (kernels, collective policy, roofline) are the port's own and
+also run under ``--smoke``, after the reference's eleven.  The
+machine-model and scheduler sections run on the host; the prefill cell,
+the kernels and the collective policy on the card unless ``--device cpu``
+is given.  Prints ``name,us_per_call,derived`` CSV.
 
   PYTHONPATH=src python -m repro_torch.benchmarks.run --smoke --device cpu
   PYTHONPATH=src python -m repro_torch.benchmarks.run
@@ -123,8 +121,8 @@ def main(argv: Optional[List[str]] = None) -> None:
         ("front diff (committed Pareto-front drift gate)", front_diff.main),
         ("serve SLO (continuous vs wave batching under trace-driven load)",
          serve_slo.main),
-        ("serve prefill (live chunked prefill vs token-by-token TTFT, "
-         "bit-exact)", on(serve_slo.prefill_main, dev)),
+        ("serve prefill (live chunked prefill >=2x TTFT gate, bit-exact)",
+         on(serve_slo.prefill_main, dev)),
     ] + device_sections)
 
 

@@ -168,9 +168,9 @@ __global__ void __launch_bounds__(kThreads)
     if (blockIdx.x == 0) store_zeros(oe, M, N, 0, kBM, n0, kBN, kThreads);
     return;
   }
-  gemm(x + static_cast<long long>(e) * x_stride_e,
-       w + static_cast<size_t>(e) * K * N, oe, M, N, K, depth, depth, split,
-       blockIdx.x, n0, smem);
+  gemm<1>(x + static_cast<long long>(e) * x_stride_e,
+          w + static_cast<size_t>(e) * K * N, oe, M, N, K, depth, depth,
+          split, blockIdx.x, n0, 0, smem);
 }
 
 cudaError_t launch(const void* x, const void* w, void* out,

@@ -31,7 +31,8 @@
 //    cluster's barrier each rank sums a share of the rows in rank order;
 //  * the tensor maps are encoded per call on the host (hopper.cuh).
 //
-// bf16, M <= 16 ("thin", decode over the slots): bound by the bytes of w
+// bf16, M <= 16 ("thin", decode over the slots; also any M the caller
+// asks to run row by row, the rows of a chunk): bound by the bytes of w
 // (3.35 TB/s), so w has to stream from every SM at once:
 //  * 64-column tiles, 128 deep, copied with 16-byte cp.async by all 128
 //    threads (no tensor map, so nothing is encoded per call), one mbarrier
@@ -42,7 +43,10 @@
 //    order, then the cluster sums its blocks' partials through distributed
 //    shared memory in rank order;
 //  * each warp multiplies its own k16 slices of every stage (mma.sync
-//    m16n8k16; w through ldmatrix.trans from XOR-swizzled rows).
+//    m16n8k16; w through ldmatrix.trans from XOR-swizzled rows);
+//  * above 16 rows a block takes up to four 16-row tiles, each w stage
+//    serving all of them (row groups in grid z), so a chunk's B x C rows
+//    read w once a group of 64 rows and not once a column.
 // No atomics in either kernel, so a result never depends on timing.  The
 // two bf16 kernels' bodies live in kernels/_csrc/wide_gemm.cuh (the ring)
 // and kernels/_csrc/thin_gemm.cuh (the whole block), which moe_gemm.cu
@@ -61,8 +65,10 @@
 // and a row does not depend on its neighbours.  The two bf16 kernels sum in
 // other orders (wgmma in one chain over each part; mma.sync in k16 slices
 // per warp and part), so a row's bf16 bits depend on the regime, i.e. on
-// whether M <= 16.  Chunked and token prefill both run decode bodies at M =
-// slots, so they stay bit-exact.
+// whether M <= 16, unless the caller runs the product row by row (rowwise),
+// which keeps every row on the thin kernel.  A chunk's batched body runs
+// its products so, and the decode body too, so chunked and token prefill
+// stay bit-exact.
 //
 // C interface: queue_matmul_launch(...) returns a cudaError_t.  Operands are
 // row-major and contiguous: x (M, K), w (K, N), out (M, N), with K and N
@@ -279,31 +285,63 @@ using ::thin::gemm;
 using ::thin::kBM;
 using ::thin::kBN;
 using ::thin::kMaxSplit;
+using ::thin::kMaxTiles;
 using ::thin::kThreads;
 using ::thin::smem_bytes;
 
+template <int G>
 __global__ void __launch_bounds__(kThreads)
     queue_matmul_thin(const bf16* __restrict__ x, const bf16* __restrict__ w,
                       bf16* __restrict__ out, int M, int N, int K,
                       int depth_x, int depth_w, int split) {
   extern __shared__ __align__(128) unsigned char smem[];
-  gemm(x, w, out, M, N, K, depth_x, depth_w, split, blockIdx.x,
-       blockIdx.y * kBN, smem);
+  gemm<G>(x, w, out, M, N, K, depth_x, depth_w, split, blockIdx.x,
+          blockIdx.y * kBN, blockIdx.z * G * kBM, smem);
+}
+
+// The 16-row tiles a block takes: every tile of M in one block up to
+// kMaxTiles (a power of two), fewer where the rings at these depths would
+// not fit; 0 when not even one tile's rings fit.  The bits do not depend
+// on it.
+int tiles(int M, int depth_x, int depth_w) {
+  const int need = (M + kBM - 1) / kBM;
+  int g = 1;
+  while (g < need && g < kMaxTiles) g *= 2;
+  while (g > 1 && smem_bytes(depth_x, depth_w, g) >
+                      static_cast<size_t>(kMaxSmem))
+    g /= 2;
+  return smem_bytes(depth_x, depth_w, g) <= static_cast<size_t>(kMaxSmem)
+             ? g : 0;
+}
+
+template <int G>
+cudaError_t launch_tiles(const void* x, const void* w, void* out, int M,
+                         int N, int K, int depth_x, int depth_w, int split,
+                         cudaStream_t stream) {
+  const size_t smem = smem_bytes(depth_x, depth_w, G);
+  cudaError_t err = allow_smem<queue_matmul_thin<G>>(smem);
+  if (err != cudaSuccess) return err;
+  const int groups = (M + G * kBM - 1) / (G * kBM);
+  return hopper::launch_in_cluster(
+      queue_matmul_thin<G>, dim3(split, (N + kBN - 1) / kBN, groups),
+      kThreads, smem, stream, split, static_cast<const bf16*>(x),
+      static_cast<const bf16*>(w), static_cast<bf16*>(out), M, N, K, depth_x,
+      depth_w, split);
 }
 
 cudaError_t launch(const void* x, const void* w, void* out, int M, int N,
                    int K, int depth_x, int depth_w, int split,
                    cudaStream_t stream) {
-  if (M > kBM || split < 1 || split > kMaxSplit) return cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(depth_x, depth_w);
-  if (smem > static_cast<size_t>(kMaxSmem)) return cudaErrorInvalidValue;
-  cudaError_t err = allow_smem<queue_matmul_thin>(smem);
-  if (err != cudaSuccess) return err;
-  return hopper::launch_in_cluster(
-      queue_matmul_thin, dim3(split, (N + kBN - 1) / kBN), kThreads, smem,
-      stream, split, static_cast<const bf16*>(x),
-      static_cast<const bf16*>(w), static_cast<bf16*>(out), M, N, K, depth_x,
-      depth_w, split);
+  if (split < 1 || split > kMaxSplit) return cudaErrorInvalidValue;
+  switch (tiles(M, depth_x, depth_w)) {
+    case 1: return launch_tiles<1>(x, w, out, M, N, K, depth_x, depth_w,
+                                   split, stream);
+    case 2: return launch_tiles<2>(x, w, out, M, N, K, depth_x, depth_w,
+                                   split, stream);
+    case 4: return launch_tiles<4>(x, w, out, M, N, K, depth_x, depth_w,
+                                   split, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace thin_path
@@ -315,13 +353,15 @@ extern "C" {
 // dtype: 0 = float32, 1 = bfloat16.  split is the bf16 kernels' K split
 // (ops.split_k); the wide kernel's parts meet in `work`, an fp32 buffer of
 // split x M x N the caller allocates when split > 1.  fp32 ignores both.
+// rowwise != 0 runs a bf16 product of any M on the thin kernel, whose row
+// bits do not depend on M: the rows of a chunk get decode's bits.
 int queue_matmul_launch(const void* x, const void* w, void* out, void* work,
                         int M, int N, int K, int depth_x, int depth_w,
-                        int dtype, int split, void* stream) {
+                        int dtype, int split, int rowwise, void* stream) {
   if (M < 1 || N < 1 || K < 1 || depth_x < 1 || depth_w < 1)
     return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool small = M <= 16;
+  const bool small = M <= 16 || rowwise != 0;
   if (dtype == 0)
     return fma_path::launch(x, w, out, M, N, K, depth_x, depth_w, s);
   if (dtype == 1)
@@ -333,13 +373,22 @@ int queue_matmul_launch(const void* x, const void* w, void* out, void* work,
 }
 
 // Shared memory a launch needs (the wrapper refuses a pair above 227 KB
-// before it launches; ops.py computes the same numbers).
-long long queue_matmul_smem_bytes(int M, int depth_x, int depth_w, int dtype) {
-  const bool small = M <= 16;
+// before it launches; ops.py computes the same numbers), and the 16-row
+// tiles a block of the thin kernel takes.
+long long queue_matmul_smem_bytes(int M, int depth_x, int depth_w, int dtype,
+                                  int rowwise) {
+  const bool small = M <= 16 || rowwise != 0;
   if (dtype == 0)
     return static_cast<long long>(fma_path::smem_bytes(M, depth_x, depth_w));
-  return static_cast<long long>(small ? thin::smem_bytes(depth_x, depth_w)
-                                      : wide::smem_bytes(depth_x, depth_w));
+  if (!small)
+    return static_cast<long long>(wide::smem_bytes(depth_x, depth_w));
+  const int g = thin_path::tiles(M, depth_x, depth_w);
+  return static_cast<long long>(thin::smem_bytes(depth_x, depth_w,
+                                                 g > 0 ? g : 1));
+}
+
+int queue_matmul_thin_tiles(int M, int depth_x, int depth_w) {
+  return thin_path::tiles(M, depth_x, depth_w);
 }
 
 const char* queue_matmul_error_string(int err) {

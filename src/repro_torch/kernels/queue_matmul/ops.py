@@ -20,16 +20,28 @@ M, and each keeps the whole contract).  A bf16 product with M <= 16
 (``THIN_MAX_M``; decode over the slots) takes the thin kernel, bound by the
 bytes of w: 64-column tiles 128 deep copied with ``cp.async``, K split into
 :func:`split_k` parts, a function of (K, N) alone, summed in rank order
-inside a thread-block cluster.  A bf16 product with M > 16 (``forward``)
+inside a thread-block cluster.  A product run row by row (``slab`` given:
+the decode body and a chunk's batched body) takes the thin kernel at any M,
+a block taking up to four 16-row tiles (:func:`thin_tiles`) so that each
+w stage it loads serves all of them.  A bf16 product with M > 16 (``forward``)
 takes the wide kernel, bound by operations: a producer warp issues TMA
 copies into the two rings and two ``wgmma`` warpgroups consume them, in
 128 x 256 tiles, with K split the same way where the tiles alone would
 leave SMs idle; its parts meet in an fp32 workspace allocated here.  fp32
 takes the FMA kernel at any M: register-tiled, 128 x 128 tiles (128 x 64
 or 64 x 64 where those would leave SMs idle, 16 x 64 at M <= 16), each
-element's sum in one fixed order whatever the tile, M or depths.  Within a regime every depth pair gives the
-same bits, and a row's result does not depend on the other rows; a bf16
+element's sum in one fixed order whatever the tile, M or depths.
+Within a regime every depth pair gives the same bits, and a row's result
+does not depend on the other rows nor on its place among them; a bf16
 row's bits do depend on the regime.
+
+``slab``: the product row by row, every row with the bits that a call over
+its slab of ``slab`` consecutive rows alone gives (a chunk's B x C rows, C
+slabs of B, get the decode body's bits).  On the card that is one launch:
+bf16 on the thin kernel whatever M, fp32 on the FMA block, whose row bits
+depend on neither M nor the row's place; the plain version (and BASELINE)
+makes one product a slab, since a library product's row bits may depend on
+M (the CPU's one-row product does).
 
 The contract, in both regimes: ``depth_x`` and ``depth_w`` are real stage
 counts in [1, 16]; a pair whose rings need more than 227 KB of shared
@@ -71,6 +83,8 @@ _MAX_DEPTH = 16
 MAX_SMEM = 232448
 #: bf16 products with at most this many rows take the thin kernel
 THIN_MAX_M = 16
+#: the most 16-row tiles a block of the thin kernel takes
+MAX_TILES = 4
 #: the thin kernel's column tile and stage depth; the wide kernel's column
 #: tile and the K unit its parts are made of (its stages are 64 deep when
 #: both rings fit at that depth, else 32); the largest K split (a portable
@@ -79,12 +93,13 @@ _THIN_BN, _THIN_BK, _WIDE_BN, _WIDE_UNIT = 64, 128, 256, 64
 _MAX_SPLIT = 8
 
 
-def regime(m: int, dtype: torch.dtype) -> str:
+def regime(m: int, dtype: torch.dtype, rowwise: bool = False) -> str:
     """Which kernel a product of ``m`` rows runs on the card: "fp32",
-    "thin" (bf16, m <= ``THIN_MAX_M``) or "wide" (bf16)."""
+    "thin" (bf16, m <= ``THIN_MAX_M`` or run row by row) or "wide"
+    (bf16)."""
     if dtype == torch.float32:
         return "fp32"
-    return "thin" if m <= THIN_MAX_M else "wide"
+    return "thin" if m <= THIN_MAX_M or rowwise else "wide"
 
 
 @functools.lru_cache(maxsize=None)
@@ -117,21 +132,43 @@ def _wide_smem(depth_x: int, depth_w: int, bk: int) -> int:
             + 16 * (depth_x + depth_w))
 
 
-def smem_bytes(m: int, depth_x: int, depth_w: int, dtype: torch.dtype) -> int:
+def _thin_smem(depth_x: int, depth_w: int, tiles: int) -> int:
+    # barriers in 128-byte lines; x 16 rows a tile and w 64 columns, 128
+    # deep a stage; the fp32 partials of 4 warps (one tile at a time) and
+    # of the block's tiles reuse the rings
+    barriers = -(-(depth_x + depth_w) * 8 // 128) * 128
+    return barriers + max(2 * (depth_x * tiles * 16 * _THIN_BK
+                               + depth_w * _THIN_BK * _THIN_BN),
+                          4 * (4 + tiles) * 16 * _THIN_BN)
+
+
+def thin_tiles(m: int, depth_x: int, depth_w: int) -> int:
+    """The 16-row tiles a block of the thin kernel takes for ``m`` rows:
+    all of them up to ``MAX_TILES`` (a power of two), fewer where the rings
+    at these depths would not fit; 0 where not one tile's do.  The bits do
+    not depend on it."""
+    need, g = -(-m // 16), 1
+    while g < need and g < MAX_TILES:
+        g *= 2
+    while g > 1 and _thin_smem(depth_x, depth_w, g) > MAX_SMEM:
+        g //= 2
+    return g if _thin_smem(depth_x, depth_w, g) <= MAX_SMEM else 0
+
+
+def smem_bytes(m: int, depth_x: int, depth_w: int, dtype: torch.dtype,
+               rowwise: bool = False) -> int:
     """Shared memory one block of the kernel for ``m`` rows needs at these
     depths, as ``csrc/queue_matmul.cu`` lays it out.  The wide kernel's
     stages are 64 deep where both rings fit at that depth, else 32; every
     k16 step is the same either way, so the bits are too."""
     barriers = -(-(depth_x + depth_w) * 8 // 128) * 128
-    kind = regime(m, dtype)
+    kind = regime(m, dtype, rowwise)
     if kind == "fp32":
         bm = 16 if m <= 16 else 64
         return barriers + 4 * (depth_x * bm * 32 + depth_w * 32 * 64)
     if kind == "thin":
-        # the fp32 partials of 4 warps and the block reuse the rings
-        return barriers + max(2 * (depth_x * 16 * _THIN_BK
-                                   + depth_w * _THIN_BK * _THIN_BN),
-                              4 * 5 * 16 * _THIN_BN)
+        return _thin_smem(depth_x, depth_w,
+                          max(1, thin_tiles(m, depth_x, depth_w)))
     deep = _wide_smem(depth_x, depth_w, 64)
     return deep if deep <= MAX_SMEM else _wide_smem(depth_x, depth_w, 32)
 
@@ -168,11 +205,13 @@ def _library() -> ctypes.CDLL:
     stream as ``c_void_p``, so ctypes never cuts them to 32 bits)."""
     lib = _build.load("queue_matmul")
     lib.queue_matmul_launch.argtypes = ([ctypes.c_void_p] * 4
-                                        + [ctypes.c_int] * 7
+                                        + [ctypes.c_int] * 8
                                         + [ctypes.c_void_p])
     lib.queue_matmul_launch.restype = ctypes.c_int
-    lib.queue_matmul_smem_bytes.argtypes = [ctypes.c_int] * 4
+    lib.queue_matmul_smem_bytes.argtypes = [ctypes.c_int] * 5
     lib.queue_matmul_smem_bytes.restype = ctypes.c_longlong
+    lib.queue_matmul_thin_tiles.argtypes = [ctypes.c_int] * 3
+    lib.queue_matmul_thin_tiles.restype = ctypes.c_int
     lib.queue_matmul_error_string.argtypes = [ctypes.c_int]
     lib.queue_matmul_error_string.restype = ctypes.c_char_p
     return lib
@@ -183,11 +222,12 @@ def _pad_cols(a: torch.Tensor, mult: int) -> torch.Tensor:
     return F.pad(a, (0, pad)) if pad else a
 
 
-def _launch(x: torch.Tensor, w: torch.Tensor, depth_x: int,
-            depth_w: int) -> torch.Tensor:
-    """Run the CUDA kernel.  K and N are padded with zeros to 16 bytes'
-    worth of elements when they are not already (never on the serve path's
-    shapes), so every tile row is one aligned 16-byte copy."""
+def _launch(x: torch.Tensor, w: torch.Tensor, depth_x: int, depth_w: int,
+            rowwise: bool = False) -> torch.Tensor:
+    """Run the CUDA kernel (bf16 on the thin kernel at any M when
+    ``rowwise``).  K and N are padded with zeros to 16 bytes' worth of
+    elements when they are not already (never on the serve path's shapes),
+    so every tile row is one aligned 16-byte copy."""
     if x.dtype not in _DTYPE_CODES or w.dtype != x.dtype:
         raise TypeError(f"queue_matmul kernel takes float32 or bfloat16 "
                         f"operands of one dtype, got {x.dtype} and {w.dtype}")
@@ -201,7 +241,8 @@ def _launch(x: torch.Tensor, w: torch.Tensor, depth_x: int,
         wp = F.pad(wp, (0, 0, 0, xp.shape[1] - wp.shape[0]))
     wp = wp.contiguous()
     k, n_pad = xp.shape[1], wp.shape[1]
-    split = _plan(m <= THIN_MAX_M, k, n_pad, depth_x, depth_w, x.dtype)
+    thin = m <= THIN_MAX_M or rowwise
+    split = _plan(thin, k, n_pad, depth_x, depth_w, x.dtype)
     px, pw = xp.data_ptr(), wp.data_ptr()
     if px % 16 or pw % 16:
         raise ValueError("queue_matmul kernel needs 16-byte aligned "
@@ -210,10 +251,11 @@ def _launch(x: torch.Tensor, w: torch.Tensor, depth_x: int,
     # the wide kernel's K parts meet in an fp32 workspace (never in decode)
     work = (torch.empty((split, m, n_pad), dtype=torch.float32,
                         device=x.device)
-            if split > 1 and m > THIN_MAX_M else None)
+            if split > 1 and not thin else None)
     lib = _library()
     args = (px, pw, out.data_ptr(), None if work is None else work.data_ptr(),
-            m, n_pad, k, depth_x, depth_w, _DTYPE_CODES[x.dtype], split)
+            m, n_pad, k, depth_x, depth_w, _DTYPE_CODES[x.dtype], split,
+            int(rowwise))
     # the launch goes to the current device: switch only when x is not on it
     if x.device.index == torch.cuda.current_device():
         err = lib.queue_matmul_launch(
@@ -230,12 +272,16 @@ def _launch(x: torch.Tensor, w: torch.Tensor, depth_x: int,
 
 
 def _product(x: torch.Tensor, w: torch.Tensor, depth_x: int, depth_w: int,
-             policy: ExecutionPolicy) -> torch.Tensor:
+             policy: ExecutionPolicy,
+             slab: Optional[int] = None) -> torch.Tensor:
     if policy is ExecutionPolicy.BASELINE or x.device.type in PLAIN_DEVICES:
-        return matmul_ref(x, w).to(x.dtype)
+        if slab is None or slab >= x.shape[0]:
+            return matmul_ref(x, w).to(x.dtype)
+        return torch.cat([matmul_ref(x[i:i + slab], w).to(x.dtype)
+                          for i in range(0, x.shape[0], slab)])
     if policy is ExecutionPolicy.COPIFT:
         depth_x = depth_w = 1
-    return _launch(x, w, depth_x, depth_w)
+    return _launch(x, w, depth_x, depth_w, rowwise=slab is not None)
 
 
 class _QueueMatmulFn(torch.autograd.Function):
@@ -262,16 +308,19 @@ class _QueueMatmulFn(torch.autograd.Function):
 
 def _queue_matmul(x: torch.Tensor, w: torch.Tensor, *,
                   block: Tuple[int, int, int], depth_x: int, depth_w: int,
-                  unroll: int, policy: ExecutionPolicy) -> torch.Tensor:
+                  unroll: int, policy: ExecutionPolicy,
+                  slab: Optional[int] = None) -> torch.Tensor:
     if x.ndim != 2 or w.ndim != 2 or x.shape[1] != w.shape[0]:
         raise ValueError(f"queue_matmul takes x (M, K) and w (K, N), got "
                          f"{tuple(x.shape)} and {tuple(w.shape)}")
     if x.device.type not in ("cuda", *PLAIN_DEVICES):
         raise ValueError(f"queue_matmul runs on CUDA, CPU or meta tensors, "
                          f"got {x.device}")
+    if slab is not None and slab < 1:
+        raise ValueError(f"slab must be >= 1, got {slab}")
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
         return _QueueMatmulFn.apply(x, w, depth_x, depth_w, policy)
-    return _product(x, w, depth_x, depth_w, policy)
+    return _product(x, w, depth_x, depth_w, policy, slab)
 
 
 def queue_matmul(x: torch.Tensor, w: torch.Tensor, *,
@@ -280,7 +329,8 @@ def queue_matmul(x: torch.Tensor, w: torch.Tensor, *,
                  depth_x: Optional[int] = None,
                  depth_w: Optional[int] = None,
                  unroll: Optional[int] = None,
-                 policy: Optional[ExecutionPolicy] = None) -> torch.Tensor:
+                 policy: Optional[ExecutionPolicy] = None,
+                 slab: Optional[int] = None) -> torch.Tensor:
     """y = x @ w through the queue-pipelined kernel; returns ``x.dtype``.
 
     ``policy`` overrides the depths: BASELINE is the plain matmul, COPIFT
@@ -289,7 +339,8 @@ def queue_matmul(x: torch.Tensor, w: torch.Tensor, *,
     the w ring from the F2I depth, each defaulting to ``queue_depth``).
     ``depth`` pins both rings, ``depth_x``/``depth_w`` one each; any
     explicit depth with ``policy`` unset runs COPIFTV2, never a table
-    policy that would discard it.
+    policy that would discard it.  ``slab`` runs the product row by row
+    (see the module's docstring); a product with a gradient ignores it.
     """
     if depth is not None:
         depth_x = depth if depth_x is None else depth_x
@@ -308,7 +359,7 @@ def queue_matmul(x: torch.Tensor, w: torch.Tensor, *,
         if unroll is None:
             unroll = pt.unroll
     return _queue_matmul(x, w, block=block, depth_x=depth_x, depth_w=depth_w,
-                         unroll=unroll, policy=policy)
+                         unroll=unroll, policy=policy, slab=slab)
 
 
 #: kernel launches since the count was last set to 0

@@ -5,11 +5,12 @@ Sequence-level attention (:func:`gqa_apply`, :func:`mla_apply`) runs the
 port's ``flash_attention`` op: the CUDA kernel on the card, its plain
 version on the CPU.  :func:`flash_attention_ref` is the model-level plain
 version, a blockwise online softmax in PyTorch, ported from the JAX
-package's reference of the same name.  Decode attention
-(:func:`decode_attention_ref`, and MLA's absorbed scores over the latent
-cache in :func:`mla_decode`) stays plain PyTorch, as the JAX package
-computes it outside any kernel.  Every 2-D projection runs through
-``queue_matmul``.
+package's reference of the same name.  GQA decode, one column or a
+chunk's columns at once (:func:`gqa_columns`), attends through the port's
+``decode_attention`` kernel, whose query rows keep their bits whatever
+rows run with them; MLA's absorbed scores over the latent cache
+(:func:`mla_decode`) stay plain PyTorch, as the JAX package computes them
+outside any kernel.  Every 2-D projection runs through ``queue_matmul``.
 """
 from __future__ import annotations
 
@@ -21,10 +22,10 @@ import torch
 from ..config import ModelConfig
 from ..core.policy import ExecutionPolicy
 from ..device import upcast, wide_dtype
+from ..kernels.decode_attention import decode_attention
+from ..kernels.decode_attention.ref import NEG_INF
 from ..kernels.flash_attention import flash_attention
 from .layers import ParamSpec, apply_rope, matmul, rms_norm, rope_angles
-
-NEG_INF = -1e30
 
 
 # ---------------------------------------------------------------------------
@@ -91,29 +92,6 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.stack(outs).permute(1, 2, 3, 0, 4, 5)
     out = out.reshape(B, Hq, Sq, Dv)[:, :, :orig_sq]
     return out.to(v.dtype)
-
-
-def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
-                         v_cache: torch.Tensor, length: torch.Tensor, *,
-                         window: Optional[int] = None) -> torch.Tensor:
-    """Single-token attention: q (B, Hq, 1, D); caches (B, Hkv, T, D).
-    ``length`` (scalar, or per-sequence (B,)) = number of valid cache
-    entries per sequence."""
-    B, Hq, _, D = q.shape
-    _, Hkv, T, Dv = v_cache.shape
-    G = Hq // Hkv
-    scale = 1.0 / math.sqrt(D)
-    qg = q.reshape(B, Hkv, G, D)
-    s = torch.einsum("bhgd,bhtd->bhgt", upcast(qg), upcast(k_cache)) * scale
-    pos = torch.arange(T, device=q.device)
-    lv = torch.as_tensor(length, device=q.device).reshape(-1, 1)
-    mask = pos[None] < lv
-    if window is not None:
-        mask = mask & (pos[None] >= lv - window)
-    s = torch.where(mask[:, None, None], s, NEG_INF)
-    p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bhgt,bhtd->bhgd", p, upcast(v_cache))
-    return out.reshape(B, Hq, 1, Dv).to(v_cache.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -184,43 +162,78 @@ def _write_slot_rows(cache: torch.Tensor, slot: torch.Tensor,
     cache[at] = new
 
 
-def gqa_decode(p, x: torch.Tensor, cfg: ModelConfig, k_cache: torch.Tensor,
-               v_cache: torch.Tensor, length: torch.Tensor, *,
-               window: Optional[int] = None,
-               active: Optional[torch.Tensor] = None,
-               policy: Optional[ExecutionPolicy] = None
-               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One-token step.  x: (B, 1, d); caches (B, Hkv, T, hd); ``length``
-    per-sequence (B,).  Returns (out (B,1,d), k_cache, v_cache).
+def _write_column_rows(cache: torch.Tensor, slot: torch.Tensor,
+                       new: torch.Tensor,
+                       active: Optional[torch.Tensor]) -> None:
+    """``cache[b, :, slot[c, b]] = new[c, b]`` in place for every (column,
+    slot) of the (C, B) mask ``active`` (all when None), the other rows
+    written back as they were: a gather, a select and a scatter of C x B
+    rows, nothing that depends on the data.  ``cache`` is (B, H, T, D),
+    ``new`` (C, B, H, D), ``slot`` (C, B) with no row twice."""
+    C, B = slot.shape
+    b = torch.arange(B, device=cache.device).expand(C, B)
+    new = new.to(cache.dtype)
+    if active is not None:
+        new = torch.where(active[:, :, None, None], new, cache[b, :, slot])
+    cache[b, :, slot] = new
 
-    The caches are written in place (the JAX step returns new arrays): each
-    slot's new K/V row lands at ``length % T`` (a ring for windowed
-    layers).  ``active`` (a (B,) bool mask, default all) selects the slots
-    whose rows take the new values; any other slot's row is written back
-    unchanged, which is what the JAX chunked prefill's per-slot merge
-    leaves."""
-    B = x.shape[0]
-    length = torch.as_tensor(length, dtype=torch.int64,
-                             device=x.device).expand(B)
-    q = _project(x, p["wq"], policy)
-    k = _project(x, p["wk"], policy)
-    v = _project(x, p["wv"], policy)
+
+def column_positions(length: torch.Tensor, C: int, T: int, cfg: ModelConfig,
+                     dtype: torch.dtype):
+    """Where C columns of B slots at lengths ``length`` (B,) go, column c of
+    slot b at position ``len[b] + c``: the cache row each writes
+    (``slot``, (C, B): the position modulo T, a ring for a windowed layer,
+    whose T is its window), the rows each attends (``valid``, (C, B):
+    [0, min(position + 1, T))) and the RoPE angles of the positions (cos,
+    sin (C, B, hd/2) in ``dtype``'s wide dtype; None without RoPE).
+    Returns (cos, sin, slot, valid), :func:`gqa_columns`'s order."""
+    cols = torch.arange(C, device=length.device)
+    pos = length.to(torch.int64)[None] + cols[:, None]
+    cos = sin = None
     if cfg.rope:
-        cos, sin = rope_angles(length, cfg.resolved_head_dim, cfg.rope_theta,
-                               wide_dtype(x.dtype))
-        q = apply_rope(q, cos[:, None, None], sin[:, None, None])
-        k = apply_rope(k, cos[:, None, None], sin[:, None, None])
-    T = k_cache.shape[2]
-    slot = length % T
-    _write_slot_rows(k_cache, slot, k[:, :, 0], active)
-    _write_slot_rows(v_cache, slot, v[:, :, 0], active)
-    if window is None:
-        o = decode_attention_ref(q, k_cache, v_cache, length + 1)
-    else:
-        # ring cache: all T slots valid once full; positions are implicit
-        valid = torch.clamp(length + 1, max=T)
-        o = decode_attention_ref(q, k_cache, v_cache, valid)
-    return _out_project(o, p["wo"], policy), k_cache, v_cache
+        cos, sin = rope_angles(pos, cfg.resolved_head_dim, cfg.rope_theta,
+                               wide_dtype(dtype))
+    return cos, sin, pos % T, torch.clamp(pos + 1, max=T)
+
+
+def gqa_columns(p, x: torch.Tensor, cfg: ModelConfig, k_cache: torch.Tensor,
+                v_cache: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+                slot: torch.Tensor, valid: torch.Tensor,
+                active: Optional[torch.Tensor] = None,
+                policy: Optional[ExecutionPolicy] = None) -> torch.Tensor:
+    """C columns of single-token steps of B slots at once (the decode step
+    at C = 1).  x: (C, B, d), column c of slot b at position ``len[b] + c``;
+    caches (B, Hkv, T, hd), written in place; ``cos``, ``sin``, ``slot``
+    and ``valid`` from :func:`column_positions`; ``active`` (C, B) the rows
+    whose K/V are written (default all; the others' rows are written back
+    as they were, which is what the JAX chunked prefill's per-slot merge
+    leaves).  Returns (C, B, d).
+
+    Every K/V row of the columns is written before any query attends, and a
+    query's later columns lie at or past its ``valid``, where decode's stale
+    rows lie: the mask selects NEG_INF there, so each query attends exactly
+    what its own decode step would, unless a later column's row wraps onto
+    one it reads (a ring shorter than the chunk's reach: C must be 1 for a
+    windowed layer).  Each op runs row by row (products in slabs of B rows,
+    the ``decode_attention`` kernel), so every row gets the bits of the
+    one-column step."""
+    C, B, _ = x.shape
+    hd, Hq, Hkv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
+
+    def project(w):
+        return matmul(x, w.reshape(w.shape[0], -1), policy,
+                      slab=B).reshape(C, B, -1, hd)
+
+    q, k, v = project(p["wq"]), project(p["wk"]), project(p["wv"])
+    if cfg.rope:
+        q = apply_rope(q, cos[:, :, None], sin[:, :, None])
+        k = apply_rope(k, cos[:, :, None], sin[:, :, None])
+    _write_column_rows(k_cache, slot, k, active)
+    _write_column_rows(v_cache, slot, v, active)
+    o = decode_attention(q, k_cache, v_cache, valid)
+    wo = p["wo"]
+    return matmul(o.reshape(C, B, Hq * hd), wo.reshape(Hq * hd, wo.shape[2]),
+                  policy, slab=B)
 
 
 # ---------------------------------------------------------------------------

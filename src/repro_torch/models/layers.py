@@ -23,6 +23,7 @@ import torch.nn.functional as F
 from ..core.policy import ExecutionPolicy
 from ..device import upcast
 from ..kernels.queue_matmul import queue_matmul
+from ..kernels.rms_norm.ref import rms_norm_ref
 
 Pytree = Any
 
@@ -120,18 +121,18 @@ def tree_unflatten(like: Pytree, leaves: list) -> Pytree:
 # ---------------------------------------------------------------------------
 
 def matmul(x: torch.Tensor, w: torch.Tensor,
-           policy: Optional[ExecutionPolicy] = None) -> torch.Tensor:
-    """``x @ w`` over the last axis of ``x`` through ``queue_matmul``."""
-    y = queue_matmul(x.reshape(-1, x.shape[-1]), w, policy=policy)
+           policy: Optional[ExecutionPolicy] = None,
+           slab: Optional[int] = None) -> torch.Tensor:
+    """``x @ w`` over the last axis of ``x`` through ``queue_matmul``;
+    ``slab`` runs it row by row, each row with the bits of a product over
+    its slab of that many rows (``queue_matmul``'s ``slab``)."""
+    y = queue_matmul(x.reshape(-1, x.shape[-1]), w, policy=policy, slab=slab)
     return y.reshape(*x.shape[:-1], w.shape[1])
 
 
-def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
-             eps: float = 1e-5) -> torch.Tensor:
-    dt = x.dtype
-    x32 = upcast(x)
-    x32 = x32 * torch.rsqrt((x32 * x32).mean(dim=-1, keepdim=True) + eps)
-    return (x32 * (1.0 + gamma.to(x32.dtype))).to(dt)
+#: the model's norm, in plain PyTorch: the plain version of the
+#: ``rms_norm`` kernel the serve bodies run
+rms_norm = rms_norm_ref
 
 
 def rope_angles(positions: torch.Tensor, dim: int, theta: float,
@@ -191,12 +192,15 @@ def ffn_specs(d_model: int, d_ff: int, act: str) -> Dict[str, ParamSpec]:
 
 
 def ffn_apply(p: Dict[str, torch.Tensor], x: torch.Tensor, act: str,
-              policy: Optional[ExecutionPolicy] = None) -> torch.Tensor:
-    """swiglu, relu2 or gelu (the tanh form, as ``jax.nn.gelu``)."""
+              policy: Optional[ExecutionPolicy] = None,
+              slab: Optional[int] = None) -> torch.Tensor:
+    """swiglu, relu2 or gelu (the tanh form, as ``jax.nn.gelu``); ``slab``
+    as :func:`matmul`'s."""
     if act == "swiglu":
-        h = F.silu(matmul(x, p["wg"], policy)) * matmul(x, p["wi"], policy)
+        h = (F.silu(matmul(x, p["wg"], policy, slab))
+             * matmul(x, p["wi"], policy, slab))
     elif act == "relu2":
-        h = torch.square(F.relu(matmul(x, p["wi"], policy)))
+        h = torch.square(F.relu(matmul(x, p["wi"], policy, slab)))
     else:
-        h = F.gelu(matmul(x, p["wi"], policy), approximate="tanh")
-    return matmul(h, p["wo"], policy)
+        h = F.gelu(matmul(x, p["wi"], policy, slab), approximate="tanh")
+    return matmul(h, p["wo"], policy, slab)

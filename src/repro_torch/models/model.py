@@ -42,6 +42,13 @@ numbers:
   (``head_t``, (d, vocab)) so the logits are one ``x @ head_t``;
 * :func:`decode_step` and :func:`prefill_step` update the cache in place
   and return the same dict.
+
+Where the reference's chunked prefill scans its decode body over a chunk's
+columns, the families whose layers are all GQA attention with no ring and
+a dense FFN (:func:`batches_columns`) run the columns as one body over
+C x B rows (:func:`_columns_body`), and their decode step is that body at
+C = 1; each op runs row by row, so the result is the reference's, bit for
+bit the token-by-token path's.
 """
 from __future__ import annotations
 
@@ -57,6 +64,7 @@ from . import attention as attn
 from . import moe as moe_mod
 from . import rglru as rglru_mod
 from . import ssm as ssm_mod
+from ..kernels.rms_norm import rms_norm as norm_rows
 from .layers import (ParamSpec, ffn_apply, ffn_specs, init_params, matmul,
                      rms_norm, tree_leaves, tree_map)
 
@@ -417,7 +425,9 @@ def _decode_body(params: Pytree, cache: Pytree, tokens: torch.Tensor,
     dtype = torch_dtype(rc.dtype)
     x = params["embed"][tokens].to(dtype)
     length = cache["len"]
-    window = _window(cfg)
+    if "k" in cache:         # the GQA layers' rows, one column
+        where = attn.column_positions(length, 1, cache["k"].shape[3], cfg,
+                                      dtype)
     seen = {"attn": 0, "rec": 0, "ssm": 0}
     for kind, bp in _layers(params, cfg, dtype):
         i = seen[kind]
@@ -443,9 +453,11 @@ def _decode_body(params: Pytree, cache: Pytree, tokens: torch.Tensor,
                                       length, active=active,
                                       policy=rc.policy)
         else:
-            y, _, _ = attn.gqa_decode(bp["attn"], hn, cfg, cache["k"][i],
-                                      cache["v"][i], length, window=window,
-                                      active=active, policy=rc.policy)
+            y = attn.gqa_columns(
+                bp["attn"], hn.transpose(0, 1), cfg, cache["k"][i],
+                cache["v"][i], *where,
+                None if active is None else active[None],
+                rc.policy).transpose(0, 1)
         x = x + y
         hn = rms_norm(x, bp["ln2"], cfg.norm_eps)
         y = (moe_mod.moe_apply(bp["ffn"], hn, cfg, rc.policy) if cfg.moe
@@ -455,15 +467,74 @@ def _decode_body(params: Pytree, cache: Pytree, tokens: torch.Tensor,
     return upcast(matmul(x[:, 0], _head_t(params, cfg, dtype), rc.policy))
 
 
+def batches_columns(cfg: ModelConfig) -> bool:
+    """Whether a chunk runs its columns as one batched body
+    (:func:`_columns_body`): every layer GQA attention with no ring, then a
+    dense FFN (the dense and vision families without MLA).  The others run
+    the decode body column by column: an SSM or RG-LRU recurrence walks its
+    columns in order, a windowed layer's ring could be overwritten by a
+    later column before an earlier one reads it, an MoE chunk's rows an
+    expert can pass the thin kernel's 16, and MLA writes clamped at
+    ``max_len - 1``."""
+    return cfg.family in ("dense", "vlm") and cfg.mla is None
+
+
+def _columns_body(params: Pytree, cache: Pytree, tokens: torch.Tensor,
+                  cfg: ModelConfig, rc: RunConfig,
+                  n_tokens: Optional[torch.Tensor]) -> torch.Tensor:
+    """C columns of B slots as one body: tokens (B, C), column j of slot b
+    at position ``len[b] + j``; ``n_tokens`` (B,) the columns each slot
+    takes (None: every column of every slot, the decode step).  Writes the
+    active columns' K/V rows in place and returns the fp32 logits (B, vocab)
+    after each slot's last active column (a slot with none gets its first
+    column's, for the caller to drop); ``len`` is left to the caller.  C
+    must not pass the cache's T rows, or a masked column could wrap onto a
+    row an active one writes.
+
+    The activations are (C, B, d), so column j's rows are the j-th slab of
+    B: every product runs in slabs of B rows and every norm and attention
+    row by row (:func:`~repro_torch.models.attention.gqa_columns`), so a
+    row's bits are those the one-column body (the decode step) gives it.
+    The final norm and the vocabulary-wide head run on B rows only, each
+    slot's last active column gathered on the device."""
+    dtype = torch_dtype(rc.dtype)
+    B, C = tokens.shape
+    dev = tokens.device
+    x = params["embed"][tokens.t()].to(dtype)                  # (C, B, d)
+    where = attn.column_positions(cache["len"], C, cache["k"].shape[3], cfg,
+                                  dtype)
+    active = (None if n_tokens is None else
+              torch.arange(C, device=dev)[:, None] < n_tokens[None])
+    for i, (_, bp) in enumerate(_layers(params, cfg, dtype)):
+        hn = norm_rows(x, bp["ln1"], cfg.norm_eps)
+        x = x + attn.gqa_columns(bp["attn"], hn, cfg, cache["k"][i],
+                                 cache["v"][i], *where, active, rc.policy)
+        hn = norm_rows(x, bp["ln2"], cfg.norm_eps)
+        x = x + ffn_apply(bp["ffn"], hn, cfg.ffn_act, rc.policy, slab=B)
+    if n_tokens is None:
+        last = x[-1]
+    else:
+        at = torch.clamp(n_tokens.to(torch.int64) - 1, min=0)
+        last = x[at, torch.arange(B, device=dev)]
+    last = norm_rows(last, params["final_norm"], cfg.norm_eps)
+    return upcast(matmul(last, _head_t(params, cfg, dtype), rc.policy,
+                         slab=B))
+
+
 def decode_step(params: Pytree, cache: Pytree,
                 batch: Dict[str, torch.Tensor], cfg: ModelConfig,
                 rc: RunConfig) -> Tuple[torch.Tensor, Pytree]:
     """One token for every sequence in the batch.
     batch = {"tokens": (B, 1)} -> (logits (B, vocab) fp32, cache).
     The cache is updated in place; ``len`` advances for every slot, free
-    ones included, as in the JAX step."""
+    ones included, as in the JAX step.  A family that batches a chunk's
+    columns (:func:`batches_columns`) runs its one-column body, so a chunk
+    and its columns' decode steps give each row the same bits."""
     _check_family(cfg)
-    logits = _decode_body(params, cache, batch["tokens"], cfg, rc, None)
+    if batches_columns(cfg):
+        logits = _columns_body(params, cache, batch["tokens"], cfg, rc, None)
+    else:
+        logits = _decode_body(params, cache, batch["tokens"], cfg, rc, None)
     cache["len"] += 1
     return logits, cache
 
@@ -495,17 +566,22 @@ def prefill_step(params: Pytree, cache: Pytree,
     ``(logits, cache)`` with ``logits[i]`` the fp32 next-token logits after
     slot ``i``'s last valid column.
 
-    As the reference's ``lax.scan``, every one of the C columns runs the
-    same body as :func:`decode_step` over the whole batch under the
-    device-side mask ``active = j < n_tokens``, so the chunked path is
-    bit-exact with token-by-token prefill.  Nothing is read back to the
-    host and no shape depends on the data, so one call is one CUDA graph
-    (:mod:`repro_torch.serve.graphs`); a column whose mask is empty is a
-    no-op by construction.  The per-slot merge of the JAX step is done in
-    place: each state write of a column is a select between the new and
-    the old row (:func:`_write_rows`), an inactive slot's ``len`` stays
-    put (:func:`_merge_masked`, copied into the leaf), and its logits keep
-    their previous value.
+    The reference runs ``lax.scan`` over its decode body, one column at a
+    time under the mask ``active = j < n_tokens``.  A family that batches
+    its columns (:func:`batches_columns`: dense GQA with no ring) runs the
+    C columns as one body over C x B rows (:func:`_columns_body`; a chunk
+    wider than the cache in runs of its rows), every op row by row, so a
+    row gets the bits its decode step gives it and a chunk reads each
+    weight once, not once a column.  The other families
+    run the decode body column by column under the same mask: each state
+    write is a select between the new and the old row
+    (:func:`_write_rows`), an inactive slot's ``len`` stays put
+    (:func:`_merge_masked`, copied into the leaf) and its logits keep
+    their previous value.  Either way the chunked path is bit-exact with
+    token-by-token prefill, nothing is read back to the host and no shape
+    depends on the data, so one call is one CUDA graph
+    (:mod:`repro_torch.serve.graphs`), and a column whose mask is empty is
+    a no-op.
     """
     _check_family(cfg)
     tokens = batch["tokens"]
@@ -513,6 +589,18 @@ def prefill_step(params: Pytree, cache: Pytree,
     B, C = tokens.shape
     logits = torch.zeros((B, cfg.vocab), dtype=torch.float32,
                          device=tokens.device)
+    if batches_columns(cfg):
+        # one body a run of at most T columns (the cache's rows), so that
+        # no masked column wraps onto a row an active one writes
+        T = cache["k"].shape[3]
+        for start in range(0, C, T):
+            n = torch.clamp(n_tokens - start, 0, T).to(cache["len"].dtype)
+            step_logits = _columns_body(params, cache,
+                                        tokens[:, start:start + T], cfg, rc,
+                                        n)
+            cache["len"] += n
+            logits = torch.where((n > 0)[:, None], step_logits, logits)
+        return logits, cache
     length = cache["len"]
     for j in range(C):
         active = n_tokens > j

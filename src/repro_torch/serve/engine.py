@@ -10,8 +10,10 @@ position vector, so a readmission never disturbs its neighbours).
 Prompt ingestion is chunked: any step with a prefilling slot runs
 :func:`~repro_torch.models.model.prefill_step`, up to ``prefill_chunk``
 prompt tokens per prefilling slot while decoding neighbours ride along with
-a one-token chunk — bit-exact with the token-by-token path, because the
-chunk runs the decode body column by column under a device-side mask.
+a one-token chunk — bit-exact with the token-by-token path: the dense GQA
+families run a chunk's columns as one body whose every row keeps its decode
+bits, the others the decode body column by column, both under a
+device-side mask.
 Chunk widths are bucketed to powers of two.  ``prefill="token"`` keeps
 one-token steps as the TTFT baseline.
 

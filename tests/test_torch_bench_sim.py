@@ -232,7 +232,7 @@ def test_front_diff_fails_on_a_moved_front(monkeypatch, tmp_path):
 
 # --- bench_diff --------------------------------------------------------------
 
-def _floor_artifacts(directory, monkeypatch, factor=1.0, wall_gain=1.1):
+def _floor_artifacts(directory, monkeypatch, factor=1.0, wall_gain=2.5):
     """The port's floor-checked artifacts, each at ``factor`` x its floor,
     and a prefill cell with the given wall-clock gain, in ``directory``,
     which becomes the port's artifact directory."""
@@ -266,8 +266,8 @@ def _rows(capsys):
 def test_bench_diff_passes_against_committed_artifacts(tmp_path, capsys,
                                                        monkeypatch):
     """The exact compares find 0 drifted fields in the regenerated FULL
-    serve report and the recomputed strong-scaling points; the wall bar's
-    row shows 2.0 and names queue C without failing."""
+    serve report and the recomputed strong-scaling points; the prefill
+    cell's wall-clock gain is floored at its bar, 2.0."""
     _floor_artifacts(tmp_path / "art", monkeypatch, factor=1.5)
     rows = bench_diff.run()
     assert _names_and_values(rows)[1] == ("bench_diff_drift_findings", 0.0)
@@ -277,9 +277,8 @@ def test_bench_diff_passes_against_committed_artifacts(tmp_path, capsys,
     assert "| 0 | 0 | 0 | == 0 | ok |" in \
         table["cluster.strong_scaling_fields_drifted"]
     wall = table["serve_prefill.headline.ttft_wall_gain"]
-    assert "| 2.0000 | 1.1000 |" in wall and "ROADMAP queue C" in wall
-    assert all(line.endswith("| ok |") for metric, line in table.items()
-               if metric != "serve_prefill.headline.ttft_wall_gain")
+    assert "| 2.0000 | 2.5000 |" in wall and ">= 2.0" in wall
+    assert all(line.endswith("| ok |") for line in table.values())
 
 
 def test_bench_diff_fails_when_an_slo_constant_moves_a_field(monkeypatch,
@@ -293,19 +292,23 @@ def test_bench_diff_fails_when_an_slo_constant_moves_a_field(monkeypatch,
         bench_diff.run()
 
 
-@pytest.mark.parametrize("case", ["absent", "below_floor", "not_bit_exact"])
+@pytest.mark.parametrize("case", ["absent", "below_floor", "not_bit_exact",
+                                  "below_wall_bar"])
 def test_bench_diff_floors_are_hard(case, tmp_path, monkeypatch):
     """An absent floor artifact fails naming the command that writes it; a
     ratio below its floor fails; so does a prefill cell that is not
-    bit-exact."""
+    bit-exact, or whose wall-clock gain is below its bar."""
     art = _floor_artifacts(tmp_path / "art", monkeypatch,
-                           factor=0.5 if case == "below_floor" else 1.5)
+                           factor=0.5 if case == "below_floor" else 1.5,
+                           wall_gain=1.1 if case == "below_wall_bar" else 2.5)
     name = bench_diff.FLOORS[0][0]
     if case == "absent":
         os.remove(os.path.join(art, name))
         match = "repro_torch.benchmarks.sweep_perf"
     elif case == "below_floor":
         match = "speedup_event_cached = 1.0 fell below the 2.0 floor"
+    elif case == "below_wall_bar":
+        match = "ttft_wall_gain = 1.1 fell below the 2.0 floor"
     else:
         path = os.path.join(art, "BENCH_port_serve_prefill.json")
         cell = _load(path)

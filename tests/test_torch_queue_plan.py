@@ -137,3 +137,42 @@ def test_the_cpu_path_plans_and_launches_nothing():
         out = queue_matmul(x, torch.ones((40, 24), dtype=BF16), depth=16)
         assert out.shape == (m, 24) and bool((out == 40).all())
     assert queue_matmul.launches == before
+
+
+@pytest.mark.parametrize("m", [1, 4, 16, 17, 32, 64, 512])
+def test_a_product_run_row_by_row_takes_the_thin_kernel(m):
+    """``slab`` runs a bf16 product of any M on the thin kernel (its row
+    bits depend on neither M nor the row's place); fp32 stays on its
+    one block."""
+    assert ops.regime(m, BF16, rowwise=True) == "thin"
+    assert ops.regime(m, FP32, rowwise=True) == "fp32"
+    assert ops._plan(True, 3072, 3072, 4, 4, BF16) == ops.split_k(3072, 3072)
+
+
+@pytest.mark.parametrize("depths,tiles", [
+    # (M = 1, 16, 17, 32, 33, 64, 200): up to four 16-row tiles a block
+    ((1, 1), (1, 1, 2, 2, 4, 4, 4)),
+    ((4, 4), (1, 1, 2, 2, 4, 4, 4)),
+    ((2, 8), (1, 1, 2, 2, 4, 4, 4)),
+    # four tiles' x rings do not fit beside these: two
+    ((8, 8), (1, 1, 2, 2, 2, 2, 2)),
+    ((16, 4), (1, 1, 2, 2, 2, 2, 2)),
+    ((12, 8), (1, 1, 2, 2, 2, 2, 2)),
+    # not even one tile fits: refused before any launch
+    ((16, 16), (0, 0, 0, 0, 0, 0, 0))])
+def test_thin_tiles_a_block(depths, tiles):
+    assert tuple(ops.thin_tiles(m, *depths)
+                 for m in (1, 16, 17, 32, 33, 64, 200)) == tiles
+
+
+@pytest.mark.parametrize("m,dx,dw,want", [
+    # barriers in one 128-byte line; x 4 KB a tile and w 16 KB a stage,
+    # at least the fp32 partials of 4 warps' one tile and the block's tiles
+    (4, 4, 4, 128 + 4 * 4096 + 4 * 16384),
+    (32, 4, 4, 128 + 4 * 2 * 4096 + 4 * 16384),
+    (64, 4, 4, 128 + 4 * 4 * 4096 + 4 * 16384),
+    (64, 8, 8, 128 + 8 * 2 * 4096 + 8 * 16384),
+    (64, 1, 1, 128 + 4 * (4 + 4) * 16 * 64)])
+def test_shared_memory_of_a_product_run_row_by_row(m, dx, dw, want):
+    assert ops.smem_bytes(m, dx, dw, BF16, rowwise=True) == want
+    assert ops.smem_bytes(m, dx, dw, BF16, rowwise=True) <= ops.MAX_SMEM
