@@ -51,8 +51,10 @@ prints no result):
    fp32), every slab's rows equal to a call over the slab alone; the
    row-wise ``rms_norm`` (``NORM_CASES``) and ``decode_attention``
    (``ATTN_CASES``: decode bodies and chunks over the served models'
-   heads) against their plain versions, each row or column equal to
-   itself computed alone, beside ``F.rms_norm`` and masked SDPA.
+   heads, and phi3's and glm4's at a 4K context) against their plain
+   versions, each row or column equal to itself computed alone, beside
+   ``F.rms_norm`` and masked SDPA and the floor of one launch (a
+   one-element in-place add).
 3. parity  — phi3-mini-3.8b, olmoe-1b-7b, falcon-mamba-7b, minicpm3-4b,
    pixtral-12b (with 256 patch rows, over 512 positions) and
    hubert-xlarge (on frames) at full width, depth cut to 2 layers, and
@@ -208,9 +210,6 @@ TRAIN_PARTS = ("a", "b", "c", "d")
 #: package is importable)
 HBM_BYTES_PER_S = PEAK_FLOPS = None
 TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
-#: cuda_ms's sleep: cycles per second at the H100's highest SM clock (a
-#: lower clock sleeps longer), and the longest sleep
-SLEEP_CYCLES_PER_S, MAX_SLEEP_S = 1.98e9, 0.2
 SEED = 20261016
 SERVED = ("phi3-mini-3.8b", "olmoe-1b-7b", "falcon-mamba-7b",
           "recurrentgemma-2b", "minicpm3-4b", "pixtral-12b",
@@ -409,26 +408,10 @@ def host_cpu() -> str:
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     """Mean device time of ``fn()`` in ms, from CUDA events around
-    ``iters`` calls after ``warmup`` calls.  The calls queue behind a sleep
-    on the card long enough (up to ``MAX_SLEEP_S``) for the host to enqueue
-    them all, so that the host's time to launch them does not show."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fn()
-    host_s = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    sleep_s = min(MAX_SLEEP_S, 1.5 * iters * host_s + 1e-3)
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(int(sleep_s * SLEEP_CYCLES_PER_S))
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    ``iters`` calls after ``warmup`` calls queued behind a sleep on the
+    card (``repro_torch.benchmarks.timing.event_ms``)."""
+    from repro_torch.benchmarks.timing import event_ms
+    return event_ms(fn, iters, warmup)
 
 
 def host_ms(fn, iters: int = 100, warmup: int = 3) -> float:
@@ -2030,6 +2013,22 @@ NORM_CASES = (("phi3", 4, 3072, torch.bfloat16, torch.bfloat16),
               ("phi3-smoke", 32, 64, torch.float32, torch.float32))
 
 
+def norm_inputs(gen, rows, d, dtype, gdt):
+    """x (rows, d) and gamma (d,) of a ``NORM_CASES`` row, drawn on the
+    card from ``gen``."""
+    x = (3 * torch.randn((rows, d), generator=gen, device="cuda")).to(dtype)
+    g = (0.1 * torch.randn((d,), generator=gen, device="cuda")).to(gdt)
+    return x, g
+
+
+def norm_work(x, g):
+    """(operations, bytes) of the norm: x read and y written, gamma read;
+    a square, an add and two multiplies an element."""
+    rows, d = x.shape
+    return (4.0 * rows * d,
+            2 * rows * d * x.element_size() + d * g.element_size())
+
+
 def check_rms_norm(gen, report) -> dict:
     """The row-wise norm of the decode and chunk bodies at ``NORM_CASES``
     against its plain version (the model's norm), every row's bits equal
@@ -2039,12 +2038,16 @@ def check_rms_norm(gen, report) -> dict:
     from repro_torch.kernels import rms_norm
     from repro_torch.kernels.rms_norm.ref import rms_norm_ref
     rep = None
+    # the floor of one launch, timed as the rows below are: a one-element
+    # in-place add (the yardstick of the norm at decode's few rows)
+    one = torch.zeros(1, device="cuda")
+    floor = cuda_ms(lambda: one.add_(1))
+    log(f"[kernels] floor: one-element in-place add {floor:8.4f} ms")
+    report.append({"kernel": "floor", "ms": floor})
     log("[kernels] rms_norm  model  rows  d  dtype  gamma  max_abs_err  ms  "
         "plain_ms  library_ms  bound_ms")
     for model, rows, d, dtype, gdt in NORM_CASES:
-        x = (3 * torch.randn((rows, d), generator=gen, device="cuda")
-             ).to(dtype)
-        g = (0.1 * torch.randn((d,), generator=gen, device="cuda")).to(gdt)
+        x, g = norm_inputs(gen, rows, d, dtype, gdt)
         out = rms_norm(x, g)
         err = within(out, rms_norm_ref(x, g), TOL[dtype])
         for i in (0, rows - 1):
@@ -2055,11 +2058,7 @@ def check_rms_norm(gen, report) -> dict:
         plain = cuda_ms(lambda: rms_norm_ref(x, g))
         weight = (1.0 + g.float()).to(dtype)
         lib = cuda_ms(lambda: F.rms_norm(x, (d,), weight, 1e-5))
-        # x read and y written, gamma read; a square, an add and two
-        # multiplies an element
-        b_ms, b_by = bound(4.0 * rows * d,
-                           2 * rows * d * x.element_size()
-                           + d * g.element_size(), torch.float32)
+        b_ms, b_by = bound(*norm_work(x, g), torch.float32)
         log(f"[kernels] rms_norm {model:>10s} {rows:3d} {d:5d} "
             f"{str(dtype)[6:]:>8s} {str(gdt)[6:]:>8s} {err:10.3e} "
             f"{ms:8.4f} {plain:8.4f} {lib:8.4f} {b_ms:8.4f} ({b_by}; rows "
@@ -2079,7 +2078,9 @@ def check_rms_norm(gen, report) -> dict:
 #: cases: phase 4's decode bodies (C 1; olmoe's and recurrentgemma's too,
 #: whose chunks run a decode body a column) and chunks of 8 over 4 slots of
 #: 256 rows, the prefill cells' chunks of 16 over 2 slots of 80 rows (full
-#: width in bf16, reduced in fp32) and serve_batch's 3 slots of 128 rows
+#: width in bf16, reduced in fp32), serve_batch's 3 slots of 128 rows, and
+#: the decode steps and a chunk that a served phi3-mini-3.8b and glm4-9b
+#: reach at a 4K context (rows that cross many 64-position spans)
 ATTN_CASES = (
     ("phi3", 4, 1, 32, 32, 256, 96, torch.bfloat16, (40, 17, 33, 8)),
     ("phi3", 4, 8, 32, 32, 256, 96, torch.bfloat16, (24, 0, 9, 16)),
@@ -2089,7 +2090,58 @@ ATTN_CASES = (
     ("glm4", 3, 8, 32, 2, 128, 128, torch.bfloat16, (5, 0, 12)),
     ("phi3-smoke", 2, 16, 4, 4, 80, 16, torch.float32, (48, 0)),
     ("olmoe", 4, 1, 16, 16, 256, 128, torch.bfloat16, (40, 17, 33, 8)),
-    ("rgemma", 4, 1, 10, 1, 256, 256, torch.bfloat16, (40, 17, 33, 8)))
+    ("rgemma", 4, 1, 10, 1, 256, 256, torch.bfloat16, (40, 17, 33, 8)),
+    ("phi3 4k", 4, 1, 32, 32, 4096, 96, torch.bfloat16,
+     (4095, 3000, 2047, 999)),
+    ("phi3 4k chunk", 4, 8, 32, 32, 4096, 96, torch.bfloat16,
+     (4000, 2900, 2000, 990)),
+    ("glm4 4k", 3, 1, 32, 2, 4096, 128, torch.bfloat16, (4095, 2047, 999)))
+
+
+#: q's scale where the cache is longer than one 256-position group (the 4K
+#: rows): scores of standard deviation 4 rest each softmax on a few
+#: positions, so the outputs are O(0.5), well above the bf16 tolerance, and
+#: a lost span or group shows (unscaled, they are about 0.03 at 4K)
+LONG_Q_SCALE = 4.0
+
+
+def attn_inputs(gen, b, c, hq, hkv, t, d, dtype, lens):
+    """q, the caches and valid of an ``ATTN_CASES`` row, drawn on the card
+    from ``gen``: query (c, b) sees rows [0, lens[b] + c + 1), at most T;
+    q scaled by ``LONG_Q_SCALE`` where T is over 256."""
+    def rnd(*shape, scale=1.0):
+        return (scale * torch.randn(shape, generator=gen, device="cuda")
+                ).to(dtype)
+    q = rnd(c, b, hq, d, scale=LONG_Q_SCALE if t > 256 else 1.0)
+    k, v = rnd(b, hkv, t, d), rnd(b, hkv, t, d)
+    valid = (torch.tensor(lens, device="cuda")[None] + 1
+             + torch.arange(c, device="cuda")[:, None]).clamp(max=t)
+    return q, k, v, valid.to(torch.int32)
+
+
+def attn_library(q, k, v, valid):
+    """One library call of the same function: SDPA with a boolean mask
+    over the GQA heads."""
+    import torch.nn.functional as F
+    qs = q.permute(1, 2, 0, 3)                          # (B, Hq, C, D)
+    mask = (torch.arange(k.shape[2], device=q.device)[None, None]
+            < valid.t()[:, :, None])[:, None]           # (B, 1, C, T)
+    return lambda: F.scaled_dot_product_attention(qs, k, v, attn_mask=mask,
+                                                  enable_gqa=True)
+
+
+def attn_work(q, k, valid):
+    """(operations, bytes) of decode attention: each query's visible rows'
+    scores and weighted sum; q read and the output written, each slot's
+    K/V rows up to its longest column's length read once, valid read."""
+    hq, d = q.shape[2], q.shape[3]
+    hkv = k.shape[1]
+    seen = valid.long().sum().item()
+    flops = 4.0 * seen * d * (hq // hkv) * hkv
+    rows = valid.long().max(dim=0).values.sum().item()
+    es = q.element_size()
+    return flops, (2 * q.numel() * es + 2 * rows * hkv * d * es
+                   + valid.numel() * 4)
 
 
 def check_decode_attention(gen, report) -> dict:
@@ -2098,7 +2150,6 @@ def check_decode_attention(gen, report) -> dict:
     column's queries equal bit for bit to the column alone (a decode
     step's call); beside SDPA with a boolean mask over the GQA heads (one
     library call, the same function)."""
-    import torch.nn.functional as F
     from repro_torch.kernels import decode_attention
     from repro_torch.kernels.decode_attention.ref import (
         decode_attention_rows_ref)
@@ -2106,12 +2157,7 @@ def check_decode_attention(gen, report) -> dict:
     log("[kernels] decode_attention  model  B  C  Hq/Hkv  T  D  dtype  "
         "max_abs_err  ms  plain_ms  library_ms  bound_ms")
     for model, b, c, hq, hkv, t, d, dtype, lens in ATTN_CASES:
-        def rnd(*shape):
-            return torch.randn(shape, generator=gen, device="cuda").to(dtype)
-        q, k, v = rnd(c, b, hq, d), rnd(b, hkv, t, d), rnd(b, hkv, t, d)
-        valid = (torch.tensor(lens, device="cuda")[None] + 1
-                 + torch.arange(c, device="cuda")[:, None]).clamp(max=t)
-        valid = valid.to(torch.int32)
+        q, k, v, valid = attn_inputs(gen, b, c, hq, hkv, t, d, dtype, lens)
         out = decode_attention(q, k, v, valid)
         err = within(out, decode_attention_rows_ref(q, k, v, valid),
                      TOL[dtype])
@@ -2125,19 +2171,8 @@ def check_decode_attention(gen, report) -> dict:
         ms = cuda_ms(lambda: decode_attention(q, k, v, valid))
         plain = cuda_ms(lambda: decode_attention_rows_ref(q, k, v, valid),
                         iters=5)
-        qs = q.permute(1, 2, 0, 3)                      # (B, Hq, C, D)
-        mask = (torch.arange(t, device="cuda")[None, None]
-                < valid.t()[:, :, None])[:, None]       # (B, 1, C, T)
-        lib = cuda_ms(lambda: F.scaled_dot_product_attention(
-            qs, k, v, attn_mask=mask, enable_gqa=True))
-        # each query: its visible rows' scores and weighted sum; each slot's
-        # K/V rows up to its longest column's length read once
-        seen = valid.long().sum().item()
-        flops = 4.0 * seen * d * (hq // hkv) * hkv
-        rows = valid.long().max(dim=0).values.sum().item()
-        es = q.element_size()
-        nbytes = 2 * q.numel() * es + 2 * rows * hkv * d * es + valid.numel() * 4
-        b_ms, b_by = bound(flops, nbytes, torch.float32)
+        lib = cuda_ms(attn_library(q, k, v, valid))
+        b_ms, b_by = bound(*attn_work(q, k, valid), torch.float32)
         log(f"[kernels] decode_attention {model:>10s} {b:2d} {c:3d} "
             f"{hq:3d}/{hkv:<3d} {t:4d} {d:4d} {str(dtype)[6:]:>8s} "
             f"{err:10.3e} {ms:8.4f} {plain:8.4f} {lib:8.4f} {b_ms:8.4f} "

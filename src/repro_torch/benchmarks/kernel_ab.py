@@ -1,14 +1,16 @@
-"""A/B of the port's fp32 kernels and ``rglru_scan`` against another
-checkout's, on one card.
+"""A/B of the port's fp32 kernels, ``rglru_scan`` and the serve bodies'
+row-wise kernels against another checkout's, on one card.
 
   python -m repro_torch.benchmarks.kernel_ab --other DIR [--out FILE]
 
 ``DIR`` is the root of another checkout of this repository (a ``git
 archive`` of an earlier commit unpacked under ``build/``, say).  Its
-``queue_matmul``, ``moe_gemm``, ``flash_attention`` and ``rglru_scan``
-sources are built into ``DIR/build/kernels/`` and launched through this
-checkout's wrappers, whose C interfaces the two must share; none of
-``DIR``'s Python runs.
+``queue_matmul``, ``moe_gemm``, ``flash_attention``, ``rglru_scan``,
+``rms_norm`` and ``decode_attention`` sources are built into
+``DIR/build/kernels/`` and launched through this checkout's wrappers,
+whose C interfaces the two must share, but for ``decode_attention``'s
+before its split over the cache length (:data:`UNSPLIT_ATTENTION`), which
+is called as it was; none of ``DIR``'s Python runs.
 
 - Bits: every fp32 product ``chip_smoke.py``'s phase 2 checks
   (``queue_matmul`` over the served, trained and scored models and the entry
@@ -30,6 +32,12 @@ checkout's wrappers, whose C interfaces the two must share; none of
   (``timing.cold_ms``), each build's max abs distance from the plain
   version beside its byte bound; this build's forward at that shape in
   fp32 timed both ways too.
+- ``rms_norm`` at every ``NORM_CASES`` row and ``decode_attention`` at
+  every ``ATTN_CASES`` row of ``chip_smoke.py``'s phase 2, on its inputs:
+  each build's max abs distance from the plain version, whether their
+  bits agree, their device times in turns beside the library call
+  (``F.rms_norm``, masked SDPA) and the bound phase 2 computes; and the
+  floor of one launch (a one-element in-place add) timed the same way.
 
 Prints one line a case and, with ``--out``, writes the rows as JSON with
 the card's name and power limit.  Needs a CUDA card.
@@ -38,6 +46,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import ctypes
 import importlib.util
 import json
 import math
@@ -49,18 +58,28 @@ from typing import Dict, List
 
 import torch
 
+from ..kernels.decode_attention import ops as da_ops
+from ..kernels.decode_attention.ref import decode_attention_rows_ref
 from ..kernels.flash_attention import ops as fa_ops
 from ..kernels.moe_gemm import ops as mg_ops
 from ..kernels.queue_matmul import ops as qm_ops
 from ..kernels.rglru_scan import ops as rg_ops
 from ..kernels.rglru_scan.ref import rglru_scan_bwd_ref
+from ..kernels.rms_norm import ops as rn_ops
+from ..kernels.rms_norm.ref import rms_norm_ref
 from ..roofline import HBM_BW, PEAK_FLOPS_BY_DTYPE
 from .timing import cold_ms, event_ms
 
 ROOT = Path(__file__).resolve().parents[3]
 #: the wrapper module of each kernel, whose ``_library`` is swapped
 WRAPPERS = {"queue_matmul": qm_ops, "moe_gemm": mg_ops,
-            "flash_attention": fa_ops, "rglru_scan": rg_ops}
+            "flash_attention": fa_ops, "rglru_scan": rg_ops,
+            "rms_norm": rn_ops, "decode_attention": da_ops}
+#: ``decode_attention_launch``'s argument types before its split over the
+#: cache length: (q, k, v, valid, out; B, R, Hq, Hkv, T, D, dtype; scale,
+#: stream), no workspace
+UNSPLIT_ATTENTION = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+                     + [ctypes.c_float, ctypes.c_void_p])
 
 
 def other_libraries(other: Path) -> Dict[str, object]:
@@ -247,6 +266,87 @@ def rglru_ab(cs, lib, g, report) -> int:
     return differ
 
 
+def attention_caller(lib):
+    """``decode_attention`` through the other build ``lib``: this
+    checkout's wrapper where the two share a C interface (the build
+    exports ``decode_attention_span``), else the launch before the split
+    over the cache length, called with its own arguments."""
+    raw = getattr(lib, "_lib", lib)
+    if hasattr(raw, "decode_attention_span"):
+        def shared(q, k, v, valid):
+            with launching("decode_attention", lib):
+                return da_ops.decode_attention(q, k, v, valid)
+        return shared
+    fn = raw["decode_attention_launch"]    # a fresh function object
+    fn.argtypes, fn.restype = UNSPLIT_ATTENTION, ctypes.c_int
+
+    def unsplit(q, k, v, valid):
+        C, B, Hq, D = q.shape
+        _, Hkv, T, _ = k.shape
+        out = torch.empty_like(q)
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
+                 out.data_ptr(), B, C * B, Hq, Hkv, T, D,
+                 da_ops._DTYPE_CODES[q.dtype], 1.0 / math.sqrt(D),
+                 torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"the other decode_attention failed: {err}")
+        return out
+    return unsplit
+
+
+def _err(out, ref) -> float:
+    return (out.float() - ref.float()).abs().max().item()
+
+
+def row_kernels_ab(cs, libs, g, report) -> None:
+    """The launch floor, then ``rms_norm`` at ``NORM_CASES`` and
+    ``decode_attention`` at ``ATTN_CASES`` through both builds: distances
+    from the plain version, bits, times in turns beside the library and
+    the bound."""
+    import torch.nn.functional as F
+    one = torch.zeros(1, device="cuda")
+    report({"kernel": "floor", "case": "one-element in-place add",
+            "this_ms": event_ms(lambda: one.add_(1), 50)})
+    for model, rows, d, dtype, gdt in cs.NORM_CASES:
+        x, gm = cs.norm_inputs(g, rows, d, dtype, gdt)
+
+        def other():
+            with launching("rms_norm", libs["rms_norm"]):
+                return rn_ops.rms_norm(x, gm)
+        ref = rms_norm_ref(x, gm)
+        outs = other(), rn_ops.rms_norm(x, gm)
+        row = {"kernel": "rms_norm", "case": f"{model} {rows}x{d} "
+               f"{str(dtype)[6:]} gamma {str(gdt)[6:]}",
+               "other_err": _err(outs[0], ref), "this_err": _err(outs[1], ref),
+               "equal": bool(torch.equal(*outs))}
+        row["other_ms"], row["this_ms"] = turns(
+            other, lambda: rn_ops.rms_norm(x, gm), 50)
+        weight = (1.0 + gm.float()).to(dtype)
+        row["library_ms"] = event_ms(
+            lambda: F.rms_norm(x, (d,), weight, 1e-5), 50)
+        row["bound_ms"] = bound_ms(*cs.norm_work(x, gm))
+        report(row)
+    call_other = attention_caller(libs["decode_attention"])
+    for model, b, c, hq, hkv, t, d, dtype, lens in cs.ATTN_CASES:
+        q, k, v, valid = cs.attn_inputs(g, b, c, hq, hkv, t, d, dtype, lens)
+        ref = decode_attention_rows_ref(q, k, v, valid)
+        outs = (call_other(q, k, v, valid),
+                da_ops.decode_attention(q, k, v, valid))
+        row = {"kernel": "decode_attention", "case": f"{model} {b},{c},"
+               f"{hq}/{hkv},{t},{d} {str(dtype)[6:]}",
+               "other_err": _err(outs[0], ref), "this_err": _err(outs[1], ref),
+               "equal": bool(torch.equal(*outs))}
+        row["other_ms"], row["this_ms"] = turns(
+            lambda: call_other(q, k, v, valid),
+            lambda: da_ops.decode_attention(q, k, v, valid), 20)
+        row["library_ms"] = event_ms(cs.attn_library(q, k, v, valid), 20)
+        row["bound_ms"] = bound_ms(*cs.attn_work(q, k, valid))
+        row["this_of_bound"] = row["bound_ms"] / row["this_ms"]
+        report(row)
+        del q, k, v, ref, outs
+        torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--other", required=True, type=Path,
@@ -363,6 +463,7 @@ def main(argv=None) -> int:
     forward = sum(r["kernel"] == "rglru_scan" for r in rows)
     print(f"[ab] {scans} of {forward} rglru_scan forward outputs differ in "
           f"bits", flush=True)
+    row_kernels_ab(cs, libs, g, report)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps({"card": smi, "rows": rows},

@@ -2,6 +2,7 @@
 time from CUDA events on the card, the host clock elsewhere."""
 from __future__ import annotations
 
+import gc
 import time
 from typing import Callable, Optional
 
@@ -16,7 +17,8 @@ def event_ms(fn, iters: int, warmup: int = 3) -> float:
     """Mean device time of ``fn()`` in ms between two CUDA events around
     ``iters`` calls, after ``warmup`` calls.  The calls queue behind a
     sleep on the card long enough for the host to enqueue them all, so the
-    host's time to launch them does not show."""
+    host's time to launch them does not show (the garbage collector held
+    off meanwhile)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -27,11 +29,17 @@ def event_ms(fn, iters: int, warmup: int = 3) -> float:
     sleep_s = min(MAX_SLEEP_S, 1.5 * iters * host_s + 1e-3)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(int(sleep_s * SLEEP_CYCLES_PER_S))
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
+    collecting = gc.isenabled()
+    gc.disable()   # a collection while the calls queue would leave the card idle
+    try:
+        torch.cuda._sleep(int(sleep_s * SLEEP_CYCLES_PER_S))
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+    finally:
+        if collecting:
+            gc.enable()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
 

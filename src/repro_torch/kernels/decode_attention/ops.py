@@ -3,15 +3,19 @@
 The attention of the serve path's decode and chunk bodies
 (:func:`repro_torch.models.model.decode_step`, ``prefill_step``): C columns
 of queries over B slots, each query against the first ``valid`` rows of its
-slot's K/V cache, in one launch; one warp a query row and one fixed order
-of operations, so a query's bits never depend on how many columns, heads
-or slots run with it (``csrc/decode_attention.cu``).  Its plain version is
+slot's K/V cache, split over the cache length in spans whose partials are
+folded in span order (``csrc/decode_attention.cu``; a second, merge launch
+when the cache is longer than one 256-position group).  A row's decomposition is fixed by
+(D, dtype) alone (``plan.py``), so a query's bits never depend on how many
+columns, heads or slots run with it.  Its plain version is
 :func:`.ref.decode_attention_rows_ref`, the model's one-column attention
 (:func:`.ref.decode_attention_ref`) over each column.
 
 Where it runs: a CPU or meta tensor goes to the plain version; a CUDA
 tensor launches the kernel on the current stream, or raises.
-``decode_attention.launches`` counts its launches.
+``decode_attention.launches`` counts its calls on the card: one a call,
+which launches the split kernel and, where T is over 256, the merge after
+it.
 """
 from __future__ import annotations
 
@@ -23,11 +27,10 @@ import torch
 
 from ...device import PLAIN_DEVICES
 from .. import _build
+from . import plan
 from .ref import decode_attention_rows_ref
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-#: the largest head dim the kernel takes
-MAX_D = 256
 
 
 @functools.cache
@@ -35,14 +38,20 @@ def _library() -> ctypes.CDLL:
     """The built kernel library, its C functions typed (pointers and the
     stream as ``c_void_p``, so ctypes never cuts them to 32 bits)."""
     lib = _build.load("decode_attention")
-    lib.decode_attention_launch.argtypes = ([ctypes.c_void_p] * 5
-                                            + [ctypes.c_int] * 7
+    lib.decode_attention_launch.argtypes = ([ctypes.c_void_p] * 6
+                                            + [ctypes.c_int] * 8
                                             + [ctypes.c_float,
                                                ctypes.c_void_p])
     lib.decode_attention_launch.restype = ctypes.c_int
     lib.decode_attention_error_string.argtypes = [ctypes.c_int]
     lib.decode_attention_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous at a 16-byte address (the kernel's copies)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % plan.COPY_BYTES == 0 else t.clone()
 
 
 def _launch(q, k_cache, v_cache, valid) -> torch.Tensor:
@@ -53,18 +62,24 @@ def _launch(q, k_cache, v_cache, valid) -> torch.Tensor:
                         f"{k_cache.dtype}, {v_cache.dtype}")
     C, B, Hq, D = q.shape
     _, Hkv, T, _ = k_cache.shape
-    if D > MAX_D:
+    if not plan.takes(D, q.element_size()):
         raise ValueError(f"decode_attention kernel takes head dims up to "
-                         f"{MAX_D}, got {D}")
-    qc = q.contiguous()
-    kc, vc = k_cache.contiguous(), v_cache.contiguous()
+                         f"{plan.MAX_D} in whole 16-byte vectors, got {D} "
+                         f"in {q.dtype}")
+    geo = plan.geometry(B, C, Hq, Hkv, T, D, q.element_size())
+    qc, kc, vc = _aligned(q), _aligned(k_cache), _aligned(v_cache)
     lens = valid.to(torch.int32).contiguous()
     out = torch.empty_like(qc)
+    # the span partials (max, sum, weighted V), fp32; from the graph's pool
+    # under capture
+    work = (torch.empty(geo.work_floats, dtype=torch.float32,
+                        device=q.device) if geo.merges else None)
     lib = _library()
     with torch.cuda.device(q.device):
         err = lib.decode_attention_launch(
             qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), lens.data_ptr(),
-            out.data_ptr(), B, C * B, Hq, Hkv, T, D, _DTYPE_CODES[q.dtype],
+            out.data_ptr(), None if work is None else work.data_ptr(), B,
+            C * B, Hq, Hkv, T, D, _DTYPE_CODES[q.dtype], geo.rows,
             1.0 / math.sqrt(D), torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError("decode_attention kernel launch failed: "
@@ -103,5 +118,6 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     return _launch(q, k_cache, v_cache, valid)
 
 
-#: kernel launches since the count was last set to 0
+#: calls on the card (each one split launch, and a merge where T > 256)
+#: since the count was last set to 0
 decode_attention.launches = 0

@@ -1,10 +1,11 @@
 """Public wrapper of the CUDA row-wise RMS norm.
 
 The norm of the serve path's decode and chunk bodies
-(:func:`repro_torch.models.model.decode_step`, ``prefill_step``): one block
-a row and one fixed sum order, so a row's bits never depend on how many
-rows are normed with it (``csrc/rms_norm.cu``).  Its plain version is the
-model's norm, :func:`.ref.rms_norm_ref`.
+(:func:`repro_torch.models.model.decode_step`, ``prefill_step``): each row
+read once in 16-byte vectors by a number of threads fixed by (d, dtype)
+(``plan.py``), and one fixed sum order, so a row's bits never depend on how
+many rows are normed with it (``csrc/rms_norm.cu``).  Its plain version is
+the model's norm, :func:`.ref.rms_norm_ref`.
 
 Where it runs: a CPU or meta tensor goes to the plain version (on the CPU
 its row bits do not depend on the row count either: each row is reduced
@@ -20,6 +21,7 @@ import torch
 
 from ...device import PLAIN_DEVICES
 from .. import _build
+from . import plan
 from .ref import rms_norm_ref
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -39,6 +41,12 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous at a 16-byte address (the kernel's loads)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % plan.LOAD_BYTES == 0 else t.clone()
+
+
 def _launch(x: torch.Tensor, gamma: torch.Tensor, eps: float) -> torch.Tensor:
     if x.dtype not in _DTYPE_CODES or gamma.dtype not in _DTYPE_CODES:
         raise TypeError(f"rms_norm kernel takes float32 or bfloat16, got x "
@@ -46,8 +54,8 @@ def _launch(x: torch.Tensor, gamma: torch.Tensor, eps: float) -> torch.Tensor:
     if gamma.device != x.device:
         raise ValueError(f"operands on {x.device} and {gamma.device}")
     d = x.shape[-1]
-    xc = x.contiguous()
-    g = gamma.contiguous()
+    plan.threads_a_row(d, x.element_size())   # raises past the longest row
+    xc, g = _aligned(x), _aligned(gamma)
     out = torch.empty_like(xc)
     rows = xc.numel() // d
     lib = _library()

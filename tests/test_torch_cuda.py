@@ -41,7 +41,9 @@ row-wise ``rms_norm`` and ``decode_attention`` kernels against their plain
 versions (2e-4, 2e-2), each row or column equal to itself computed alone;
 bf16 ``queue_matmul`` run row by row keeps the thin kernel's bits at any
 M; and a replayed chunk of each batched family equals token prefill bit
-for bit, no product of it on the wide kernel."""
+for bit, no product of it on the wide kernel, over a 200-token prompt
+at full width too (queries across several of ``decode_attention``'s
+spans)."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -1412,12 +1414,16 @@ def test_the_body_ops_keep_a_rows_bits_across_row_counts(card, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("rows,d", [(1, 64), (4, 3072), (33, 3072),
-                                    (7, 18432), (3, 100)])
+                                    (7, 18432), (3, 100), (4, 18432),
+                                    (32, 18432), (32, 5120), (24, 4096)])
 @pytest.mark.parametrize("gamma_dtype", ["same", "float32"])
 def test_rms_norm_kernel_against_plain(card, rows, d, dtype, gamma_dtype):
     """The kernel within 2e-4 (fp32) or 2e-2 (bf16) of its plain version,
     gamma in the compute dtype (the layers' norms) or fp32 (the final
-    norm); every row's bits equal to the row normed alone."""
+    norm), at the served widths (nemotron's 18432 over a decode body's 4
+    rows and a chunk's 32) and an odd one (100: one element a load); every
+    row's bits equal to the row normed alone and to the rows normed in
+    another grouping."""
     from repro_torch.kernels import rms_norm
     from repro_torch.kernels.rms_norm.ref import rms_norm_ref
     x = (3 * torch.randn((rows, d), generator=card, device="cuda")).to(dtype)
@@ -1429,8 +1435,11 @@ def test_rms_norm_kernel_against_plain(card, rows, d, dtype, gamma_dtype):
     assert rms_norm.launches == before + 1
     assert out.dtype == dtype and out.shape == x.shape
     _close(out, rms_norm_ref(x, g, 1e-5), TOL[dtype])
-    for i in (0, rows - 1):
+    for i in range(rows):
         assert torch.equal(rms_norm(x[i:i + 1], g, 1e-5), out[i:i + 1])
+    half = rows // 2
+    assert torch.equal(torch.cat([rms_norm(x[:half], g, 1e-5),
+                                  rms_norm(x[half:], g, 1e-5)]), out)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1441,18 +1450,27 @@ def test_rms_norm_kernel_against_plain(card, rows, d, dtype, gamma_dtype):
     (3, 4, 32, 2, 64, 128),     # glm4-9b's GQA group of 16
     (2, 5, 96, 8, 40, 192),     # nemotron
     (2, 3, 4, 1, 33, 256),      # head dim 256, a ragged tile
-    (3, 7, 8, 2, 24, 8)])       # glm4-smoke
+    (3, 7, 8, 2, 24, 8),        # glm4-smoke
+    (4, 8, 96, 8, 256, 192),    # nemotron's chunk
+    (4, 1, 32, 32, 4096, 96),   # phi3's decode at a 4K context
+    (4, 8, 32, 32, 4096, 96),   # phi3's chunk at a 4K context
+    (3, 1, 32, 2, 4096, 128)])  # glm4-9b's decode at a 4K context
 def test_decode_attention_kernel_against_plain(card, b, c, hq, hkv, t, d,
                                                dtype):
     """The kernel within 2e-4 (fp32) or 2e-2 (bf16) of its plain version,
-    at lengths that end inside a tile, on a tile's edge, at T, past T
-    (all T rows) and at 0 (the mean of V, as the plain softmax gives);
-    every column's queries equal bit for bit to that column alone (a
-    decode step's call)."""
+    at lengths that end inside a span, on a span's edge, at T, past T
+    (all T rows), at 0 (the mean of V, as the plain softmax gives) and
+    across many 64-position spans (the 4K rows); every column's queries
+    equal bit for bit to that column alone (a decode step's call), and
+    every slot's and every K/V head's rows to that slot or head alone."""
     from repro_torch.kernels import decode_attention
     from repro_torch.kernels.decode_attention.ref import (
         decode_attention_rows_ref)
-    q = torch.randn((c, b, hq, d), generator=card, device="cuda").to(dtype)
+    # past one 256-position group, q x 4: each softmax then rests on a few
+    # positions and the outputs are O(0.5), well above the tolerance, so a
+    # lost span or group shows (unscaled, they are about 0.03 at 4K)
+    q = torch.randn((c, b, hq, d), generator=card, device="cuda")
+    q = (q * (4.0 if t > 256 else 1.0)).to(dtype)
     k = torch.randn((b, hkv, t, d), generator=card, device="cuda").to(dtype)
     v = torch.randn((b, hkv, t, d), generator=card, device="cuda").to(dtype)
     base = torch.tensor([t - 1, 0, 31, 5, 2 * t][:b], device="cuda")
@@ -1468,6 +1486,16 @@ def test_decode_attention_kernel_against_plain(card, b, c, hq, hkv, t, d,
     for j in range(c):
         assert torch.equal(decode_attention(q[j:j + 1], k, v,
                                             valid[j:j + 1]), out[j:j + 1])
+    for s in range(b):
+        assert torch.equal(decode_attention(
+            q[:, s:s + 1], k[s:s + 1], v[s:s + 1], valid[:, s:s + 1]),
+            out[:, s:s + 1])
+    g = hq // hkv
+    for h in (0, hkv - 1):
+        assert torch.equal(decode_attention(
+            q[:, :, h * g:(h + 1) * g].contiguous(),
+            k[:, h:h + 1].contiguous(), v[:, h:h + 1].contiguous(), valid),
+            out[:, :, h * g:(h + 1) * g])
 
 
 def _token_prefill(params, cache, toks, counts, cfg, rc):
@@ -1528,6 +1556,48 @@ def test_a_replayed_chunk_equals_token_prefill(card, arch, dtype):
                 assert torch.equal(cache[k], ref[k]), (width, call, k)
         assert prog.graph is not None and prog.replays == 2
     assert slabs and all(slabs)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_a_long_prompt_chunked_equals_token_prefill(card, dtype):
+    """phi3-mini-3.8b at full width cut to 2 layers, caches of 512 rows:
+    prompts of 200 and 300 tokens prefilled by a replayed chunk of 16 (its
+    first call eager, then eighteen replays) against token prefill of the
+    same tokens: logits after every chunk and every cache leaf equal bit
+    for bit.  The later chunks' queries cross several of
+    ``decode_attention``'s 64-position spans and, past 256 positions, its
+    256-position groups, whose partials the merge launch folds; phase 4's
+    prompts of at most 40 positions do neither."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention
+    cfg = dataclasses.replace(get_config("phi3-mini-3.8b"), n_layers=2)
+    rc = RunConfig(dtype=dtype, param_dtype=dtype, remat=False)
+    params = prepare_params(init_model_params(0, cfg, device="cuda"), cfg,
+                            rc)
+    cache = init_cache(cfg, 2, 512, rc.dtype, device="cuda")
+    ref = {k: v.clone() for k, v in cache.items()}
+    prog = _program(prefill_step, params, cache, cfg, rc, 16, 2)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab, 200), rng.integers(0, cfg.vocab,
+                                                             300)]
+    before = decode_attention.launches
+    for start in range(0, 300, 16):
+        toks = np.zeros((2, 16), np.int64)
+        n = np.zeros(2, np.int32)
+        for s, p in enumerate(prompts):
+            part = p[start:start + 16]
+            toks[s, :len(part)] = part
+            n[s] = len(part)
+        got = prog(tokens=toks, n_tokens=n)
+        want = _token_prefill(params, ref, torch.from_numpy(toks).cuda(), n,
+                              cfg, rc)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), start
+    for k in ref:
+        assert torch.equal(cache[k], ref[k]), k
+    assert prog.replays == 18
+    assert decode_attention.launches > before
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -1,7 +1,10 @@
 """``repro_torch.benchmarks.kernel_ab`` without a card: the fp32 products
 it compares are those ``chip_smoke.py``'s phase 2 checks, each once, the
 shapes it times are among them, its ``rglru_scan`` cases are phase 2's and
-phase 5 (a)'s, and it refuses to run without a card."""
+phase 5 (a)'s, its ``rms_norm`` and ``decode_attention`` rows are phase
+2's on phase 2's inputs and bounds (whose 4K rows' tolerance sees a lost
+group or span position), an earlier ``decode_attention`` build is called
+through the interface it has, and it refuses to run without a card."""
 import sys
 from pathlib import Path
 
@@ -78,3 +81,96 @@ def test_the_rglru_cases_are_phase_2s_and_phase_5as(smoke):
     assert smoke.RGLRU_TRAIN == (2, 512, width)
     assert all(w == width for _, _, w in smoke.RGLRU_CASES)
 
+
+
+def test_the_row_kernels_are_phase_2s_rows(smoke):
+    """``rms_norm`` and ``decode_attention`` are compared at every
+    ``NORM_CASES`` and ``ATTN_CASES`` row, on the inputs, library call and
+    bound phase 2 draws and computes (the same functions of chip_smoke.py),
+    the 4K rows included."""
+    import inspect
+    assert {"rms_norm", "decode_attention"} <= set(kernel_ab.WRAPPERS)
+    assert {"NORM_CASES", "norm_inputs", "norm_work"} <= _names_in(
+        smoke, "check_rms_norm")
+    assert {"ATTN_CASES", "attn_inputs", "attn_library", "attn_work"} <= \
+        _names_in(smoke, "check_decode_attention")
+    src = inspect.getsource(kernel_ab.row_kernels_ab)
+    for name in ("NORM_CASES", "norm_inputs", "norm_work", "ATTN_CASES",
+                 "attn_inputs", "attn_library", "attn_work"):
+        assert f"cs.{name}" in src
+    models = [case[0] for case in smoke.ATTN_CASES]
+    assert {"phi3 4k", "phi3 4k chunk", "glm4 4k"} <= set(models)
+    for case in smoke.ATTN_CASES:
+        if "4k" in case[0]:
+            assert case[5] == 4096 and len(case[8]) == case[1]
+
+
+def _attention(q, k, v, seen):
+    """Softmax attention in fp32 over the positions ``seen`` (C, B, T)
+    marks: q (C, B, Hq, D), caches (B, Hkv, T, D)."""
+    G = q.shape[2] // k.shape[1]
+    kk, vv = k.repeat_interleave(G, 1), v.repeat_interleave(G, 1)
+    s = torch.einsum("cbhd,bhtd->cbht", q, kk) / q.shape[3] ** 0.5
+    s = torch.where(seen[:, :, None], s, torch.tensor(-1e30))
+    return torch.einsum("cbht,bhtd->cbhd", torch.softmax(s, -1), vv)
+
+
+@pytest.mark.parametrize("row", ["phi3 4k", "phi3 4k chunk", "glm4 4k"])
+def test_the_long_attention_rows_see_a_lost_group_or_span(smoke, row):
+    """At phase 2's 4K rows, drawn as ``attn_inputs`` draws them (q scaled
+    by ``LONG_Q_SCALE``; here from numpy, in bf16), the outputs stand well
+    above the bf16 tolerance, the output's own bf16 rounding passes it,
+    and an attention that loses each crossing row's last 256-position
+    group, or one position of every 64-position span, fails it."""
+    import numpy as np
+    (_, b, c, hq, hkv, t, d, dtype, lens), = [
+        case for case in smoke.ATTN_CASES if case[0] == row]
+    assert t > 256 and dtype == torch.bfloat16
+    rng = np.random.default_rng(t + c)
+
+    def rnd(*shape, scale=1.0):
+        x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+        return (scale * x).to(dtype).float()
+    q = rnd(c, b, hq, d, scale=smoke.LONG_Q_SCALE)
+    k, v = rnd(b, hkv, t, d), rnd(b, hkv, t, d)
+    valid = (torch.tensor(lens)[None] + 1
+             + torch.arange(c)[:, None]).clamp(max=t)
+    pos = torch.arange(t)
+    seen = pos < valid[..., None]                         # (C, B, T)
+    ref = _attention(q, k, v, seen)
+    tol = smoke.TOL[dtype]
+
+    def passes(out):
+        return bool(((out - ref).abs() <= tol + tol * ref.abs()).all())
+    assert ref.pow(2).mean().sqrt() > 10 * tol
+    assert passes(ref.to(dtype).float())
+    last = (valid - 1) // 256 * 256
+    lost_group = seen & ~((pos >= last[..., None]) & (valid > 256)[..., None])
+    assert not passes(_attention(q, k, v, lost_group))
+    assert not passes(_attention(q, k, v, seen & (pos % 64 != 63)))
+
+
+def test_an_earlier_attention_build_is_called_as_it_was():
+    """A build that exports ``decode_attention_span`` shares this
+    checkout's C interface and goes through its wrapper; one without it is
+    the launch before the split: q, k, v, valid and out, seven ints, the
+    scale and the stream, no workspace."""
+    import ctypes
+    import types
+
+    class Unsplit:
+        def __init__(self):
+            self.fn = types.SimpleNamespace()
+
+        def __getitem__(self, name):
+            assert name == "decode_attention_launch"
+            return self.fn
+
+    lib = Unsplit()
+    call = kernel_ab.attention_caller(lib)
+    assert call.__name__ == "unsplit"
+    assert lib.fn.argtypes == [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
+        ctypes.c_float, ctypes.c_void_p]
+    assert lib.fn.restype is ctypes.c_int
+    split = types.SimpleNamespace(decode_attention_span=lambda d, t: 64)
+    assert kernel_ab.attention_caller(split).__name__ == "shared"
