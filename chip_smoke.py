@@ -47,8 +47,12 @@ prints no result):
    decode products (phi3 over 2 slots, bf16) and serve_batch's (glm4-9b
    over 3 slots, bf16).  Then the batched chunk bodies' layer products
    row by row (``CHUNK_ROWS``: 32 rows in slabs of 4 slots for phi3,
-   pixtral and nemotron, glm4-9b's 24 in slabs of 3, reduced phi3's 32 in
-   fp32), every slab's rows equal to a call over the slab alone; the
+   pixtral, nemotron and olmoe, glm4-9b's 24 in slabs of 3, reduced phi3's
+   32 in fp32), every slab's rows equal to a call over the slab alone, and
+   the MoE chunks' expert products row by row (``MOE_ROWS``: olmoe's 32
+   and 64 rows an expert, granite-moe-3b-a800m's 32, in slabs of 4, with
+   every expert and routed), each slab equal to a call over it alone and
+   the C = 4 launch's bits unchanged row by row; the
    row-wise ``rms_norm`` (``NORM_CASES``) and ``decode_attention``
    (``ATTN_CASES``: decode bodies and chunks over the served models'
    heads, and phi3's and glm4's at a 4K context) against their plain
@@ -95,8 +99,8 @@ prints no result):
    olmoe the experts each layer's mask keeps; and of the widest chunk
    program replayed with every count 0 (the cache must stay unchanged),
    its wall, kernels and kernel time a chunk and a prompt token (one
-   batched body for phi3, pixtral and nemotron, a decode body a column
-   for the others).
+   batched body for phi3, pixtral, nemotron and olmoe, a decode body a
+   column for the others).
 4b. policy — the serve path on a calibrated operating point: the port's
    machine model calibrates a smoke grid on the host (``POLICY_CALIBRATION``,
    in-process), ``REPRO_CALIBRATION_DIR`` points at the artifacts, and the
@@ -584,12 +588,14 @@ def entry_paths():
 #: (model, rows, slab, dtype) of the batched chunk bodies' products:
 #: phase 4's chunks of 8 over 4 slots, serve_batch's over 3 (glm4-9b), the
 #: prefill cells' of 16 over 2 (full width in bf16, reduced in fp32), each
-#: row by row in slabs of the slots
+#: row by row in slabs of the slots (models added since the list began
+#: last, so that every earlier case keeps its inputs)
 CHUNK_ROWS = (("phi3-mini-3.8b", False, 32, 4, torch.bfloat16),
               ("pixtral-12b", False, 32, 4, torch.bfloat16),
               ("nemotron-4-340b", False, 32, 4, torch.bfloat16),
               ("glm4-9b", False, 24, 3, torch.bfloat16),
-              ("phi3-mini-3.8b", True, 32, 2, torch.float32))
+              ("phi3-mini-3.8b", True, 32, 2, torch.float32),
+              ("olmoe-1b-7b", False, 32, 4, torch.bfloat16))
 #: the generator offset of those products' inputs (see ``OWN_DRAWS``)
 CHUNK_DRAW = 29
 
@@ -1887,7 +1893,112 @@ def check_moe_gemm(gen, report) -> dict:
             if (c, d, dtype, routed) == (4, 2048, torch.bfloat16, True):
                 rep = row
         free_card()
+    check_moe_rows(report)
     return rep
+
+
+#: (model, E, d, f, rows an expert) of the batched chunk's expert products
+#: row by row in slabs of ``MOE_SLAB`` slots: olmoe-1b-7b at phase 4's
+#: chunk (8 columns, 2 tiles a block) and at 16 columns (4 tiles), granite-
+#: moe-3b-a800m at 8; wi/wg with the shared x, wo with a per-expert x
+MOE_ROWS = (("olmoe-1b-7b", 64, 2048, 1024, (32, 64)),
+            ("granite-moe-3b-a800m", 40, 1536, 512, (32,)))
+MOE_SLAB = 4
+#: the generator offset of those products' inputs (see ``OWN_DRAWS``)
+MOE_ROWS_DRAW = 31
+
+
+def check_moe_rows(report) -> None:
+    """``moe_gemm`` row by row (``slab``: the thin kernel at any C, up to
+    four 16-row tiles of an expert a block) at ``MOE_ROWS``, with every
+    expert and with the mask of a top-8 routing of the chunk's tokens (the
+    union of its rows' experts), in bf16: held to the plain version, the
+    same bits at every depth, every slab of 4 rows the bits of a call over
+    that slab alone (the decode body's), and at C = 4 the same bits with
+    and without ``slab``.  Timed beside its byte bound (the active experts'
+    weights) and ``torch.bmm`` with x broadcast over every expert (a
+    yardstick: it computes every expert)."""
+    from repro_torch.kernels.moe_gemm import ops
+    from repro_torch.kernels.moe_gemm.ref import moe_gemm_ref
+    depth = ops.operating_point().effective_depths()[1]
+    dtype = torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(SEED + MOE_ROWS_DRAW)
+    log(f"[kernels] moe_gemm row by row  model  E    C     d     f  x  "
+        f"max_abs_err  ms  plain_ms  library_ms  bound_ms  (depth {depth}, "
+        f"slabs of {MOE_SLAB})")
+    for arch, e, dm, fe, cs in MOE_ROWS:
+        for d, f, bcast in ((dm, fe, True), (fe, dm, False)):
+            w = (torch.randn((e, d, f), generator=g, device="cuda")
+                 / math.sqrt(d)).to(dtype)
+            for c in cs:
+                x = torch.randn((c, d) if bcast else (e, c, d), generator=g,
+                                device="cuda").to(dtype)
+                if bcast:
+                    x = x.expand(e, c, d)
+                small = ops.moe_gemm(x[:, :MOE_SLAB], w)
+                if not torch.equal(ops.moe_gemm(x[:, :MOE_SLAB], w,
+                                                slab=MOE_SLAB), small):
+                    raise AssertionError(
+                        f"moe_gemm's C = {MOE_SLAB} bits changed row by row "
+                        f"at {arch} d={d} f={f}")
+                for routed in (False, True):
+                    active = routed_mask(g, c, e, 8) if routed else None
+                    n_act = int(active.sum()) if routed else e
+                    ref = moe_gemm_ref(x, w, active)
+                    outs = {k: ops.moe_gemm(x, w, depth=k, active=active,
+                                            slab=MOE_SLAB) for k in (1, 2, 4)}
+                    torch.cuda.synchronize()
+                    base = outs[1]
+                    for k, o in outs.items():
+                        if not torch.equal(o, base):
+                            raise AssertionError(
+                                f"moe_gemm row by row: depth {k} differs "
+                                f"from depth 1 at {arch} C={c} d={d}")
+                    for i in range(0, c, MOE_SLAB):
+                        alone = ops.moe_gemm(x[:, i:i + MOE_SLAB], w,
+                                             depth=depth, active=active,
+                                             slab=MOE_SLAB)
+                        if not torch.equal(alone, base[:, i:i + MOE_SLAB]):
+                            raise AssertionError(
+                                f"moe_gemm row by row: rows {i}-"
+                                f"{i + MOE_SLAB} of {c} differ from their "
+                                f"slab alone at {arch} d={d} f={f}")
+                    err = within(base, ref, TOL[dtype])
+                    del outs, ref, base
+                    args = [(x, w.clone()) for _ in range(2)]
+                    make = cycling(args)
+                    ms = cuda_ms(make(lambda a, b: ops.moe_gemm(
+                        a, b, depth=depth, active=active, slab=MOE_SLAB)))
+                    plain = cuda_ms(make(lambda a, b: moe_gemm_ref(
+                        a, b, active, MOE_SLAB)), iters=5)
+                    xb = x.contiguous()
+                    lib = cuda_ms(lambda: torch.bmm(xb, w))
+                    x_bytes = (c if bcast else n_act * c) * d * 2
+                    nbytes = x_bytes + n_act * d * f * 2 + e * c * f * 4
+                    b_ms, b_by = bound(2.0 * n_act * c * d * f, nbytes,
+                                       dtype)
+                    del args, make, xb
+                    tiles = ops.thin_tiles(c, depth)
+                    log(f"[kernels] moe_gemm rows {arch.split('-')[0]:>7s} "
+                        f"{e:3d} {c:4d} {d:5d} {f:5d} {'b' if bcast else 'e'}"
+                        f" {err:10.3e} {ms:8.4f} {plain:8.4f} {lib:8.4f} "
+                        f"{b_ms:8.4f} ({b_by}; thin, {tiles} tiles a block, "
+                        f"split {ops.split_k(e, d, f)}; {n_act} of {e} "
+                        f"experts active"
+                        + (f", routed top-8 of {c} tokens" if routed else "")
+                        + f"; {nbytes / ms / 1e6:.0f} GB/s; "
+                        f"{ms / lib:.2f}x bmm)")
+                    report.append({
+                        "kernel": "moe_gemm", "model": arch, "E": e, "C": c,
+                        "d": d, "f": f, "broadcast_x": bcast, "dtype":
+                        "bfloat16", "depth": depth, "regime": "thin",
+                        "slab": MOE_SLAB, "tiles": tiles, "routed": routed,
+                        "active": n_act, "max_abs_err": err, "ms": ms,
+                        "plain_ms": plain, "library_ms": lib,
+                        "bound_ms": b_ms, "bound_by": b_by})
+                del x
+            del w
+            free_card()
 
 
 def check_ssm_scan(gen, report) -> dict:

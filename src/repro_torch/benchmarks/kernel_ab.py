@@ -8,9 +8,9 @@ archive`` of an earlier commit unpacked under ``build/``, say).  Its
 ``queue_matmul``, ``moe_gemm``, ``flash_attention``, ``rglru_scan``,
 ``rms_norm`` and ``decode_attention`` sources are built into
 ``DIR/build/kernels/`` and launched through this checkout's wrappers,
-whose C interfaces the two must share, but for ``decode_attention``'s
-before its split over the cache length (:data:`UNSPLIT_ATTENTION`), which
-is called as it was; none of ``DIR``'s Python runs.
+whose C interfaces the two must share, but for ``moe_gemm``'s before it
+ran row by row (:data:`BEFORE_ROWS`), which is called without the
+``rowwise`` argument; none of ``DIR``'s Python runs.
 
 - Bits: every fp32 product ``chip_smoke.py``'s phase 2 checks
   (``queue_matmul`` over the served, trained and scored models and the entry
@@ -32,6 +32,15 @@ is called as it was; none of ``DIR``'s Python runs.
   (``timing.cold_ms``), each build's max abs distance from the plain
   version beside its byte bound; this build's forward at that shape in
   fp32 timed both ways too.
+- bf16 ``moe_gemm`` at olmoe-1b-7b's expert products (``MOE_PRODUCTS``):
+  the bits of every launch of at most 16 rows an expert (1, 4 and 16,
+  every expert and routed top-8) through both builds; then a chunk of 8
+  columns of 4 slots (``MOE_CHUNK``), each column's rows routed top-8:
+  this build's one row-by-row launch over the 32 rows (the union of the
+  columns' masks) against the other's 8 launches of 4 rows (a column's
+  mask each, as its decode body ran a chunk), every column's routed rows
+  compared bit for bit, timed in turns beside ``torch.bmm`` (x broadcast
+  over every expert) and the byte bound of the experts each side reads.
 - ``rms_norm`` at every ``NORM_CASES`` row and ``decode_attention`` at
   every ``ATTN_CASES`` row of ``chip_smoke.py``'s phase 2, on its inputs:
   each build's max abs distance from the plain version, whether their
@@ -75,11 +84,16 @@ ROOT = Path(__file__).resolve().parents[3]
 WRAPPERS = {"queue_matmul": qm_ops, "moe_gemm": mg_ops,
             "flash_attention": fa_ops, "rglru_scan": rg_ops,
             "rms_norm": rn_ops, "decode_attention": da_ops}
-#: ``decode_attention_launch``'s argument types before its split over the
-#: cache length: (q, k, v, valid, out; B, R, Hq, Hkv, T, D, dtype; scale,
-#: stream), no workspace
-UNSPLIT_ATTENTION = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
-                     + [ctypes.c_float, ctypes.c_void_p])
+#: ``moe_gemm_launch``'s argument types before the thin kernel ran row by
+#: row: (x, w, out, active; E, M, N, K; x's expert stride; depth, dtype,
+#: split; stream), no ``rowwise``
+BEFORE_ROWS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+               + [ctypes.c_longlong] + [ctypes.c_int] * 3
+               + [ctypes.c_void_p])
+#: olmoe-1b-7b's expert products (E, d, f, x shared by every expert) and
+#: a chunk's (columns, slots): phase 4's chunks of 8 over 4 slots
+MOE_PRODUCTS = ((64, 2048, 1024, True), (64, 1024, 2048, False))
+MOE_CHUNK = (8, 4)
 
 
 def other_libraries(other: Path) -> Dict[str, object]:
@@ -100,7 +114,40 @@ def other_libraries(other: Path) -> Dict[str, object]:
             libs[name] = ops._library.__wrapped__()
         finally:
             ops._build = own
+    libs["moe_gemm"] = moe_library(libs["moe_gemm"])
     return libs
+
+
+def moe_library(lib):
+    """The other build's ``moe_gemm`` as this checkout's wrapper calls it:
+    a build that exports ``moe_gemm_thin_tiles`` shares its C interface;
+    one without it predates the row-by-row launch (:class:`_BeforeRows`)."""
+    raw = getattr(lib, "_lib", lib)
+    return lib if hasattr(raw, "moe_gemm_thin_tiles") else _BeforeRows(lib)
+
+
+class _BeforeRows:
+    """A ``moe_gemm`` build whose launch takes no ``rowwise``: called
+    without it (its C <= 16 launch is the same), and a row-by-row launch
+    of more than 16 rows an expert is refused, since that build would run
+    its wide kernel."""
+
+    def __init__(self, lib):
+        self._lib = lib
+        self.moe_gemm_launch_raw = getattr(lib, "_lib", lib)[
+            "moe_gemm_launch"]                  # a fresh function object
+        self.moe_gemm_launch_raw.argtypes = BEFORE_ROWS
+        self.moe_gemm_launch_raw.restype = ctypes.c_int
+
+    def moe_gemm_launch(self, *args):
+        *head, rowwise, stream = args
+        if rowwise and head[5] > 16:
+            raise ValueError("the other moe_gemm build runs no product of "
+                             "more than 16 rows an expert row by row")
+        return self.moe_gemm_launch_raw(*head, stream)
+
+    def __getattr__(self, name):
+        return getattr(self._lib, name)
 
 
 class _Lenient:
@@ -266,34 +313,6 @@ def rglru_ab(cs, lib, g, report) -> int:
     return differ
 
 
-def attention_caller(lib):
-    """``decode_attention`` through the other build ``lib``: this
-    checkout's wrapper where the two share a C interface (the build
-    exports ``decode_attention_span``), else the launch before the split
-    over the cache length, called with its own arguments."""
-    raw = getattr(lib, "_lib", lib)
-    if hasattr(raw, "decode_attention_span"):
-        def shared(q, k, v, valid):
-            with launching("decode_attention", lib):
-                return da_ops.decode_attention(q, k, v, valid)
-        return shared
-    fn = raw["decode_attention_launch"]    # a fresh function object
-    fn.argtypes, fn.restype = UNSPLIT_ATTENTION, ctypes.c_int
-
-    def unsplit(q, k, v, valid):
-        C, B, Hq, D = q.shape
-        _, Hkv, T, _ = k.shape
-        out = torch.empty_like(q)
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
-                 out.data_ptr(), B, C * B, Hq, Hkv, T, D,
-                 da_ops._DTYPE_CODES[q.dtype], 1.0 / math.sqrt(D),
-                 torch.cuda.current_stream().cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"the other decode_attention failed: {err}")
-        return out
-    return unsplit
-
-
 def _err(out, ref) -> float:
     return (out.float() - ref.float()).abs().max().item()
 
@@ -326,7 +345,9 @@ def row_kernels_ab(cs, libs, g, report) -> None:
             lambda: F.rms_norm(x, (d,), weight, 1e-5), 50)
         row["bound_ms"] = bound_ms(*cs.norm_work(x, gm))
         report(row)
-    call_other = attention_caller(libs["decode_attention"])
+    def call_other(q, k, v, valid):
+        with launching("decode_attention", libs["decode_attention"]):
+            return da_ops.decode_attention(q, k, v, valid)
     for model, b, c, hq, hkv, t, d, dtype, lens in cs.ATTN_CASES:
         q, k, v, valid = cs.attn_inputs(g, b, c, hq, hkv, t, d, dtype, lens)
         ref = decode_attention_rows_ref(q, k, v, valid)
@@ -345,6 +366,74 @@ def row_kernels_ab(cs, libs, g, report) -> None:
         report(row)
         del q, k, v, ref, outs
         torch.cuda.empty_cache()
+
+
+def moe_rows_ab(cs, lib, g, report) -> int:
+    """The bf16 ``moe_gemm`` rows: the bits of every launch of at most 16
+    rows an expert through both builds, then a chunk row by row (this
+    build) against its columns (the other) in turns.  Returns the launches
+    and chunks whose bits differ."""
+    differ = 0
+    cols, slots = MOE_CHUNK
+    n = cols * slots
+    for e, d, f, bcast in MOE_PRODUCTS:
+        w = (torch.randn((e, d, f), generator=g, device="cuda")
+             / d ** 0.5).bfloat16()
+        x = torch.randn((n, d) if bcast else (e, n, d), generator=g,
+                        device="cuda").bfloat16()
+        if bcast:
+            x = x.expand(e, n, d)
+        label = f"olmoe bf16 E={e} d={d} f={f}"
+        for c in (1, 4, 16):
+            for routed in (False, True):
+                active = cs.routed_mask(g, c, e, 8) if routed else None
+                with launching("moe_gemm", lib):
+                    a = mg_ops.moe_gemm(x[:, :c], w, active=active)
+                equal = bool(torch.equal(
+                    a, mg_ops.moe_gemm(x[:, :c], w, active=active)))
+                differ += not equal
+                report({"kernel": "moe_gemm", "case": f"{label} C={c}"
+                        + (" routed" if routed else ""), "equal": equal})
+        masks = [cs.routed_mask(g, slots, e, 8) for _ in range(cols)]
+        union = torch.stack(masks).amax(0)
+
+        def other():
+            with launching("moe_gemm", lib):
+                return [mg_ops.moe_gemm(x[:, j * slots:(j + 1) * slots], w,
+                                        active=masks[j])
+                        for j in range(cols)]
+
+        def this():
+            return mg_ops.moe_gemm(x, w, active=union, slab=slots)
+        columns, rows = other(), this()
+        equal = all(torch.equal(
+            rows[masks[j] != 0][:, j * slots:(j + 1) * slots],
+            columns[j][masks[j] != 0]) for j in range(cols))
+        differ += not equal
+        row = {"kernel": "moe_gemm", "case": f"{label} chunk {cols}x{slots}"
+               f" row by row (this) against {cols} columns (other)",
+               "equal": equal, "active": int((union != 0).sum()),
+               "column_active": [int((m != 0).sum()) for m in masks]}
+        row["other_ms"], row["this_ms"] = turns(other, this, 20)
+        xf = x.contiguous()
+        row["library_ms"] = event_ms(lambda: torch.bmm(xf, w), 20)
+        # the bytes each side must move: x once (once per column's active
+        # experts for a per-expert x), the active experts' weights and the
+        # fp32 output; the other side reads each column's experts again
+        out_b, w_b = e * n * f * 4, d * f * w.element_size()
+
+        def nbytes(active, rows_):
+            x_b = (rows_ if bcast else active * rows_) * d * x.element_size()
+            return x_b + active * w_b
+        row["bound_ms"] = nbytes(row["active"], n) / HBM_BW * 1e3 + \
+            out_b / HBM_BW * 1e3
+        row["other_bound_ms"] = sum(
+            nbytes(a, slots) for a in row["column_active"]) / HBM_BW * 1e3 \
+            + out_b / HBM_BW * 1e3
+        report(row)
+        del x, w, columns, rows
+        torch.cuda.empty_cache()
+    return differ
 
 
 def main(argv=None) -> int:
@@ -457,6 +546,7 @@ def main(argv=None) -> int:
                                    4.0 * b * (hq + hkv) * s * 2 * d)
         report(row)
 
+    differ += moe_rows_ab(cs, libs["moe_gemm"], g, report)
     products = sum(r["kernel"] in ("queue_matmul", "moe_gemm") for r in rows)
     print(f"[ab] {differ} of {products} products differ in bits", flush=True)
     scans = rglru_ab(cs, libs["rglru_scan"], g, report)

@@ -1,6 +1,7 @@
 """Which ops of a decode body give a row other bits when they run over more
 rows: each candidate op over a chunk's B x C rows against the same op over
-each column's B rows alone, on the card, at phi3-mini-3.8b's full widths.
+each column's B rows alone, on the card, at phi3-mini-3.8b's full widths
+(an MoE layer's at olmoe-1b-7b's).
 
 A chunk of C columns can run as one batched body (``models.model``'s
 ``prefill_step``) and keep token prefill's bits only if every op it runs
@@ -9,7 +10,9 @@ reports, for every candidate, whether the rows are bit-equal and the
 largest difference where they are not: the products in each regime of
 ``queue_matmul`` and run row by row (``slab``), the norm and decode
 attention in their plain PyTorch form and as the port's kernels, RoPE, the
-embedding gather and the FFN's elementwise ops.
+embedding gather and the FFN's elementwise ops, and an MoE layer's expert
+products (``moe_gemm`` in each regime and row by row) and its row-wise
+combine (``models.moe.combine_rows``).
 
   PYTHONPATH=src python -m repro_torch.benchmarks.row_bits [--out PATH]
 
@@ -32,7 +35,10 @@ D, HEADS, HD, VOCAB = 3072, 32, 96, 32064
 #: what a chunk's batched body runs, each of which must keep a row's bits
 BODY_OPS = ("queue_matmul row by row", "rms_norm (kernel)", "apply_rope",
             "silu(a) * b, residual add", "relu(a)^2, gelu(a)",
-            "embedding gather", "decode_attention (kernel)")
+            "embedding gather", "decode_attention (kernel)",
+            "moe_gemm row by row", "moe combine")
+#: olmoe-1b-7b's MoE widths: experts, top-k, d, the expert's d_ff
+EXPERTS, TOP_K, MOE_D, MOE_F = 64, 8, 2048, 1024
 #: a chunk: B slots of C columns, a cache of T positions
 B, C, T = 4, 8, 256
 
@@ -70,10 +76,11 @@ def candidates(device: torch.device, seed: int = 0,
                ) -> List[Dict[str, object]]:
     """Every candidate op at B x C rows against B rows, in each of
     ``dtypes``."""
-    from ..kernels import decode_attention, queue_matmul
+    from ..kernels import decode_attention, moe_gemm, queue_matmul
     from ..kernels import rms_norm as rms_norm_kernel
     from ..kernels.decode_attention.ref import decode_attention_ref
     from ..models.layers import apply_rope, rms_norm, rope_angles
+    from ..models.moe import combine_rows
     gen = torch.Generator(device=device).manual_seed(seed)
 
     def randn(*shape):
@@ -143,6 +150,27 @@ def candidates(device: torch.device, seed: int = 0,
                 qk[r.start // B:r.stop // B], kc, vc,
                 vk[r.start // B:r.stop // B]).reshape(-1, HEADS, HD),
             n, B))
+        # an MoE layer: the expert products (x shared by every expert, as
+        # the dense dispatch hands it) in their regime and row by row, rows
+        # first so that the slabs are concatenated along them
+        we = (randn(EXPERTS, MOE_D, MOE_F) / MOE_D ** 0.5).to(dtype)
+        xe = randn(2 * n, MOE_D).to(dtype)
+        out.append(_rows_equal(
+            f"moe_gemm, {n} rows against {B}", dtype,
+            lambda r: moe_gemm(xe[r], we).transpose(0, 1), n, B))
+        for rows in (n, 2 * n):
+            out.append(_rows_equal(
+                f"moe_gemm row by row (slab {B}), {rows} rows against {B}",
+                dtype, lambda r: moe_gemm(xe[r], we, slab=B).transpose(0, 1),
+                rows, B))
+        del we
+        y = randn(EXPERTS, n, MOE_D).to(dtype)
+        logits = randn(n, EXPERTS)
+        top, idx = logits.topk(TOP_K, dim=-1)
+        wt = torch.softmax(top, dim=-1)
+        out.append(_rows_equal(
+            "moe combine (combine_rows)", dtype,
+            lambda r: combine_rows(y[:, r], wt[r], idx[r]), n, B))
     return out
 
 

@@ -14,8 +14,8 @@
 //    through distributed shared memory in rank order;
 //  * each warp multiplies its own k16 slices of every stage (mma.sync
 //    m16n8k16; w through ldmatrix.trans from XOR-swizzled rows).
-//  * a block takes G 16-row tiles of x (G = 1 for M <= 16; queue_matmul
-//    takes up to 4 for the rows of a chunk, row groups of 16 G rows in grid
+//  * a block takes G 16-row tiles of x (G = 1 for M <= 16; both kernels
+//    take up to 4 for the rows of a chunk, row groups of 16 G rows in grid
 //    z): each w stage it loads serves all G tiles, and each tile has its
 //    own accumulators and partials.
 // No atomics, and every output element gets the same sequence of
@@ -57,6 +57,19 @@ inline size_t smem_bytes(int depth_x, int depth_w, int tiles = 1) {
            static_cast<size_t>(depth_w) * kWTile);
   const size_t parts = part_bytes(tiles);
   return tiles_offset(depth_x + depth_w) + (rings > parts ? rings : parts);
+}
+
+// The 16-row tiles a block takes for M rows: every tile of M in one block
+// up to kMaxTiles (a power of two), fewer where the rings at these depths
+// would not fit; 0 when not even one tile's rings fit.  The bits do not
+// depend on it.
+inline int tiles(int M, int depth_x, int depth_w) {
+  const size_t most = static_cast<size_t>(tile_ring::kMaxSmem);
+  const int need = (M + kBM - 1) / kBM;
+  int g = 1;
+  while (g < need && g < kMaxTiles) g *= 2;
+  while (g > 1 && smem_bytes(depth_x, depth_w, g) > most) g /= 2;
+  return smem_bytes(depth_x, depth_w, g) <= most ? g : 0;
 }
 
 // x tile: 16 rows of 16 chunks (16 bytes each), w tile: 128 rows of 8; in

@@ -544,13 +544,6 @@ int decode_attention_launch(const void* q, const void* k, const void* v,
   return cudaErrorInvalidValue;
 }
 
-// Positions a span for (D, dtype), as the launch takes them (plan.span);
-// repro_torch.benchmarks.kernel_ab tells this C interface from the one
-// before the split by it.
-int decode_attention_span(int D, int dtype) {
-  return span_of(D, dtype == 0 ? 4 : 2);
-}
-
 const char* decode_attention_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

@@ -13,14 +13,18 @@
 // What bounds it on an H100 depends on C (rows per expert), so the wrapper
 // picks one of three kernels (ops.regime); all keep the same contract.
 //
-// bf16, C <= 16 ("thin", decode over the slots): bound by the bytes of the
+// bf16, C <= 16 ("thin", decode over the slots), or any C run row by row
+// (`rowwise`: a chunk's columns in one launch): bound by the bytes of the
 // active experts' weights (3.35 TB/s): 4 MB an expert for olmoe's
 // (2048, 1024) matrices, about 26 of 64 experts for 4 independent tokens
-// at top-8.  The block is queue_matmul's thin one (kernels/_csrc/
-// thin_gemm.cuh: 64-column tiles 128 deep through cp.async rings,
-// mma.sync, K split over a cluster and summed in rank order), with the
-// expert on the grid's third axis; a cluster of an inactive expert stores
-// its zeros and leaves.
+// at top-8, about 63 for a chunk of 32 rows.  The block is queue_matmul's
+// thin one (kernels/_csrc/thin_gemm.cuh: 64-column tiles 128 deep through
+// cp.async rings, mma.sync, K split over a cluster and summed in rank
+// order).  A block takes G of an expert's 16-row tiles (G = 1 at C <= 16;
+// up to 4 row by row, fewer where the rings would not fit: thin_tiles), so
+// each w stage it loads serves all of them; the grid's third axis is the
+// expert times its groups of 16 G rows, expert-major.  A cluster of an
+// inactive expert stores its zeros and leaves.
 //
 // bf16, C > 16 ("wide", forward over a sequence): bound by operations
 // (989 TFLOP/s).  A grouped GEMM: queue_matmul's wide ring (kernels/_csrc/
@@ -42,7 +46,9 @@
 // operations whatever the depth, C or its row, so depths are bit-identical
 // and a row does not depend on its neighbours; the mask changes which
 // blocks run, never what a running block computes.  A bf16 row's bits
-// depend on the regime (C <= 16 or not), as queue_matmul's do.  x's expert
+// depend on the regime (the thin kernel, at C <= 16 or row by row, or the
+// wide one), as queue_matmul's do; on the thin kernel they depend on
+// neither C nor G, since the K split is a function of (E, K, N).  x's expert
 // stride is an argument, so the dense dispatch's x, one (C, d) matrix seen
 // by every expert, is passed with stride 0 and read from its one copy.
 // No atomics, so a result never depends on timing.
@@ -145,7 +151,8 @@ cudaError_t launch(const void* x, const void* w, void* out,
 }  // namespace fma_path
 
 // ---------------------------------------------------------------------------
-// bf16, C <= 16: queue_matmul's thin block, one expert per grid z
+// bf16, C <= 16 or row by row: queue_matmul's thin block, G 16-row tiles
+// of one expert a block
 // ---------------------------------------------------------------------------
 
 namespace thin_path {
@@ -157,42 +164,65 @@ using ::thin::kMaxSplit;
 using ::thin::kThreads;
 using ::thin::smem_bytes;
 
+// blockIdx.z = e * groups + (the row group of 16 G rows)
+template <int G>
 __global__ void __launch_bounds__(kThreads)
     moe_gemm_thin(const bf16* __restrict__ x, const bf16* __restrict__ w,
                   float* __restrict__ out, const unsigned char* active, int M,
-                  int N, int K, long long x_stride_e, int depth, int split) {
+                  int N, int K, long long x_stride_e, int depth, int split,
+                  int groups) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const int e = blockIdx.z, n0 = blockIdx.y * kBN;
+  const int e = blockIdx.z / groups;
+  const int m0 = (blockIdx.z % groups) * G * kBM, n0 = blockIdx.y * kBN;
   float* oe = out + static_cast<size_t>(e) * M * N;
   if (inactive(active, e)) {  // the whole cluster leaves together
-    if (blockIdx.x == 0) store_zeros(oe, M, N, 0, kBM, n0, kBN, kThreads);
+    if (blockIdx.x == 0)
+      store_zeros(oe, M, N, m0, G * kBM, n0, kBN, kThreads);
     return;
   }
-  gemm<1>(x + static_cast<long long>(e) * x_stride_e,
+  gemm<G>(x + static_cast<long long>(e) * x_stride_e,
           w + static_cast<size_t>(e) * K * N, oe, M, N, K, depth, depth,
-          split, blockIdx.x, n0, 0, smem);
+          split, blockIdx.x, n0, m0, smem);
+}
+
+template <int G>
+cudaError_t launch_tiles(const void* x, const void* w, void* out,
+                         const unsigned char* active, int E, int M, int N,
+                         int K, long long x_stride_e, int depth, int split,
+                         cudaStream_t stream) {
+  const int groups = (M + G * kBM - 1) / (G * kBM);
+  if (static_cast<long long>(E) * groups > 65535) return cudaErrorInvalidValue;
+  const size_t smem = smem_bytes(depth, depth, G);
+  cudaError_t err = allow_smem<moe_gemm_thin<G>>(smem);
+  if (err != cudaSuccess) return err;
+  return hopper::launch_in_cluster(
+      moe_gemm_thin<G>, dim3(split, (N + kBN - 1) / kBN, E * groups),
+      kThreads, smem, stream, split, static_cast<const bf16*>(x),
+      static_cast<const bf16*>(w), static_cast<float*>(out), active, M, N, K,
+      x_stride_e, depth, split, groups);
 }
 
 cudaError_t launch(const void* x, const void* w, void* out,
                    const unsigned char* active, int E, int M, int N, int K,
                    long long x_stride_e, int depth, int split,
                    cudaStream_t stream) {
-  if (M > kBM || split < 1 || split > kMaxSplit) return cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(depth, depth);
-  if (smem > static_cast<size_t>(kMaxSmem)) return cudaErrorInvalidValue;
-  cudaError_t err = allow_smem<moe_gemm_thin>(smem);
-  if (err != cudaSuccess) return err;
-  return hopper::launch_in_cluster(
-      moe_gemm_thin, dim3(split, (N + kBN - 1) / kBN, E), kThreads, smem,
-      stream, split, static_cast<const bf16*>(x),
-      static_cast<const bf16*>(w), static_cast<float*>(out), active, M, N, K,
-      x_stride_e, depth, split);
+  if (split < 1 || split > kMaxSplit) return cudaErrorInvalidValue;
+  switch (::thin::tiles(M, depth, depth)) {
+    case 1: return launch_tiles<1>(x, w, out, active, E, M, N, K, x_stride_e,
+                                   depth, split, stream);
+    case 2: return launch_tiles<2>(x, w, out, active, E, M, N, K, x_stride_e,
+                                   depth, split, stream);
+    case 4: return launch_tiles<4>(x, w, out, active, E, M, N, K, x_stride_e,
+                                   depth, split, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace thin_path
 
 // ---------------------------------------------------------------------------
-// bf16, C > 16: a grouped GEMM on TMA and wgmma, one expert per grid z
+// bf16, C > 16 (not row by row): a grouped GEMM on TMA and wgmma, one
+// expert per grid z
 // ---------------------------------------------------------------------------
 
 namespace wide_path {
@@ -295,17 +325,19 @@ extern "C" {
 // dtype: 0 = float32, 1 = bfloat16 (x and w); out is always float32.
 // active: E bytes on the device (0 = inactive expert) or null (every
 // expert).  split: the thin kernel's K split (ops.split_k); the other
-// kernels ignore it.
+// kernels ignore it.  rowwise != 0 runs a bf16 product of any M on the thin
+// kernel, whose row bits do not depend on M: a chunk's rows get decode's
+// bits.  fp32 ignores it (its row bits never depend on M).
 int moe_gemm_launch(const void* x, const void* w, void* out,
                     const void* active, int E, int M, int N, int K,
                     long long x_stride_e, int depth, int dtype, int split,
-                    void* stream) {
+                    int rowwise, void* stream) {
   if (E < 1 || E > 65535 || M < 1 || N < 1 || K < 1 || depth < 1 ||
       x_stride_e < 0)
     return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* act = static_cast<const unsigned char*>(active);
-  const bool small = M <= 16;
+  const bool small = M <= 16 || rowwise != 0;
   if (dtype == 0)
     return fma_path::launch(x, w, out, act, E, M, N, K, x_stride_e, depth, s);
   if (dtype == 1)
@@ -317,13 +349,20 @@ int moe_gemm_launch(const void* x, const void* w, void* out,
 }
 
 // Shared memory one block needs at this depth (the wrapper refuses a depth
-// above 227 KB before it launches; ops.py computes the same numbers).
-long long moe_gemm_smem_bytes(int M, int depth, int dtype) {
-  const bool small = M <= 16;
+// above 227 KB before it launches; ops.py computes the same numbers), and
+// the 16-row tiles a block of the thin kernel takes.
+long long moe_gemm_smem_bytes(int M, int depth, int dtype, int rowwise) {
+  const bool small = M <= 16 || rowwise != 0;
   if (dtype == 0)
     return static_cast<long long>(fma_path::smem_bytes(M, depth));
-  return static_cast<long long>(small ? ::thin::smem_bytes(depth, depth)
-                                      : ::wide::smem_bytes(depth, depth));
+  if (!small) return static_cast<long long>(::wide::smem_bytes(depth, depth));
+  const int g = ::thin::tiles(M, depth, depth);
+  return static_cast<long long>(
+      ::thin::smem_bytes(depth, depth, g > 0 ? g : 1));
+}
+
+int moe_gemm_thin_tiles(int M, int depth) {
+  return ::thin::tiles(M, depth, depth);
 }
 
 const char* moe_gemm_error_string(int err) {

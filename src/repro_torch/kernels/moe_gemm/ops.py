@@ -1,10 +1,10 @@
 """Public wrapper of the CUDA expert GEMM: ``y[e] = x[e] @ w[e]`` in fp32.
 
 The signature is the JAX wrapper's, ``moe_gemm(x, w, *, bc, bf, bk,
-depth=2)``, plus the port's ``policy`` and ``active``.  ``bc``/``bf``/
-``bk`` are the Pallas kernel's tiles; the CUDA kernels' tiles are compiled
-in, so on the card they change nothing, and they are kept so that callers
-stay the same as the reference's.
+depth=2)``, plus the port's ``policy``, ``active`` and ``slab``.
+``bc``/``bf``/``bk`` are the Pallas kernel's tiles; the CUDA kernels' tiles
+are compiled in, so on the card they change nothing, and they are kept so
+that callers stay the same as the reference's.
 
 ``active`` is an optional ``(E,)`` bool or int8 tensor on x's device: an
 expert whose entry is 0 gets an output block of exact zeros and its weights
@@ -42,13 +42,26 @@ kernel for its shapes, not a fallback).  bf16 with C <= 16 (``THIN_MAX_C``,
 decode over the slots) takes the thin kernel, bound by the active experts'
 weight bytes: queue_matmul's thin block with K split into :func:`split_k`
 parts, a function of (E, K, N) alone, summed in rank order in a cluster.
-bf16 with C > 16 takes the wide kernel, a grouped GEMM on TMA and
-``wgmma`` in 128 x 256 tiles, bound by operations.  fp32 takes
-queue_matmul's register-tiled FMA block at any C (128 x 128 tiles,
-smaller where those would leave SMs idle, 16 x 64 at C <= 16), each
-element's sum in one fixed order whatever the tile.  Within a kernel every depth gives the same bits and a
-row's result does not depend on the other rows or on the mask; a bf16
-row's bits do depend on the regime.
+A product run row by row (``slab`` given: the decode body and a chunk's
+batched body) takes the thin kernel at any C, a block taking up to four of
+an expert's 16-row tiles (:func:`thin_tiles`), so each w stage it loads
+serves all of them.  Other bf16 products with C > 16 take the wide
+kernel, a grouped GEMM on TMA and ``wgmma`` in 128 x 256 tiles, bound by
+operations.  fp32 takes queue_matmul's register-tiled FMA block at any C
+(128 x 128 tiles, smaller where those would leave SMs idle, 16 x 64 at
+C <= 16), each element's sum in one fixed order whatever the tile.
+Within a kernel every depth gives the same bits and a row's result does
+not depend on the other rows or on the mask; a bf16 row's bits do depend
+on the regime.
+
+``slab``: the product row by row, every row with the bits that a call over
+its slab of ``slab`` consecutive rows (of C) alone gives, as
+``queue_matmul``'s ``slab``: a chunk's C x B rows, C slabs of B, get the
+decode body's bits.  On the card that is one launch, bf16 on the thin
+kernel whatever C (``rowwise``), fp32 on the FMA block, whose row bits
+depend on neither C nor the row's place; the plain version (and BASELINE)
+makes one product a slab, since a library product's row bits may depend on
+its row count.  A product with a gradient (training) ignores it.
 
 The depth contract: ``depth`` is a real stage count in [1, 16] for both
 operand rings; a depth whose rings need more than 227 KB of shared memory
@@ -77,6 +90,8 @@ import torch.nn.functional as F
 from ...core.policy import ExecutionPolicy, OperatingPoint, default_table
 from ...device import PLAIN_DEVICES
 from .. import _build
+from ..queue_matmul.ops import thin_smem_bytes
+from ..queue_matmul.ops import thin_tiles as _thin_tiles
 from .ref import moe_gemm_bwd_ref, moe_gemm_ref
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -91,12 +106,12 @@ THIN_MAX_C = 16
 _THIN_BN, _THIN_BK, _MAX_SPLIT = 64, 128, 8
 
 
-def regime(c: int, dtype: torch.dtype) -> str:
+def regime(c: int, dtype: torch.dtype, rowwise: bool = False) -> str:
     """Which kernel ``c`` rows an expert run on the card: "fp32", "thin"
-    (bf16, c <= ``THIN_MAX_C``) or "wide" (bf16)."""
+    (bf16, c <= ``THIN_MAX_C`` or run row by row) or "wide" (bf16)."""
     if dtype == torch.float32:
         return "fp32"
-    return "thin" if c <= THIN_MAX_C else "wide"
+    return "thin" if c <= THIN_MAX_C or rowwise else "wide"
 
 
 @functools.lru_cache(maxsize=None)
@@ -120,40 +135,51 @@ def _wide_smem(depth: int, bk: int) -> int:
     return 1024 + 2 * bk * (128 + 256) * depth + 32 * depth
 
 
-def smem_bytes(c: int, depth: int, dtype: torch.dtype) -> int:
+def thin_tiles(c: int, depth: int) -> int:
+    """The 16-row tiles a block of the thin kernel takes for ``c`` rows an
+    expert at ring depth ``depth``: queue_matmul's rule for its block
+    (``queue_matmul.ops.thin_tiles``), both rings at that depth."""
+    return _thin_tiles(c, depth, depth)
+
+
+def smem_bytes(c: int, depth: int, dtype: torch.dtype,
+               rowwise: bool = False) -> int:
     """Shared memory one block of the kernel for ``c`` rows an expert needs
-    at this depth, as ``csrc/moe_gemm.cu`` lays it out.  The wide kernel's
+    at this depth, as ``csrc/moe_gemm.cu`` lays it out (the thin kernel's
+    at the tiles a block takes, :func:`thin_tiles`).  The wide kernel's
     stages are 64 deep where the rings fit at that depth, else 32; every
     k16 step is the same either way, so the bits are too."""
-    kind = regime(c, dtype)
+    kind = regime(c, dtype, rowwise)
     if kind == "fp32":
         bm = 16 if c <= 16 else 64
         return -(-depth * 8 // 128) * 128 + 4 * depth * (bm * 32 + 32 * 64)
     if kind == "thin":
-        # the fp32 partials of 4 warps and the block reuse the rings
-        return (-(-2 * depth * 8 // 128) * 128
-                + max(2 * depth * (16 * _THIN_BK + _THIN_BK * _THIN_BN),
-                      4 * 5 * 16 * _THIN_BN))
+        return thin_smem_bytes(depth, depth, max(1, thin_tiles(c, depth)))
     deep = _wide_smem(depth, 64)
     return deep if deep <= MAX_SMEM else _wide_smem(depth, 32)
 
 
 @functools.lru_cache(maxsize=None)
 def _plan(c_thin: bool, e: int, k: int, n: int, depth: int,
-          dtype: torch.dtype) -> int:
-    """Check a launch's depth against the contract; returns the K split it
-    passes to the kernel (1 but for the thin kernel)."""
+          dtype: torch.dtype, tiles: int = 1) -> int:
+    """Check a launch's depth against the contract: ``c_thin`` a launch of
+    at most 16 rows an expert or, in bf16, one row by row, whose thin
+    block takes ``tiles`` 16-row tiles (:func:`thin_tiles`; 0 where not
+    one fits).  Returns the K split it passes to the kernel (1 but for the
+    thin kernel)."""
     if not 1 <= depth <= _MAX_DEPTH:
         raise ValueError(f"ring depth must lie in [1, {_MAX_DEPTH}], got "
                          f"{depth}")
     c = 1 if c_thin else THIN_MAX_C + 1
-    need = smem_bytes(c, depth, dtype)
     kind = regime(c, dtype)
+    need = (thin_smem_bytes(depth, depth, max(tiles, 1)) if kind == "thin"
+            else smem_bytes(c, depth, dtype))
     if need > MAX_SMEM:
+        rows = f"{16 * max(tiles, 1)} rows a block" if c_thin else "C > 16"
         raise ValueError(
             f"moe_gemm rings of depth {depth} need {need} bytes of shared "
-            f"memory in the {kind} kernel ({'C <= 16' if c_thin else 'C > 16'}"
-            f"), above the {MAX_SMEM} a block may use")
+            f"memory in the {kind} kernel ({rows}), above the {MAX_SMEM} a "
+            f"block may use")
     return split_k(e, k, n) if kind == "thin" else 1
 
 
@@ -170,11 +196,13 @@ def _library() -> ctypes.CDLL:
     lib.moe_gemm_launch.argtypes = ([ctypes.c_void_p] * 4
                                     + [ctypes.c_int] * 4
                                     + [ctypes.c_longlong]
-                                    + [ctypes.c_int] * 3
+                                    + [ctypes.c_int] * 4
                                     + [ctypes.c_void_p])
     lib.moe_gemm_launch.restype = ctypes.c_int
-    lib.moe_gemm_smem_bytes.argtypes = [ctypes.c_int] * 3
+    lib.moe_gemm_smem_bytes.argtypes = [ctypes.c_int] * 4
     lib.moe_gemm_smem_bytes.restype = ctypes.c_longlong
+    lib.moe_gemm_thin_tiles.argtypes = [ctypes.c_int] * 2
+    lib.moe_gemm_thin_tiles.restype = ctypes.c_int
     lib.moe_gemm_error_string.argtypes = [ctypes.c_int]
     lib.moe_gemm_error_string.restype = ctypes.c_char_p
     return lib
@@ -200,7 +228,10 @@ def _shared(x: torch.Tensor) -> Optional[torch.Tensor]:
 
 
 def _launch(x: torch.Tensor, w: torch.Tensor, depth: int,
-            active: Optional[torch.Tensor]) -> torch.Tensor:
+            active: Optional[torch.Tensor],
+            rowwise: bool = False) -> torch.Tensor:
+    """Run the kernel for x's C (bf16 on the thin kernel at any C when
+    ``rowwise``)."""
     if x.dtype not in _DTYPE_CODES or w.dtype != x.dtype:
         raise TypeError(f"moe_gemm kernel takes float32 or bfloat16 operands "
                         f"of one dtype, got {x.dtype} and {w.dtype}")
@@ -210,7 +241,9 @@ def _launch(x: torch.Tensor, w: torch.Tensor, depth: int,
     C = x.shape[-2]
     vec = 16 // x.element_size()
     pk, pf = (-d) % vec, (-f) % vec
-    split = _plan(C <= THIN_MAX_C, E, d + pk, f + pf, depth, x.dtype)
+    rows = rowwise and x.dtype == torch.bfloat16   # the thin kernel at any C
+    split = _plan(C <= THIN_MAX_C or rows, E, d + pk, f + pf, depth, x.dtype,
+                  thin_tiles(C, depth) if rows else 1)
     one = _shared(x)
     if one is not None:                  # one matrix seen by every expert
         xp = (F.pad(one, (0, pk)) if pk else one).contiguous()
@@ -226,7 +259,8 @@ def _launch(x: torch.Tensor, w: torch.Tensor, depth: int,
     out = torch.empty((E, C, f + pf), dtype=torch.float32, device=x.device)
     lib = _library()
     args = (xp.data_ptr(), wp.data_ptr(), out.data_ptr(), mask, E, C, f + pf,
-            d + pk, x_stride, depth, _DTYPE_CODES[x.dtype], split)
+            d + pk, x_stride, depth, _DTYPE_CODES[x.dtype], split,
+            int(rowwise))
     # the launch goes to the current device: switch only when x is not on it
     if x.device.index == torch.cuda.current_device():
         err = lib.moe_gemm_launch(*args,
@@ -300,21 +334,25 @@ class _MoeGemmFn(torch.autograd.Function):
 def moe_gemm(x: torch.Tensor, w: torch.Tensor, *, bc: int = 128,
              bf: int = 128, bk: int = 128, depth: int = 2,
              policy: Optional[ExecutionPolicy] = None,
-             active: Optional[torch.Tensor] = None) -> torch.Tensor:
+             active: Optional[torch.Tensor] = None,
+             slab: Optional[int] = None) -> torch.Tensor:
     """x: (E, C, d), or (C, d) seen by every expert; w: (E, d, f) ->
     (E, C, f) fp32.
 
     ``policy``: BASELINE is the plain version, COPIFT forces depth 1,
     COPIFTV2 (and ``None``) keep ``depth``.  ``active``: the experts to
-    compute (``None``: all); the others' blocks are zeros."""
+    compute (``None``: all); the others' blocks are zeros.  ``slab`` runs
+    the product row by row (see the module's docstring)."""
     if x.ndim not in (2, 3) or w.ndim != 3 or x.shape[-1] != w.shape[1] or \
             (x.ndim == 3 and x.shape[0] != w.shape[0]):
         raise ValueError(f"moe_gemm takes x (E, C, d) or (C, d) and w "
                          f"(E, d, f), got {tuple(x.shape)} and "
                          f"{tuple(w.shape)}")
     _check_active(active, x, w.shape[0])
+    if slab is not None and slab < 1:
+        raise ValueError(f"slab must be >= 1, got {slab}")
     if policy is ExecutionPolicy.BASELINE or x.device.type in PLAIN_DEVICES:
-        return moe_gemm_ref(x, w, active)
+        return moe_gemm_ref(x, w, active, slab)
     if x.device.type != "cuda":
         raise ValueError(f"moe_gemm runs on CUDA or CPU tensors, got "
                          f"{x.device}")
@@ -322,7 +360,7 @@ def moe_gemm(x: torch.Tensor, w: torch.Tensor, *, bc: int = 128,
         depth = 1
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
         return _MoeGemmFn.apply(x, w, depth, active)
-    return _launch(x, w, depth, active)
+    return _launch(x, w, depth, active, rowwise=slab is not None)
 
 
 #: kernel launches since the count was last set to 0

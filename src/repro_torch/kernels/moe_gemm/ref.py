@@ -14,12 +14,19 @@ def _mask(y: torch.Tensor, active: Optional[torch.Tensor]) -> torch.Tensor:
 
 
 def moe_gemm_ref(x: torch.Tensor, w: torch.Tensor,
-                 active: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 active: Optional[torch.Tensor] = None,
+                 slab: Optional[int] = None) -> torch.Tensor:
     """x: (E, C, d), or (C, d) seen by every expert; w: (E, d, f) ->
     (E, C, f) fp32, both operands upcast to fp32 (fp64 stays fp64; one
     einsum per expert).  ``active`` ((E,), nonzero = active): the result
     is multiplied by it, so an inactive expert's block is zeros; ``None``
-    keeps every expert."""
+    keeps every expert.  ``slab``: one einsum for each slab of that many
+    consecutive rows of C, so a row gets the bits of a call over its slab
+    alone (a library product's row bits may depend on its row count)."""
+    C = x.shape[-2]
+    if slab is not None and slab < C:
+        return torch.cat([moe_gemm_ref(x[..., i:i + slab, :], w, active)
+                          for i in range(0, C, slab)], dim=1)
     if x.ndim == 2:
         x = x.expand(w.shape[0], *x.shape)
     return _mask(torch.einsum("ecd,edf->ecf", upcast(x), upcast(w)), active)

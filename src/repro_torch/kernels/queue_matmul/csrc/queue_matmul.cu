@@ -285,7 +285,6 @@ using ::thin::gemm;
 using ::thin::kBM;
 using ::thin::kBN;
 using ::thin::kMaxSplit;
-using ::thin::kMaxTiles;
 using ::thin::kThreads;
 using ::thin::smem_bytes;
 
@@ -297,21 +296,6 @@ __global__ void __launch_bounds__(kThreads)
   extern __shared__ __align__(128) unsigned char smem[];
   gemm<G>(x, w, out, M, N, K, depth_x, depth_w, split, blockIdx.x,
           blockIdx.y * kBN, blockIdx.z * G * kBM, smem);
-}
-
-// The 16-row tiles a block takes: every tile of M in one block up to
-// kMaxTiles (a power of two), fewer where the rings at these depths would
-// not fit; 0 when not even one tile's rings fit.  The bits do not depend
-// on it.
-int tiles(int M, int depth_x, int depth_w) {
-  const int need = (M + kBM - 1) / kBM;
-  int g = 1;
-  while (g < need && g < kMaxTiles) g *= 2;
-  while (g > 1 && smem_bytes(depth_x, depth_w, g) >
-                      static_cast<size_t>(kMaxSmem))
-    g /= 2;
-  return smem_bytes(depth_x, depth_w, g) <= static_cast<size_t>(kMaxSmem)
-             ? g : 0;
 }
 
 template <int G>
@@ -333,7 +317,7 @@ cudaError_t launch(const void* x, const void* w, void* out, int M, int N,
                    int K, int depth_x, int depth_w, int split,
                    cudaStream_t stream) {
   if (split < 1 || split > kMaxSplit) return cudaErrorInvalidValue;
-  switch (tiles(M, depth_x, depth_w)) {
+  switch (::thin::tiles(M, depth_x, depth_w)) {
     case 1: return launch_tiles<1>(x, w, out, M, N, K, depth_x, depth_w,
                                    split, stream);
     case 2: return launch_tiles<2>(x, w, out, M, N, K, depth_x, depth_w,
@@ -382,13 +366,13 @@ long long queue_matmul_smem_bytes(int M, int depth_x, int depth_w, int dtype,
     return static_cast<long long>(fma_path::smem_bytes(M, depth_x, depth_w));
   if (!small)
     return static_cast<long long>(wide::smem_bytes(depth_x, depth_w));
-  const int g = thin_path::tiles(M, depth_x, depth_w);
+  const int g = ::thin::tiles(M, depth_x, depth_w);
   return static_cast<long long>(thin::smem_bytes(depth_x, depth_w,
                                                  g > 0 ? g : 1));
 }
 
 int queue_matmul_thin_tiles(int M, int depth_x, int depth_w) {
-  return thin_path::tiles(M, depth_x, depth_w);
+  return ::thin::tiles(M, depth_x, depth_w);
 }
 
 const char* queue_matmul_error_string(int err) {

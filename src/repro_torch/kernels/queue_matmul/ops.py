@@ -132,10 +132,12 @@ def _wide_smem(depth_x: int, depth_w: int, bk: int) -> int:
             + 16 * (depth_x + depth_w))
 
 
-def _thin_smem(depth_x: int, depth_w: int, tiles: int) -> int:
-    # barriers in 128-byte lines; x 16 rows a tile and w 64 columns, 128
-    # deep a stage; the fp32 partials of 4 warps (one tile at a time) and
-    # of the block's tiles reuse the rings
+def thin_smem_bytes(depth_x: int, depth_w: int, tiles: int) -> int:
+    """Shared memory of the thin block (``kernels/_csrc/thin_gemm.cuh``,
+    shared with ``moe_gemm``) at these depths and 16-row tiles a block:
+    barriers in 128-byte lines; x 16 rows a tile and w 64 columns, 128
+    deep a stage; the fp32 partials of 4 warps (one tile at a time) and of
+    the block's tiles reuse the rings."""
     barriers = -(-(depth_x + depth_w) * 8 // 128) * 128
     return barriers + max(2 * (depth_x * tiles * 16 * _THIN_BK
                                + depth_w * _THIN_BK * _THIN_BN),
@@ -150,9 +152,9 @@ def thin_tiles(m: int, depth_x: int, depth_w: int) -> int:
     need, g = -(-m // 16), 1
     while g < need and g < MAX_TILES:
         g *= 2
-    while g > 1 and _thin_smem(depth_x, depth_w, g) > MAX_SMEM:
+    while g > 1 and thin_smem_bytes(depth_x, depth_w, g) > MAX_SMEM:
         g //= 2
-    return g if _thin_smem(depth_x, depth_w, g) <= MAX_SMEM else 0
+    return g if thin_smem_bytes(depth_x, depth_w, g) <= MAX_SMEM else 0
 
 
 def smem_bytes(m: int, depth_x: int, depth_w: int, dtype: torch.dtype,
@@ -167,7 +169,7 @@ def smem_bytes(m: int, depth_x: int, depth_w: int, dtype: torch.dtype,
         bm = 16 if m <= 16 else 64
         return barriers + 4 * (depth_x * bm * 32 + depth_w * 32 * 64)
     if kind == "thin":
-        return _thin_smem(depth_x, depth_w,
+        return thin_smem_bytes(depth_x, depth_w,
                           max(1, thin_tiles(m, depth_x, depth_w)))
     deep = _wide_smem(depth_x, depth_w, 64)
     return deep if deep <= MAX_SMEM else _wide_smem(depth_x, depth_w, 32)

@@ -45,10 +45,10 @@ numbers:
 
 Where the reference's chunked prefill scans its decode body over a chunk's
 columns, the families whose layers are all GQA attention with no ring and
-a dense FFN (:func:`batches_columns`) run the columns as one body over
-C x B rows (:func:`_columns_body`), and their decode step is that body at
-C = 1; each op runs row by row, so the result is the reference's, bit for
-bit the token-by-token path's.
+a dense or MoE FFN (:func:`batches_columns`) run the columns as one body
+over C x B rows (:func:`_columns_body`), and their decode step is that
+body at C = 1; each op runs row by row, so the result is the reference's,
+bit for bit the token-by-token path's.
 """
 from __future__ import annotations
 
@@ -470,13 +470,13 @@ def _decode_body(params: Pytree, cache: Pytree, tokens: torch.Tensor,
 def batches_columns(cfg: ModelConfig) -> bool:
     """Whether a chunk runs its columns as one batched body
     (:func:`_columns_body`): every layer GQA attention with no ring, then a
-    dense FFN (the dense and vision families without MLA).  The others run
-    the decode body column by column: an SSM or RG-LRU recurrence walks its
-    columns in order, a windowed layer's ring could be overwritten by a
-    later column before an earlier one reads it, an MoE chunk's rows an
-    expert can pass the thin kernel's 16, and MLA writes clamped at
-    ``max_len - 1``."""
-    return cfg.family in ("dense", "vlm") and cfg.mla is None
+    dense or MoE FFN (the dense, vision and MoE families without MLA; the
+    MoE products row by row on the thin kernel at any row count).  The
+    others run the decode body column by column: an SSM or RG-LRU
+    recurrence walks its columns in order, the hybrid family's windowed
+    layers' ring could be overwritten by a later column before an earlier
+    one reads it, and MLA writes clamped at ``max_len - 1``."""
+    return cfg.family in ("dense", "vlm", "moe") and cfg.mla is None
 
 
 def _columns_body(params: Pytree, cache: Pytree, tokens: torch.Tensor,
@@ -492,9 +492,11 @@ def _columns_body(params: Pytree, cache: Pytree, tokens: torch.Tensor,
     row an active one writes.
 
     The activations are (C, B, d), so column j's rows are the j-th slab of
-    B: every product runs in slabs of B rows and every norm and attention
-    row by row (:func:`~repro_torch.models.attention.gqa_columns`), so a
-    row's bits are those the one-column body (the decode step) gives it.
+    B: every product (an MoE layer's router and experts included) runs in
+    slabs of B rows and every norm, attention
+    (:func:`~repro_torch.models.attention.gqa_columns`) and expert combine
+    (:func:`~repro_torch.models.moe.combine_rows`) row by row, so a row's
+    bits are those the one-column body (the decode step) gives it.
     The final norm and the vocabulary-wide head run on B rows only, each
     slot's last active column gathered on the device."""
     dtype = torch_dtype(rc.dtype)
@@ -510,7 +512,9 @@ def _columns_body(params: Pytree, cache: Pytree, tokens: torch.Tensor,
         x = x + attn.gqa_columns(bp["attn"], hn, cfg, cache["k"][i],
                                  cache["v"][i], *where, active, rc.policy)
         hn = norm_rows(x, bp["ln2"], cfg.norm_eps)
-        x = x + ffn_apply(bp["ffn"], hn, cfg.ffn_act, rc.policy, slab=B)
+        x = x + (moe_mod.moe_apply(bp["ffn"], hn, cfg, rc.policy, slab=B)
+                 if cfg.moe else
+                 ffn_apply(bp["ffn"], hn, cfg.ffn_act, rc.policy, slab=B))
     if n_tokens is None:
         last = x[-1]
     else:
@@ -568,11 +572,11 @@ def prefill_step(params: Pytree, cache: Pytree,
 
     The reference runs ``lax.scan`` over its decode body, one column at a
     time under the mask ``active = j < n_tokens``.  A family that batches
-    its columns (:func:`batches_columns`: dense GQA with no ring) runs the
-    C columns as one body over C x B rows (:func:`_columns_body`; a chunk
-    wider than the cache in runs of its rows), every op row by row, so a
-    row gets the bits its decode step gives it and a chunk reads each
-    weight once, not once a column.  The other families
+    its columns (:func:`batches_columns`: dense or MoE GQA with no ring)
+    runs the C columns as one body over C x B rows (:func:`_columns_body`;
+    a chunk wider than the cache in runs of its rows), every op row by
+    row, so a row gets the bits its decode step gives it and a chunk reads
+    each weight once, not once a column.  The other families
     run the decode body column by column under the same mask: each state
     write is a select between the new and the old row
     (:func:`_write_rows`), an inactive slot's ``len`` stays put

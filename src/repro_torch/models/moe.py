@@ -17,6 +17,11 @@ in fp32.
   device from the top-k indices), so a decode body reads only the routed
   experts' weights: their rows would have been multiplied by a combine
   weight of 0, and are now zeros times 0, so the mask changes no bit.
+  With ``slab`` (the decode body and a chunk's batched body) every op
+  runs row by row: the router's product and the expert products in slabs
+  of ``slab`` rows, the mask the union of every row's experts, and the
+  combine each row's own k expert rows summed in a fixed order, so a row
+  gets the bits its decode step gives it.
 * :func:`moe_apply_grouped` is the capacity-bounded sort-based dispatch,
   rule for rule as the reference's, with tokens over capacity dropped.
   Experts whose buffers are empty are masked out.  Its combine gathers
@@ -57,13 +62,15 @@ def moe_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
 
 
 def router_probs(p, x: torch.Tensor, cfg: ModelConfig,
-                 policy: Optional[ExecutionPolicy] = None
+                 policy: Optional[ExecutionPolicy] = None,
+                 slab: Optional[int] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k routing.  x: (B, S, d) -> (weights (B, S, k) fp32 (fp64 for
     fp64), idx (B, S, k)).  Ties go to the lower expert index, as ``jax.lax.top_k``
     breaks them: a stable descending sort keeps equal logits in index
-    order."""
-    logits = matmul(upcast(x), upcast(p["router"]), policy)
+    order.  ``slab``: the logits' product row by row (:func:`matmul`'s),
+    so a row's logits, and its ties, keep their bits across row counts."""
+    logits = matmul(upcast(x), upcast(p["router"]), policy, slab)
     vals, idx = torch.sort(logits, dim=-1, descending=True, stable=True)
     k = cfg.moe.top_k
     return torch.softmax(vals[..., :k], dim=-1), idx[..., :k]
@@ -71,49 +78,78 @@ def router_probs(p, x: torch.Tensor, cfg: ModelConfig,
 
 def _expert_gemm(x: torch.Tensor, w: torch.Tensor,
                  policy: Optional[ExecutionPolicy],
-                 active: Optional[torch.Tensor]) -> torch.Tensor:
+                 active: Optional[torch.Tensor],
+                 slab: Optional[int] = None) -> torch.Tensor:
     """``moe_gemm`` at the table's ``moe_gemm`` point (its ring carries the
     weight stream, so it takes the F2I depth) over the ``active`` experts,
-    cast to ``x.dtype``."""
+    row by row in slabs of ``slab`` rows when given, cast to ``x.dtype``."""
     pt = operating_point()
     return moe_gemm(x, w, depth=pt.effective_depths()[1],
                     policy=policy if policy is not None else pt.policy,
-                    active=active).to(x.dtype)
+                    active=active, slab=slab).to(x.dtype)
 
 
 def _expert_ffn(p, buf: torch.Tensor, act: str,
                 policy: Optional[ExecutionPolicy],
-                active: Optional[torch.Tensor]) -> torch.Tensor:
+                active: Optional[torch.Tensor],
+                slab: Optional[int] = None) -> torch.Tensor:
     """The experts' FFN over (E, C, d) rows, or one (C, d) matrix seen by
     every expert, -> (E, C, d) in ``buf.dtype``; an expert outside
-    ``active`` (``None``: every expert) gives zeros."""
-    h = _expert_gemm(buf, p["wi"], policy, active)
+    ``active`` (``None``: every expert) gives zeros.  ``slab``: each
+    product row by row (:func:`_expert_gemm`)."""
+    h = _expert_gemm(buf, p["wi"], policy, active, slab)
     if act == "swiglu":
-        h = F.silu(_expert_gemm(buf, p["wg"], policy, active)) * h
+        h = F.silu(_expert_gemm(buf, p["wg"], policy, active, slab)) * h
     elif act == "relu2":
         h = torch.square(F.relu(h))
     else:
         h = F.gelu(h, approximate="tanh")
-    return _expert_gemm(h, p["wo"], policy, active)
+    return _expert_gemm(h, p["wo"], policy, active, slab)
+
+
+def combine_rows(y: torch.Tensor, w: torch.Tensor,
+                 idx: torch.Tensor) -> torch.Tensor:
+    """Each token's k routed expert rows, weighted and summed: y (E, T, d)
+    in the compute dtype, w and idx (T, k) -> (T, d) in y's dtype.  The
+    weights are rounded to y's dtype as the reference's one-hot combine
+    rounds them, each product and the sum over j in top-k order are taken
+    in fp32 (fp64 for fp64) and rounded once: a gather, a product and k - 1
+    adds, each elementwise, so a token's bits do not depend on T or on the
+    other tokens."""
+    t = torch.arange(y.shape[1], device=y.device)
+    parts = upcast(y[idx.t(), t]) * upcast(w.to(y.dtype)).t()[..., None]
+    out = parts[0]
+    for j in range(1, parts.shape[0]):
+        out = out + parts[j]
+    return out.to(y.dtype)
 
 
 def moe_apply(p, x: torch.Tensor, cfg: ModelConfig,
-              policy: Optional[ExecutionPolicy] = None) -> torch.Tensor:
-    """Dense-dispatch MoE: one-hot combine (exact reference), over the
-    routed experts only."""
+              policy: Optional[ExecutionPolicy] = None,
+              slab: Optional[int] = None) -> torch.Tensor:
+    """Dense-dispatch MoE over the routed experts only.  Without ``slab``
+    (``forward``, training) the combine is the reference's one-hot
+    ``einsum`` over every expert; with ``slab`` (the serve bodies: a chunk's
+    C x B rows in slabs of the B slots) every op runs row by row and the
+    combine is :func:`combine_rows`, so a row's bits are those of a call
+    over its slab alone.  Either is within the reference's tolerance of
+    its one-hot ``einsum``."""
     e = cfg.moe
     B, S, d = x.shape
     T = B * S
-    w, idx = router_probs(p, x, cfg, policy)
-    # combine[t, E] = w[t, k] where idx[t, k] == E: the one-hot sum of the
-    # reference, in x.dtype (the top-k indices of a token are distinct)
-    combine = torch.zeros((T, e.num_experts), dtype=x.dtype, device=x.device)
-    combine.scatter_(1, idx.reshape(T, -1), w.reshape(T, -1).to(x.dtype))
+    w, idx = router_probs(p, x, cfg, policy, slab)
     # the experts some token routes to, on the device (no host copy)
     active = torch.zeros(e.num_experts, dtype=torch.int8, device=x.device)
     active.scatter_(0, idx.reshape(-1), 1)
     xe = x.reshape(T, d)                     # seen by every expert
-    y = _expert_ffn(p, xe, cfg.ffn_act, policy, active)   # (E, T, d)
+    y = _expert_ffn(p, xe, cfg.ffn_act, policy, active, slab)  # (E, T, d)
+    if slab is not None:
+        return combine_rows(y, w.reshape(T, -1),
+                            idx.reshape(T, -1)).reshape(B, S, d)
+    # combine[t, E] = w[t, k] where idx[t, k] == E: the one-hot sum of the
+    # reference, in x.dtype (the top-k indices of a token are distinct)
+    combine = torch.zeros((T, e.num_experts), dtype=x.dtype, device=x.device)
+    combine.scatter_(1, idx.reshape(T, -1), w.reshape(T, -1).to(x.dtype))
     return torch.einsum("etd,te->td", y, combine).reshape(B, S, d)
 
 

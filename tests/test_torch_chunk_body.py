@@ -1,6 +1,7 @@
-"""A chunk's columns as one batched body: ``prefill_step`` of the dense GQA
-families (``models.model.batches_columns``: phi3-mini-3.8b, glm4-9b,
-nemotron-4-340b, pixtral-12b) runs its C columns over C x B rows at once.
+"""A chunk's columns as one batched body: ``prefill_step`` of the dense and
+MoE GQA families (``models.model.batches_columns``: phi3-mini-3.8b,
+glm4-9b, nemotron-4-340b, pixtral-12b, olmoe-1b-7b, granite-moe-3b-a800m)
+runs its C columns over C x B rows at once.
 
 * The batched chunk equals token-by-token decode bit for bit — each
   column through ``decode_step`` on a copy of the cache, its active slots'
@@ -11,7 +12,8 @@ nemotron-4-340b, pixtral-12b) runs its C columns over C x B rows at once.
 * Every product of the chunk and of the decode step runs row by row, in
   slabs of the B slots (on the card the thin kernel, never the wide one);
   on the CPU each slab is its own product, since the CPU's one-row product
-  rounds unlike its many-row one.
+  rounds unlike its many-row one.  An MoE layer's router and expert
+  products too (tests/test_torch_moe_rows.py).
 * The step reads nothing back to the host and makes no shape from the data.
 * The row-by-row kernels' plain versions and wrappers on the CPU: the
   norm is the model's norm, decode attention the one-column attention's
@@ -47,7 +49,8 @@ from repro_torch.models import layers
 from repro_torch.models.model import batches_columns
 from test_torch_serve_program import NoHostRoundTrip
 
-BATCHED = ["phi3-mini-3.8b", "glm4-9b", "nemotron-4-340b", "pixtral-12b"]
+BATCHED = ["phi3-mini-3.8b", "glm4-9b", "nemotron-4-340b", "pixtral-12b",
+           "olmoe-1b-7b", "granite-moe-3b-a800m"]
 TOL = dict(rtol=2e-3, atol=2e-3)
 
 
@@ -92,16 +95,17 @@ def _token_prefill(params, cache, toks, counts, cfg, rc):
 
 
 def test_the_batched_families():
-    """The dense and vision families without MLA batch their columns; MoE
-    (olmoe, granite), SSM, hybrid (its window ring), MLA (minicpm3) and the
-    encoder (hubert) do not."""
+    """The dense, vision and MoE (olmoe, granite) families without MLA
+    batch their columns; SSM, hybrid (its window ring), MLA (minicpm3) and
+    the encoder (hubert) do not."""
     got = {name for name in ARCHS if batches_columns(get_reduced(name))}
     assert got == set(BATCHED)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("width", list(range(1, 17)))
-@pytest.mark.parametrize("arch", ["phi3-mini-3.8b", "glm4-9b"])
+@pytest.mark.parametrize("arch", ["phi3-mini-3.8b", "glm4-9b",
+                                  "olmoe-1b-7b", "granite-moe-3b-a800m"])
 def test_chunk_equals_token_decode(arch, width, dtype):
     cfg = get_reduced(arch)
     rc = RunConfig(dtype=dtype, param_dtype=dtype, remat=False)

@@ -491,12 +491,86 @@ def test_moe_gemm_refuses_rings_that_do_not_fit(card):
 
 
 def test_moe_gemm_wrapper_and_kernels_agree_on_shared_memory(card):
+    """The shared memory of each kernel, and the thin kernel's 16-row
+    tiles a block row by row (1, 2 and 4 tiles; halved where the rings
+    would not fit, 0 at depth 12), as the wrapper counts them."""
     lib = mg_ops._library()
-    for c in (4, 512):
+    for c in (4, 17, 32, 64, 80, 512):
         for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
-            for depth in (1, 2, 4, 5, 9, 16):
-                assert lib.moe_gemm_smem_bytes(c, depth, code) == \
-                    mg_ops.smem_bytes(c, depth, dtype)
+            for depth in (1, 2, 4, 5, 8, 9, 11, 12, 16):
+                for rowwise in (False, True):
+                    assert lib.moe_gemm_smem_bytes(
+                        c, depth, code, int(rowwise)) == \
+                        mg_ops.smem_bytes(c, depth, dtype, rowwise)
+                if dtype == torch.bfloat16:
+                    assert lib.moe_gemm_thin_tiles(c, depth) == \
+                        mg_ops.thin_tiles(c, depth)
+
+
+@pytest.mark.parametrize("c", [17, 32, 64, 80])
+@pytest.mark.parametrize("bcast", [True, False])
+@pytest.mark.parametrize("masked", [False, True])
+def test_moe_gemm_row_by_row_on_the_thin_kernel(card, c, bcast, masked):
+    """bf16 run row by row (``slab`` 4): the thin kernel at C past 16 (2
+    and 4 tiles a block, 80 rows a ragged group of 4 tiles), a shared or a
+    per-expert x, with and without a routed mask: one launch, within 2e-2
+    of the plain version, every depth the same bits, and every slab of 4
+    rows the bits of a call over that slab alone (the decode body's)."""
+    e, d, f = 12, 520, 200
+    x = torch.randn((c, d) if bcast else (e, c, d), generator=card,
+                    device="cuda").bfloat16()
+    if bcast:
+        x = x.expand(e, c, d)
+    w = (torch.randn((e, d, f), generator=card, device="cuda")
+         / d ** 0.5).bfloat16()
+    active = None
+    if masked:
+        active = torch.zeros(e, dtype=torch.int8, device="cuda")
+        active[[0, 2, 3, 7, 11]] = 1
+    assert mg_ops.regime(c, torch.bfloat16, rowwise=True) == "thin"
+    before = moe_gemm.launches
+    outs = [moe_gemm(x, w, depth=depth, active=active, slab=4)
+            for depth in (1, 2, 4)]
+    torch.cuda.synchronize()
+    assert moe_gemm.launches == before + 3
+    for o in outs:
+        assert o.dtype == torch.float32 and o.shape == (e, c, f)
+        assert torch.equal(o, outs[0])
+    _close(outs[0], moe_gemm_ref(x, w, active), TOL[torch.bfloat16])
+    for i in range(0, c, 4):
+        alone = moe_gemm(x[:, i:i + 4], w, active=active, slab=4)
+        assert torch.equal(outs[0][:, i:i + 4], alone), i
+
+
+@pytest.mark.parametrize("c", [1, 4, 16])
+@pytest.mark.parametrize("bcast", [True, False])
+def test_moe_gemm_row_by_row_keeps_the_small_launchs_bits(card, c, bcast):
+    """At C <= 16 the row-by-row launch is today's: the same bits with
+    and without ``slab`` (so the decode body keeps its bits), and, bf16,
+    the wide kernel still takes C > 16 without it."""
+    e, d, f = 8, 2048, 1024
+    x = torch.randn((c, d) if bcast else (e, c, d), generator=card,
+                    device="cuda").bfloat16()
+    if bcast:
+        x = x.expand(e, c, d)
+    w = (torch.randn((e, d, f), generator=card, device="cuda")
+         / d ** 0.5).bfloat16()
+    assert torch.equal(moe_gemm(x, w, slab=c), moe_gemm(x, w))
+    assert mg_ops.regime(17, torch.bfloat16) == "wide"
+
+
+def test_moe_gemm_row_by_row_refuses_rings_that_do_not_fit(card):
+    """Row by row the tiles a block halve until the rings fit (depth 11
+    takes one tile); depth 12 fits no thin block and is refused before any
+    launch."""
+    x = torch.randn((2, 64, 256), generator=card, device="cuda").bfloat16()
+    w = torch.randn((2, 256, 128), generator=card, device="cuda").bfloat16()
+    before = moe_gemm.launches
+    with pytest.raises(ValueError, match="bytes of shared memory"):
+        moe_gemm(x, w, depth=12, slab=4)
+    assert moe_gemm.launches == before
+    _close(moe_gemm(x, w, depth=11, slab=4), moe_gemm_ref(x, w),
+           TOL[torch.bfloat16])
 
 
 @pytest.mark.parametrize("arch", ["olmoe-1b-7b", "granite-moe-3b-a800m"])
@@ -1396,18 +1470,19 @@ def test_a_host_read_fails_the_capture(card):
 
 #: the families whose chunk runs its columns as one batched body
 BATCHED_ARCHS = ["phi3-mini-3.8b", "glm4-9b", "nemotron-4-340b",
-                 "pixtral-12b"]
+                 "pixtral-12b", "olmoe-1b-7b", "granite-moe-3b-a800m"]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_the_body_ops_keep_a_rows_bits_across_row_counts(card, dtype):
     """Each op of the batched body (``row_bits.BODY_OPS``) over a chunk's
     B x C rows gives every row the bits it gets over its column's B rows
-    alone, at phi3-mini-3.8b's full widths (B 4, C 8)."""
+    alone, at phi3-mini-3.8b's full widths (B 4, C 8), and an MoE layer's
+    expert products and combine at olmoe-1b-7b's."""
     from repro_torch.benchmarks import row_bits
     rows = row_bits.candidates(torch.device("cuda"), dtypes=(dtype,))
     body = [r for r in rows if r["op"].startswith(row_bits.BODY_OPS)]
-    assert len(body) == 8
+    assert len(body) == 11
     assert all(r["bit_equal"] for r in body), [
         (r["op"], r["max_abs"]) for r in body if not r["bit_equal"]]
 
@@ -1524,7 +1599,8 @@ def test_a_replayed_chunk_equals_token_prefill(card, arch, dtype):
     then two replays) against its columns' decode steps on a copy of the
     cache: logits and every cache leaf equal bit for bit (counts 0, 1, a
     partial and a whole chunk); and no product of the chunk took the wide
-    kernel (each runs row by row, in slabs of the 4 slots)."""
+    kernel (each runs row by row, in slabs of the 4 slots; an MoE layer's
+    expert products too)."""
     cfg = get_reduced(arch)
     assert model_mod.batches_columns(cfg)
     rc = RunConfig(dtype=dtype, param_dtype=dtype, remat=False)
@@ -1532,10 +1608,15 @@ def test_a_replayed_chunk_equals_token_prefill(card, arch, dtype):
                             rc)
     rng = np.random.default_rng(1)
     launch, slabs = qm_ops._launch, []
+    expert_launch, expert_slabs = mg_ops._launch, []
 
     def recording(x, w, depth_x, depth_w, rowwise=False):
         slabs.append(rowwise)
         return launch(x, w, depth_x, depth_w, rowwise)
+
+    def expert_recording(x, w, depth, active, rowwise=False):
+        expert_slabs.append(rowwise)
+        return expert_launch(x, w, depth, active, rowwise)
 
     for width in (1, 2, 3, 4, 8, 16):
         cache = init_cache(cfg, 4, 64, rc.dtype, device="cuda")
@@ -1547,6 +1628,7 @@ def test_a_replayed_chunk_equals_token_prefill(card, arch, dtype):
             n = np.array([0, 1, max(width // 2, 1), width], np.int32)
             with pytest.MonkeyPatch.context() as mp:
                 mp.setattr(qm_ops, "_launch", recording)
+                mp.setattr(mg_ops, "_launch", expert_recording)
                 got = prog(tokens=toks, n_tokens=n)
             want = _token_prefill(params, ref, torch.from_numpy(toks).cuda(),
                                   n, cfg, rc)
@@ -1556,6 +1638,7 @@ def test_a_replayed_chunk_equals_token_prefill(card, arch, dtype):
                 assert torch.equal(cache[k], ref[k]), (width, call, k)
         assert prog.graph is not None and prog.replays == 2
     assert slabs and all(slabs)
+    assert all(expert_slabs) and bool(expert_slabs) == bool(cfg.moe)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

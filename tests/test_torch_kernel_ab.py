@@ -3,8 +3,9 @@ it compares are those ``chip_smoke.py``'s phase 2 checks, each once, the
 shapes it times are among them, its ``rglru_scan`` cases are phase 2's and
 phase 5 (a)'s, its ``rms_norm`` and ``decode_attention`` rows are phase
 2's on phase 2's inputs and bounds (whose 4K rows' tolerance sees a lost
-group or span position), an earlier ``decode_attention`` build is called
-through the interface it has, and it refuses to run without a card."""
+group or span position), an earlier ``moe_gemm`` build is called through
+the interface it has, its chunk is phase 4's, and it refuses to run
+without a card."""
 import sys
 from pathlib import Path
 
@@ -150,27 +151,58 @@ def test_the_long_attention_rows_see_a_lost_group_or_span(smoke, row):
     assert not passes(_attention(q, k, v, seen & (pos % 64 != 63)))
 
 
-def test_an_earlier_attention_build_is_called_as_it_was():
-    """A build that exports ``decode_attention_span`` shares this
-    checkout's C interface and goes through its wrapper; one without it is
-    the launch before the split: q, k, v, valid and out, seven ints, the
-    scale and the stream, no workspace."""
+def test_an_earlier_moe_gemm_build_is_called_without_rowwise():
+    """A build that exports ``moe_gemm_thin_tiles`` shares this checkout's
+    C interface; one without it predates the row-by-row launch: its launch
+    is typed without ``rowwise`` (x, w, out, active, four ints, the expert
+    stride, three ints, the stream) and called without it, and a row-by-row
+    launch past 16 rows an expert, which it would run on its wide kernel,
+    is refused."""
     import ctypes
     import types
 
-    class Unsplit:
+    calls = []
+
+    class Launch:
+        def __call__(self, *args):
+            calls.append(args)
+            return 0
+
+    class Before:
         def __init__(self):
-            self.fn = types.SimpleNamespace()
+            self.fn = Launch()
 
         def __getitem__(self, name):
-            assert name == "decode_attention_launch"
+            assert name == "moe_gemm_launch"
             return self.fn
 
-    lib = Unsplit()
-    call = kernel_ab.attention_caller(lib)
-    assert call.__name__ == "unsplit"
-    assert lib.fn.argtypes == [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
-        ctypes.c_float, ctypes.c_void_p]
-    assert lib.fn.restype is ctypes.c_int
-    split = types.SimpleNamespace(decode_attention_span=lambda d, t: 64)
-    assert kernel_ab.attention_caller(split).__name__ == "shared"
+        def moe_gemm_error_string(self, err):
+            return b"error"
+
+    lib = kernel_ab.moe_library(Before())
+    assert isinstance(lib, kernel_ab._BeforeRows)
+    fn = lib.moe_gemm_launch_raw
+    assert fn.argtypes == [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
+        ctypes.c_longlong] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    assert fn.restype is ctypes.c_int
+    head = (1, 2, 3, None, 64, 4, 1024, 2048, 0, 2, 1, 1)
+    assert lib.moe_gemm_launch(*head, 1, 99) == 0
+    assert lib.moe_gemm_launch(*head, 0, 99) == 0
+    assert calls == [head + (99,)] * 2
+    with pytest.raises(ValueError, match="row by row"):
+        lib.moe_gemm_launch(*head[:5], 32, *head[6:], 1, 99)
+    assert lib.moe_gemm_error_string(0) == b"error"
+    rows = types.SimpleNamespace(moe_gemm_thin_tiles=lambda m, d: 1)
+    assert kernel_ab.moe_library(rows) is rows
+
+
+def test_the_moe_rows_are_phase_4s_chunk(smoke):
+    """The chunk timed row by row is phase 4's (8 columns of 4 slots) at
+    olmoe-1b-7b's expert widths, x shared for wi/wg and per expert for
+    wo."""
+    from repro_torch.configs import get_config
+    cfg = get_config("olmoe-1b-7b")
+    e, f, d = cfg.moe.num_experts, cfg.moe.d_ff_expert, cfg.d_model
+    assert kernel_ab.MOE_PRODUCTS == ((e, d, f, True), (e, f, d, False))
+    assert kernel_ab.MOE_CHUNK == (smoke.SERVE_ENGINE["prefill_chunk"],
+                                   smoke.SERVE_ENGINE["batch_slots"])
