@@ -47,12 +47,12 @@ prints no result):
    decode products (phi3 over 2 slots, bf16) and serve_batch's (glm4-9b
    over 3 slots, bf16).  Then the batched chunk bodies' layer products
    row by row (``CHUNK_ROWS``: 32 rows in slabs of 4 slots for phi3,
-   pixtral, nemotron and olmoe, glm4-9b's 24 in slabs of 3, reduced phi3's
-   32 in fp32), every slab's rows equal to a call over the slab alone, and
-   the MoE chunks' expert products row by row (``MOE_ROWS``: olmoe's 32
-   and 64 rows an expert, granite-moe-3b-a800m's 32, in slabs of 4, with
-   every expert and routed), each slab equal to a call over it alone and
-   the C = 4 launch's bits unchanged row by row; the
+   pixtral, nemotron, olmoe, falcon-mamba and recurrentgemma, glm4-9b's 24
+   in slabs of 3, reduced phi3's 32 in fp32), every slab's rows equal to a
+   call over the slab alone, and the MoE chunks' expert products row by row
+   (``MOE_ROWS``: olmoe's 32 and 64 rows an expert, granite-moe-3b-a800m's
+   32, in slabs of 4, with every expert and routed), each slab equal to a
+   call over it alone and the C = 4 launch's bits unchanged row by row; the
    row-wise ``rms_norm`` (``NORM_CASES``) and ``decode_attention``
    (``ATTN_CASES``: decode bodies and chunks over the served models'
    heads, and phi3's and glm4's at a 4K context) against their plain
@@ -99,8 +99,8 @@ prints no result):
    olmoe the experts each layer's mask keeps; and of the widest chunk
    program replayed with every count 0 (the cache must stay unchanged),
    its wall, kernels and kernel time a chunk and a prompt token (one
-   batched body for phi3, pixtral, nemotron and olmoe, a decode body a
-   column for the others).
+   batched body for every served model but minicpm3, a decode body a
+   column for it).
 4b. policy — the serve path on a calibrated operating point: the port's
    machine model calibrates a smoke grid on the host (``POLICY_CALIBRATION``,
    in-process), ``REPRO_CALIBRATION_DIR`` points at the artifacts, and the
@@ -299,19 +299,21 @@ PATH_KERNELS = {"dense": ("queue_matmul", "flash_attention"),
                 "vlm": ("queue_matmul", "flash_attention"),
                 "audio": ("queue_matmul", "flash_attention")}
 #: the kernels the decode and chunk bodies of a family that batches a
-#: chunk's columns add to its path (``models.model.batches_columns``)
+#: chunk's columns add to its path (``models.model.batches_columns``): the
+#: norm, and the attention where the family has GQA layers
 COLUMN_KERNELS = ("rms_norm", "decode_attention")
 
 
 def path_kernels(cfg) -> tuple:
-    """The kernels ``cfg``'s serve path runs: its family's, the batched
-    bodies' norm and attention, and for the other families with GQA layers
-    (MoE, hybrid) the decode attention."""
+    """The kernels ``cfg``'s serve path runs: its family's, and for a
+    family that batches its columns the batched bodies' norm and, but for
+    the SSM family (no attention), their attention."""
     from repro_torch.models.model import batches_columns
-    if batches_columns(cfg):
-        return PATH_KERNELS[cfg.family] + COLUMN_KERNELS
-    gqa = cfg.family in ("moe", "hybrid")
-    return PATH_KERNELS[cfg.family] + (("decode_attention",) if gqa else ())
+    if not batches_columns(cfg):
+        return PATH_KERNELS[cfg.family]
+    if cfg.family == "ssm":
+        return PATH_KERNELS["ssm"] + ("rms_norm",)
+    return PATH_KERNELS[cfg.family] + COLUMN_KERNELS
 
 
 #: the forward and backward launches each family's training path makes
@@ -595,7 +597,9 @@ CHUNK_ROWS = (("phi3-mini-3.8b", False, 32, 4, torch.bfloat16),
               ("nemotron-4-340b", False, 32, 4, torch.bfloat16),
               ("glm4-9b", False, 24, 3, torch.bfloat16),
               ("phi3-mini-3.8b", True, 32, 2, torch.float32),
-              ("olmoe-1b-7b", False, 32, 4, torch.bfloat16))
+              ("olmoe-1b-7b", False, 32, 4, torch.bfloat16),
+              ("falcon-mamba-7b", False, 32, 4, torch.bfloat16),
+              ("recurrentgemma-2b", False, 32, 4, torch.bfloat16))
 #: the generator offset of those products' inputs (see ``OWN_DRAWS``)
 CHUNK_DRAW = 29
 
@@ -2121,7 +2125,11 @@ NORM_CASES = (("phi3", 4, 3072, torch.bfloat16, torch.bfloat16),
               ("nemotron", 4, 18432, torch.bfloat16, torch.bfloat16),
               ("nemotron", 32, 18432, torch.bfloat16, torch.bfloat16),
               ("glm4", 24, 4096, torch.bfloat16, torch.bfloat16),
-              ("phi3-smoke", 32, 64, torch.float32, torch.float32))
+              ("phi3-smoke", 32, 64, torch.float32, torch.float32),
+              ("falcon-mamba", 4, 4096, torch.bfloat16, torch.bfloat16),
+              ("falcon-mamba", 32, 4096, torch.bfloat16, torch.bfloat16),
+              ("rgemma", 4, 2560, torch.bfloat16, torch.bfloat16),
+              ("rgemma", 32, 2560, torch.bfloat16, torch.bfloat16))
 
 
 def norm_inputs(gen, rows, d, dtype, gdt):
@@ -2186,12 +2194,13 @@ def check_rms_norm(gen, report) -> dict:
 
 #: (model, slots B, columns C, query heads, K/V heads, cache rows T, head
 #: dim, dtype, the slots' lengths) of phase 2's ``decode_attention``
-#: cases: phase 4's decode bodies (C 1; olmoe's and recurrentgemma's too,
-#: whose chunks run a decode body a column) and chunks of 8 over 4 slots of
-#: 256 rows, the prefill cells' chunks of 16 over 2 slots of 80 rows (full
-#: width in bf16, reduced in fp32), serve_batch's 3 slots of 128 rows, and
-#: the decode steps and a chunk that a served phi3-mini-3.8b and glm4-9b
-#: reach at a 4K context (rows that cross many 64-position spans)
+#: cases: phase 4's decode bodies (C 1) and chunks of 8 over 4 slots of
+#: 256 rows (recurrentgemma's ring of 256 rows, shorter than its window,
+#: attends a chunk's columns at once), the prefill cells' chunks of 16 over
+#: 2 slots of 80 rows (full width in bf16, reduced in fp32), serve_batch's
+#: 3 slots of 128 rows, and the decode steps and a chunk that a served
+#: phi3-mini-3.8b and glm4-9b reach at a 4K context (rows that cross many
+#: 64-position spans)
 ATTN_CASES = (
     ("phi3", 4, 1, 32, 32, 256, 96, torch.bfloat16, (40, 17, 33, 8)),
     ("phi3", 4, 8, 32, 32, 256, 96, torch.bfloat16, (24, 0, 9, 16)),
@@ -2206,7 +2215,8 @@ ATTN_CASES = (
      (4095, 3000, 2047, 999)),
     ("phi3 4k chunk", 4, 8, 32, 32, 4096, 96, torch.bfloat16,
      (4000, 2900, 2000, 990)),
-    ("glm4 4k", 3, 1, 32, 2, 4096, 128, torch.bfloat16, (4095, 2047, 999)))
+    ("glm4 4k", 3, 1, 32, 2, 4096, 128, torch.bfloat16, (4095, 2047, 999)),
+    ("rgemma", 4, 8, 10, 1, 256, 256, torch.bfloat16, (24, 0, 9, 16)))
 
 
 #: q's scale where the cache is longer than one 256-position group (the 4K
@@ -2883,8 +2893,9 @@ def profile_chunk(eng, arch: str, n: int) -> None:
     no-op on the cache by construction; a count changes which rows are
     kept, not the work): wall, kernels and kernel time a chunk and a
     prompt token of a full chunk (slots x width of them), and its largest
-    kernels.  A family that batches a chunk's columns runs one body over
-    the chunk's rows; the others one decode body a column."""
+    kernels.  A family that batches a chunk's columns (all but MLA) runs
+    one body over the chunk's rows, only the SSM and RG-LRU recurrences
+    walking the columns; MLA one decode body a column."""
     from repro_torch.models.model import batches_columns
     if not eng._prefill_fns:
         return

@@ -12,7 +12,12 @@ largest difference where they are not: the products in each regime of
 attention in their plain PyTorch form and as the port's kernels, RoPE, the
 embedding gather and the FFN's elementwise ops, and an MoE layer's expert
 products (``moe_gemm`` in each regime and row by row) and its row-wise
-combine (``models.moe.combine_rows``).
+combine (``models.moe.combine_rows``); and, at falcon-mamba-7b's and
+recurrentgemma-2b's full widths, the recurrent blocks' conv over a chunk's
+columns (``models.layers.conv_columns``, against one column at a time from
+the state the columns before it leave), their coefficients
+(``models.ssm.ssm_coeffs`` with the softplus before it,
+``models.rglru.gate_coeffs``), the recurrence steps and the SSM readout.
 
   PYTHONPATH=src python -m repro_torch.benchmarks.row_bits [--out PATH]
 
@@ -36,11 +41,17 @@ D, HEADS, HD, VOCAB = 3072, 32, 96, 32064
 BODY_OPS = ("queue_matmul row by row", "rms_norm (kernel)", "apply_rope",
             "silu(a) * b, residual add", "relu(a)^2, gelu(a)",
             "embedding gather", "decode_attention (kernel)",
-            "moe_gemm row by row", "moe combine")
+            "moe_gemm row by row", "moe combine", "conv over columns",
+            "ssm coefficients", "rglru gates", "ssm recurrence step",
+            "rglru recurrence step", "ssm readout")
 #: olmoe-1b-7b's MoE widths: experts, top-k, d, the expert's d_ff
 EXPERTS, TOP_K, MOE_D, MOE_F = 64, 8, 2048, 1024
 #: a chunk: B slots of C columns, a cache of T positions
 B, C, T = 4, 8, 256
+#: falcon-mamba-7b's widths: d_inner, state, conv width; and
+#: recurrentgemma-2b's RG-LRU width
+SSM_D, SSM_N, CONV_K = 8192, 16, 4
+LRU_W = 2560
 
 
 def _rows_equal(name: str, dtype: torch.dtype,
@@ -71,6 +82,85 @@ def _attention_batched(q, k, v, valid):
     return torch.einsum("bhct,bhtd->bhcd", p, upcast(v)).to(v.dtype)
 
 
+def _conv_columns(name: str, dtype: torch.dtype, randn, width: int
+                  ) -> Dict[str, object]:
+    """``conv_columns`` over a chunk's C columns against one column at a
+    time, each from the state the columns before it leave: the outputs and
+    the last state."""
+    from ..models.layers import conv_columns
+    p = {"conv_w": randn(CONV_K, width).to(dtype),
+         "conv_b": randn(width).to(dtype)}
+    x = randn(C, B, width).to(dtype)
+    state = randn(B, CONV_K - 1, width).to(dtype)
+    full, last = conv_columns(p, x, state)
+    cols = []
+    for j in range(C):
+        out, state = conv_columns(p, x[j:j + 1], state)
+        cols.append(out)
+    cols = torch.cat(cols)
+    equal = torch.equal(full, cols) and torch.equal(last, state)
+    diff = max((full.float() - cols.float()).abs().max().item(),
+               (last.float() - state.float()).abs().max().item())
+    return {"op": name, "dtype": str(dtype).replace("torch.", ""),
+            "rows": B * C, "slab": B, "bit_equal": bool(equal),
+            "max_abs": diff}
+
+
+def _recurrent(dtype: torch.dtype, randn, rand) -> List[Dict[str, object]]:
+    """The recurrent blocks' ops at falcon-mamba-7b's and
+    recurrentgemma-2b's full widths, over a chunk's B x C rows against B
+    rows: the conv, the coefficients (from the products' outputs), the
+    recurrence steps and the SSM readout."""
+    import torch.nn.functional as F
+    from ..models.rglru import gate_coeffs, rglru_step
+    from ..models.ssm import ssm_coeffs, ssm_step
+    n = B * C
+    out = [_conv_columns("conv over columns (falcon-mamba)", dtype, randn,
+                         SSM_D),
+           _conv_columns("conv over columns (recurrentgemma)", dtype,
+                         randn, LRU_W)]
+    # Mamba: the conv's output through silu, dt's product plus its bias
+    # through softplus, then dA and dBx
+    xi = F.silu(randn(n, SSM_D).to(dtype))
+    dt_lin = randn(n, SSM_D).to(dtype)
+    dt_bias = randn(SSM_D).to(dtype)
+    Bc = randn(n, SSM_N).to(dtype)
+    A = -torch.exp(0.5 * randn(SSM_D, SSM_N))
+
+    def coeffs(r):
+        dt = F.softplus(dt_lin[r] + dt_bias)
+        dA, dBx = ssm_coeffs(dt, A, Bc[r], xi[r])
+        return torch.cat([dA.flatten(1), dBx.flatten(1)], dim=1)
+
+    out.append(_rows_equal("ssm coefficients (softplus, dA, dBx)", dtype,
+                           coeffs, n, B))
+    state = randn(n, SSM_D, SSM_N)
+    dA = torch.exp(-rand(n, SSM_D, SSM_N))
+    dBx = randn(n, SSM_D, SSM_N)
+    Cc = randn(n, SSM_N).to(dtype)
+    for i, what in enumerate(("recurrence step (dA * s + dBx)",
+                              "readout (einsum bdn,bn->bd)")):
+        out.append(_rows_equal(
+            f"ssm {what}", dtype,
+            lambda r, i=i: ssm_step(state[r], dA[r], dBx[r], Cc[r])[i], n,
+            B))
+    # RG-LRU: the gates from the products' outputs, then h = a * h + bx
+    p = {"rg_b": randn(LRU_W).to(dtype), "ig_b": randn(LRU_W).to(dtype),
+         "lam": randn(LRU_W)}
+    u = randn(n, LRU_W).to(dtype)
+    rg, ig = randn(n, LRU_W).to(dtype), randn(n, LRU_W).to(dtype)
+    out.append(_rows_equal(
+        "rglru gates (sigmoids, log_a, a, beta * i * u)", dtype,
+        lambda r: torch.cat(gate_coeffs(p, u[r], rg[r], ig[r]), dim=1),
+        n, B))
+    h = randn(n, LRU_W)
+    a = rand(n, LRU_W)
+    bx = randn(n, LRU_W)
+    out.append(_rows_equal("rglru recurrence step (a * h + bx)", dtype,
+                           lambda r: rglru_step(h[r], a[r], bx[r])[0], n, B))
+    return out
+
+
 def candidates(device: torch.device, seed: int = 0,
                dtypes=(torch.float32, torch.bfloat16)
                ) -> List[Dict[str, object]]:
@@ -85,6 +175,9 @@ def candidates(device: torch.device, seed: int = 0,
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=device)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device=device)
 
     out = []
     for dtype in dtypes:
@@ -171,6 +264,8 @@ def candidates(device: torch.device, seed: int = 0,
         out.append(_rows_equal(
             "moe combine (combine_rows)", dtype,
             lambda r: combine_rows(y[:, r], wt[r], idx[r]), n, B))
+        del y
+        out.extend(_recurrent(dtype, randn, rand))
     return out
 
 

@@ -178,6 +178,60 @@ def causal_conv1d(p: Dict[str, torch.Tensor], x: torch.Tensor,
     return out + p["conv_b"], xp[:, -(K - 1):]
 
 
+def column_mask(C: int, n_tokens: Optional[torch.Tensor]
+                ) -> Optional[torch.Tensor]:
+    """(C, B): whether slot b takes column j (``j < n_tokens[b]``); None
+    (every column of every slot) where ``n_tokens`` is None."""
+    if n_tokens is None:
+        return None
+    return torch.arange(C, device=n_tokens.device)[:, None] < n_tokens[None]
+
+
+def conv_columns(p: Dict[str, torch.Tensor], x: torch.Tensor,
+                 conv_state: torch.Tensor,
+                 n_tokens: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`causal_conv1d` over C columns of one-token steps of B slots:
+    x (C, B, w), column j of slot b after the slot's state (B, K-1, w) and
+    its columns before j, each element through the decode step's K
+    multiply-adds in their order, so it keeps that step's bits.  Returns
+    the output (C, B, w) and the new state (B, K-1, w): the K-1 inputs that
+    end at slot b's last column of the ``n_tokens`` (B,) it takes (None:
+    all C), gathered on the device, so a slot that takes none keeps its
+    state."""
+    w = p["conv_w"]
+    K, C, B = w.shape[0], x.shape[0], x.shape[1]
+    xp = torch.cat([conv_state.to(x.dtype).transpose(0, 1), x])
+    out = xp[0:C] * w[0]
+    for k in range(1, K):
+        out = out + xp[k:k + C] * w[k]
+    if n_tokens is None:
+        state = xp[C:]
+    else:
+        at = (n_tokens.to(torch.int64)[None]
+              + torch.arange(K - 1, device=x.device)[:, None])
+        state = xp.gather(0, at[:, :, None].expand(K - 1, B, x.shape[2]))
+    return out + p["conv_b"], state.transpose(0, 1)
+
+
+def walk_columns(step, state: torch.Tensor, active: Optional[torch.Tensor],
+                 *cols: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A recurrence over C columns in order, at the decode step's B rows
+    with its ops: ``new, out = step(state, *(c[j] for c in cols))`` for
+    each column j.  A slot keeps its state through a column the (C, B)
+    mask ``active`` (None: all) says it does not take (a select).  Returns
+    the outputs stacked (C, B, ...) and the last state."""
+    outs = []
+    for j in range(cols[0].shape[0]):
+        new, out = step(state, *(c[j] for c in cols))
+        if active is not None:
+            new = torch.where(
+                active[j].reshape((-1,) + (1,) * (new.ndim - 1)), new, state)
+        state = new
+        outs.append(out)
+    return torch.stack(outs), state
+
+
 def ffn_specs(d_model: int, d_ff: int, act: str) -> Dict[str, ParamSpec]:
     if act == "swiglu":
         return {

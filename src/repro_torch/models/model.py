@@ -44,11 +44,11 @@ numbers:
   and return the same dict.
 
 Where the reference's chunked prefill scans its decode body over a chunk's
-columns, the families whose layers are all GQA attention with no ring and
-a dense or MoE FFN (:func:`batches_columns`) run the columns as one body
-over C x B rows (:func:`_columns_body`), and their decode step is that
-body at C = 1; each op runs row by row, so the result is the reference's,
-bit for bit the token-by-token path's.
+columns, every decoder family but MLA (:func:`batches_columns`) runs the
+columns as one body over C x B rows (:func:`_columns_body`), and its decode
+step is that body at C = 1; each op runs row by row and only the SSM and
+RG-LRU recurrences walk the columns, so the result is the reference's, bit
+for bit the token-by-token path's.
 """
 from __future__ import annotations
 
@@ -65,8 +65,8 @@ from . import moe as moe_mod
 from . import rglru as rglru_mod
 from . import ssm as ssm_mod
 from ..kernels.rms_norm import rms_norm as norm_rows
-from .layers import (ParamSpec, ffn_apply, ffn_specs, init_params, matmul,
-                     rms_norm, tree_leaves, tree_map)
+from .layers import (ParamSpec, column_mask, ffn_apply, ffn_specs,
+                     init_params, matmul, rms_norm, tree_leaves, tree_map)
 
 Pytree = Any
 
@@ -399,84 +399,64 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
                                              torch_dtype(dtype)).items()}
 
 
-def _write_rows(leaf: torch.Tensor, i: int, active: Optional[torch.Tensor],
-                new: torch.Tensor) -> None:
-    """Layer ``i``'s state in a stacked cache leaf, in place: the slots of
-    the (B,) mask ``active`` (every slot when None) take ``new``'s rows,
-    the others keep theirs (a select, so nothing depends on the data)."""
-    new = new.to(leaf.dtype)
-    if active is not None:
-        new = torch.where(active.reshape((-1,) + (1,) * (new.ndim - 1)),
-                          new, leaf[i])
-    leaf[i] = new
-
-
 def _decode_body(params: Pytree, cache: Pytree, tokens: torch.Tensor,
                  cfg: ModelConfig, rc: RunConfig,
                  active: Optional[torch.Tensor]) -> torch.Tensor:
-    """One token for every slot; writes the K/V rows, latent and rope rows,
-    SSM states or RG-LRU states of the slots of the (B,) mask ``active``
-    (all slots when None) in place and returns fp32 logits (B, vocab).
-    ``len`` is left to the caller.  Each kind of layer has its own cursor
-    into the cache leaves it owns (the hybrid family's recurrent layers
-    into ``h``/``conv``, its attention layers into the ``k``/``v`` ring of
-    ``slot = len % W``; MLA's rows go to ``min(len, max_len - 1)``, as the
-    reference's clamped write puts them)."""
+    """One token for every slot of an MLA model (the family that does not
+    batch a chunk's columns, :func:`batches_columns`): writes the latent
+    and rope rows of the slots of the (B,) mask ``active`` (all slots when
+    None) in place, at ``min(len, max_len - 1)`` as the reference's
+    clamped write puts them, and returns fp32 logits (B, vocab).  ``len``
+    is left to the caller."""
     dtype = torch_dtype(rc.dtype)
     x = params["embed"][tokens].to(dtype)
-    length = cache["len"]
-    if "k" in cache:         # the GQA layers' rows, one column
-        where = attn.column_positions(length, 1, cache["k"].shape[3], cfg,
-                                      dtype)
-    seen = {"attn": 0, "rec": 0, "ssm": 0}
-    for kind, bp in _layers(params, cfg, dtype):
-        i = seen[kind]
-        seen[kind] += 1
+    for i, (_, bp) in enumerate(_layers(params, cfg, dtype)):
         hn = rms_norm(x, bp["ln1"], cfg.norm_eps)
-        if kind == "ssm":
-            y, ssm_s, conv_s = ssm_mod.mamba_decode(
-                bp["mamba"], hn, cfg, cache["ssm"][i], cache["conv"][i],
-                rc.policy)
-            _write_rows(cache["ssm"], i, active, ssm_s)
-            _write_rows(cache["conv"], i, active, conv_s)
-            x = x + y
-            continue
-        if kind == "rec":
-            y, h_s, conv_s = rglru_mod.rglru_decode(
-                bp["rglru"], hn, cfg, cache["h"][i], cache["conv"][i],
-                rc.policy)
-            _write_rows(cache["h"], i, active, h_s)
-            _write_rows(cache["conv"], i, active, conv_s)
-        elif cfg.mla:
-            y, _, _ = attn.mla_decode(bp["attn"], hn, cfg,
-                                      cache["latent"][i], cache["rope"][i],
-                                      length, active=active,
-                                      policy=rc.policy)
-        else:
-            y = attn.gqa_columns(
-                bp["attn"], hn.transpose(0, 1), cfg, cache["k"][i],
-                cache["v"][i], *where,
-                None if active is None else active[None],
-                rc.policy).transpose(0, 1)
+        y, _, _ = attn.mla_decode(bp["attn"], hn, cfg, cache["latent"][i],
+                                  cache["rope"][i], cache["len"],
+                                  active=active, policy=rc.policy)
         x = x + y
         hn = rms_norm(x, bp["ln2"], cfg.norm_eps)
-        y = (moe_mod.moe_apply(bp["ffn"], hn, cfg, rc.policy) if cfg.moe
-             else ffn_apply(bp["ffn"], hn, cfg.ffn_act, rc.policy))
-        x = x + y
+        x = x + ffn_apply(bp["ffn"], hn, cfg.ffn_act, rc.policy)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return upcast(matmul(x[:, 0], _head_t(params, cfg, dtype), rc.policy))
 
 
 def batches_columns(cfg: ModelConfig) -> bool:
     """Whether a chunk runs its columns as one batched body
-    (:func:`_columns_body`): every layer GQA attention with no ring, then a
-    dense or MoE FFN (the dense, vision and MoE families without MLA; the
-    MoE products row by row on the thin kernel at any row count).  The
-    others run the decode body column by column: an SSM or RG-LRU
-    recurrence walks its columns in order, the hybrid family's windowed
-    layers' ring could be overwritten by a later column before an earlier
-    one reads it, and MLA writes clamped at ``max_len - 1``."""
-    return cfg.family in ("dense", "vlm", "moe") and cfg.mla is None
+    (:func:`_columns_body`): every decoder family but MLA (minicpm3), whose
+    rows are written clamped at ``max_len - 1``, so that several columns
+    past it land on one row, and whose absorbed attention has no row-wise
+    kernel; it runs the decode body column by column.  The encoder has no
+    decode step."""
+    return (cfg.family in ("dense", "vlm", "moe", "ssm", "hybrid")
+            and cfg.mla is None)
+
+
+def _attends_by_column(cfg: ModelConfig, cache: Pytree) -> bool:
+    """Whether a chunk's attention layers must run one column at a time: a
+    windowed layer whose ring is its window (``W = min(window, max_len)``
+    rows, so ``max_len`` may pass it), where a later column's row may wrap
+    onto one an earlier column attends.  A ring shorter than the window is
+    the whole cache, as a dense layer's is.  Static: the config and the
+    cache's shape."""
+    return cfg.family == "hybrid" and cache["k"].shape[3] >= cfg.rglru.window
+
+
+def _attention_columns(p, x: torch.Tensor, cfg: ModelConfig,
+                       k_cache: torch.Tensor, v_cache: torch.Tensor,
+                       where: tuple, active: Optional[torch.Tensor],
+                       by_column: bool, policy) -> torch.Tensor:
+    """:func:`~repro_torch.models.attention.gqa_columns` over x (C, B, d),
+    at once or (``by_column``) one column at a time."""
+    if not by_column:
+        return attn.gqa_columns(p, x, cfg, k_cache, v_cache, *where, active,
+                                policy)
+    return torch.cat([attn.gqa_columns(
+        p, x[j:j + 1], cfg, k_cache, v_cache,
+        *(None if t is None else t[j:j + 1] for t in where),
+        None if active is None else active[j:j + 1], policy)
+        for j in range(x.shape[0])])
 
 
 def _columns_body(params: Pytree, cache: Pytree, tokens: torch.Tensor,
@@ -485,32 +465,55 @@ def _columns_body(params: Pytree, cache: Pytree, tokens: torch.Tensor,
     """C columns of B slots as one body: tokens (B, C), column j of slot b
     at position ``len[b] + j``; ``n_tokens`` (B,) the columns each slot
     takes (None: every column of every slot, the decode step).  Writes the
-    active columns' K/V rows in place and returns the fp32 logits (B, vocab)
-    after each slot's last active column (a slot with none gets its first
-    column's, for the caller to drop); ``len`` is left to the caller.  C
-    must not pass the cache's T rows, or a masked column could wrap onto a
-    row an active one writes.
+    taken columns' K/V rows and each slot's SSM, RG-LRU and conv states
+    after its last taken column in place and returns the fp32 logits
+    (B, vocab) after each slot's last taken column (a slot with none gets
+    its first column's, for the caller to drop); ``len`` is left to the
+    caller.  Where the cache holds K/V, C must not pass its T rows, or a
+    masked column could wrap onto a row an active one writes.
 
     The activations are (C, B, d), so column j's rows are the j-th slab of
-    B: every product (an MoE layer's router and experts included) runs in
-    slabs of B rows and every norm, attention
-    (:func:`~repro_torch.models.attention.gqa_columns`) and expert combine
-    (:func:`~repro_torch.models.moe.combine_rows`) row by row, so a row's
-    bits are those the one-column body (the decode step) gives it.
-    The final norm and the vocabulary-wide head run on B rows only, each
-    slot's last active column gathered on the device."""
+    B: every product (an MoE layer's router and experts, a Mamba or RG-LRU
+    block's included) runs in slabs of B rows and every norm, attention
+    (:func:`~repro_torch.models.attention.gqa_columns`; one column at a
+    time where a windowed ring may wrap, :func:`_attends_by_column`),
+    expert combine (:func:`~repro_torch.models.moe.combine_rows`), conv
+    and coefficient row by row, so a row's bits are those the one-column
+    body (the decode step) gives it.  Only the SSM and RG-LRU recurrences
+    walk the columns, at B rows.  The final norm and the vocabulary-wide
+    head run on B rows only, each slot's last active column gathered on
+    the device."""
     dtype = torch_dtype(rc.dtype)
     B, C = tokens.shape
     dev = tokens.device
     x = params["embed"][tokens.t()].to(dtype)                  # (C, B, d)
-    where = attn.column_positions(cache["len"], C, cache["k"].shape[3], cfg,
-                                  dtype)
-    active = (None if n_tokens is None else
-              torch.arange(C, device=dev)[:, None] < n_tokens[None])
-    for i, (_, bp) in enumerate(_layers(params, cfg, dtype)):
+    active = column_mask(C, n_tokens)
+    if "k" in cache:         # the GQA layers' rows
+        where = attn.column_positions(cache["len"], C, cache["k"].shape[3],
+                                      cfg, dtype)
+        by_column = _attends_by_column(cfg, cache)
+    seen = {"attn": 0, "rec": 0, "ssm": 0}
+    for kind, bp in _layers(params, cfg, dtype):
+        i = seen[kind]
+        seen[kind] += 1
         hn = norm_rows(x, bp["ln1"], cfg.norm_eps)
-        x = x + attn.gqa_columns(bp["attn"], hn, cfg, cache["k"][i],
-                                 cache["v"][i], *where, active, rc.policy)
+        if kind == "ssm":
+            y, ssm_s, conv_s = ssm_mod.mamba_columns(
+                bp["mamba"], hn, cfg, cache["ssm"][i], cache["conv"][i],
+                n_tokens, rc.policy)
+            cache["ssm"][i], cache["conv"][i] = ssm_s, conv_s
+            x = x + y
+            continue
+        if kind == "rec":
+            y, h_s, conv_s = rglru_mod.rglru_columns(
+                bp["rglru"], hn, cfg, cache["h"][i], cache["conv"][i],
+                n_tokens, rc.policy)
+            cache["h"][i], cache["conv"][i] = h_s, conv_s
+        else:
+            y = _attention_columns(bp["attn"], hn, cfg, cache["k"][i],
+                                   cache["v"][i], where, active, by_column,
+                                   rc.policy)
+        x = x + y
         hn = norm_rows(x, bp["ln2"], cfg.norm_eps)
         x = x + (moe_mod.moe_apply(bp["ffn"], hn, cfg, rc.policy, slab=B)
                  if cfg.moe else
@@ -532,8 +535,9 @@ def decode_step(params: Pytree, cache: Pytree,
     batch = {"tokens": (B, 1)} -> (logits (B, vocab) fp32, cache).
     The cache is updated in place; ``len`` advances for every slot, free
     ones included, as in the JAX step.  A family that batches a chunk's
-    columns (:func:`batches_columns`) runs its one-column body, so a chunk
-    and its columns' decode steps give each row the same bits."""
+    columns (:func:`batches_columns`: all but MLA) runs its one-column
+    body, so a chunk and its columns' decode steps give each row the same
+    bits."""
     _check_family(cfg)
     if batches_columns(cfg):
         logits = _columns_body(params, cache, batch["tokens"], cfg, rc, None)
@@ -572,20 +576,20 @@ def prefill_step(params: Pytree, cache: Pytree,
 
     The reference runs ``lax.scan`` over its decode body, one column at a
     time under the mask ``active = j < n_tokens``.  A family that batches
-    its columns (:func:`batches_columns`: dense or MoE GQA with no ring)
+    its columns (:func:`batches_columns`: every decoder family but MLA)
     runs the C columns as one body over C x B rows (:func:`_columns_body`;
-    a chunk wider than the cache in runs of its rows), every op row by
-    row, so a row gets the bits its decode step gives it and a chunk reads
-    each weight once, not once a column.  The other families
-    run the decode body column by column under the same mask: each state
-    write is a select between the new and the old row
-    (:func:`_write_rows`), an inactive slot's ``len`` stays put
-    (:func:`_merge_masked`, copied into the leaf) and its logits keep
-    their previous value.  Either way the chunked path is bit-exact with
-    token-by-token prefill, nothing is read back to the host and no shape
-    depends on the data, so one call is one CUDA graph
-    (:mod:`repro_torch.serve.graphs`), and a column whose mask is empty is
-    a no-op.
+    where the cache holds K/V, a chunk wider than its rows in runs of at
+    most that many columns; an SSM chunk of any width in one), every op row
+    by row and only the recurrences walking the columns, so a row gets the
+    bits its decode step gives it and a chunk reads each weight once, not
+    once a column.  MLA runs the decode body column by column under the
+    same mask: its latent and rope writes select between the new and the
+    old row, an inactive slot's ``len`` stays put (:func:`_merge_masked`,
+    copied into the leaf) and its logits keep their previous value.  Either
+    way the chunked path is bit-exact with token-by-token prefill, nothing
+    is read back to the host and no shape depends on the data, so one call
+    is one CUDA graph (:mod:`repro_torch.serve.graphs`), and a column whose
+    mask is empty is a no-op.
     """
     _check_family(cfg)
     tokens = batch["tokens"]
@@ -594,9 +598,10 @@ def prefill_step(params: Pytree, cache: Pytree,
     logits = torch.zeros((B, cfg.vocab), dtype=torch.float32,
                          device=tokens.device)
     if batches_columns(cfg):
-        # one body a run of at most T columns (the cache's rows), so that
-        # no masked column wraps onto a row an active one writes
-        T = cache["k"].shape[3]
+        # where there are K/V rows, one body a run of at most T columns
+        # (the cache's rows), so that no masked column wraps onto a row an
+        # active one writes
+        T = cache["k"].shape[3] if "k" in cache else max(C, 1)
         for start in range(0, C, T):
             n = torch.clamp(n_tokens - start, 0, T).to(cache["len"].dtype)
             step_logits = _columns_body(params, cache,

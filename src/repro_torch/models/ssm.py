@@ -6,9 +6,13 @@ op in one call: the CUDA kernel on the card keeps the (d_in, N) state in
 registers and never builds the (B, T, d_in, N) decay and input tensors
 that the reference's chunked associative scan materialises chunk by chunk.
 The reference's ``chunk`` argument changes no number (its scan is exact
-whatever the chunk), so the port has none.  Decode (:func:`mamba_decode`)
-is the O(1) recurrent update in plain PyTorch, as the reference computes
-it outside any kernel.  Every projection runs through ``queue_matmul``.
+whatever the chunk), so the port has none.  The serve path runs
+:func:`mamba_columns`: C columns of one-token steps of B slots, the decode
+step at C = 1 (:func:`mamba_decode`).  Its products run over the C x B
+rows in slabs of B and its coefficients over all rows at once; only the
+O(1) recurrent update, in plain PyTorch as the reference computes it
+outside any kernel, walks the columns.  Every projection runs through
+``queue_matmul``.
 """
 from __future__ import annotations
 
@@ -21,7 +25,8 @@ from ..config import ModelConfig
 from ..core.policy import ExecutionPolicy
 from ..device import upcast
 from ..kernels.ssm_scan import ssm_scan
-from .layers import ParamSpec, causal_conv1d, matmul
+from .layers import (ParamSpec, causal_conv1d, column_mask, conv_columns,
+                     matmul, walk_columns)
 
 
 def ssm_dims(cfg: ModelConfig) -> Tuple[int, int, int]:
@@ -49,27 +54,36 @@ def mamba_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
 
 
 def _scan_inputs(p, x_in: torch.Tensor, cfg: ModelConfig,
-                 policy: Optional[ExecutionPolicy]):
-    """x_in: (B, T, d_in) post-conv activations -> (dt, A, B, C): dt
-    (B, T, d_in) after softplus, in x's dtype; A = -exp(A_log) (d_in, N)
-    fp32; B and C (B, T, N) in x's dtype."""
+                 policy: Optional[ExecutionPolicy],
+                 slab: Optional[int] = None):
+    """x_in: (..., d_in) post-conv activations -> (dt, A, B, C): dt
+    (..., d_in) after softplus, in x's dtype; A = -exp(A_log) (d_in, N)
+    fp32; B and C (..., N) in x's dtype.  ``slab`` as ``matmul``'s."""
     _, dt_rank, d_state = ssm_dims(cfg)
-    proj = matmul(x_in, p["x_proj"], policy)
+    proj = matmul(x_in, p["x_proj"], policy, slab)
     dt, Bc, C = torch.split(proj, [dt_rank, d_state, d_state], dim=-1)
-    dt = F.softplus(matmul(dt, p["dt_proj"], policy) + p["dt_bias"])
+    dt = F.softplus(matmul(dt, p["dt_proj"], policy, slab) + p["dt_bias"])
     A = -torch.exp(upcast(p["A_log"]))
     return dt, A, Bc, C
 
 
-def _ssm_coeffs(p, x_in: torch.Tensor, cfg: ModelConfig,
-                policy: Optional[ExecutionPolicy] = None):
-    """x_in: (B, T, d_in) -> (dA, dBx, C), as the reference's: dA and dBx
-    (B, T, d_in, N) fp32, C (B, T, N).  Built for the one-token decode
-    step only; the full sequence goes to ``ssm_scan`` instead."""
-    dt, A, Bc, C = _scan_inputs(p, x_in, cfg, policy)
+def ssm_coeffs(dt: torch.Tensor, A: torch.Tensor, Bc: torch.Tensor,
+               x_in: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The recurrence's coefficients, as the reference's: dA and dBx
+    (..., d_in, N) fp32 from dt, x_in (..., d_in) and B (..., N); each
+    element's arithmetic is its own, so a row keeps its bits over any
+    rows."""
     dA = torch.exp(upcast(dt)[..., None] * A)
-    dBx = upcast(dt * x_in)[..., None] * upcast(Bc)[:, :, None, :]
-    return dA, dBx, C
+    dBx = upcast(dt * x_in)[..., None] * upcast(Bc)[..., None, :]
+    return dA, dBx
+
+
+def ssm_step(state: torch.Tensor, dA: torch.Tensor, dBx: torch.Tensor,
+             C: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One token of B slots: ``state = dA * state + dBx`` (B, d_in, N)
+    fp32 and its readout against C (B, N), (B, d_in) fp32."""
+    state = dA * state + dBx
+    return state, torch.einsum("bdn,bn->bd", state, upcast(C))
 
 
 def mamba_apply(p, x: torch.Tensor, cfg: ModelConfig,
@@ -87,20 +101,45 @@ def mamba_apply(p, x: torch.Tensor, cfg: ModelConfig,
     return matmul(y, p["out_proj"], policy)
 
 
+def mamba_columns(p, x: torch.Tensor, cfg: ModelConfig,
+                  ssm_state: torch.Tensor, conv_state: torch.Tensor,
+                  n_tokens: Optional[torch.Tensor] = None,
+                  policy: Optional[ExecutionPolicy] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """C columns of one-token steps of B slots.  x: (C, B, d), column j of
+    slot b its (j+1)-th token; ssm_state (B, d_in, N) fp32; conv_state
+    (B, K-1, d_in); ``n_tokens`` (B,) the columns each slot takes (None:
+    all).  Returns (out (C, B, d), new ssm_state, new conv_state), each
+    slot's states those after its last column it takes; the states given
+    are not modified.
+
+    Every product runs over the C x B rows in slabs of B, the conv over
+    the columns (:func:`~repro_torch.models.layers.conv_columns`) and the
+    coefficients over all rows at once, each row with the bits of its
+    one-column step; only the state update and its readout
+    (:func:`ssm_step`) walk the columns, at B rows."""
+    C, B, _ = x.shape
+    xz = matmul(x, p["in_proj"], policy, slab=B)
+    xi, z = xz.chunk(2, dim=-1)
+    xi, conv_state = conv_columns(p, xi, conv_state, n_tokens)
+    xi = F.silu(xi)
+    dt, A, Bc, Cc = _scan_inputs(p, xi, cfg, policy, slab=B)
+    dA, dBx = ssm_coeffs(dt, A, Bc, xi)
+    y, ssm_state = walk_columns(ssm_step, ssm_state,
+                                column_mask(C, n_tokens), dA, dBx, Cc)
+    y = y.to(x.dtype) + xi * p["D"]
+    y = y * F.silu(z)
+    return matmul(y, p["out_proj"], policy, slab=B), ssm_state, conv_state
+
+
 def mamba_decode(p, x: torch.Tensor, cfg: ModelConfig,
                  ssm_state: torch.Tensor, conv_state: torch.Tensor,
                  policy: Optional[ExecutionPolicy] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One-token step.  x: (B, 1, d); ssm_state: (B, d_in, N) fp32;
-    conv_state: (B, K-1, d_in).  Returns (out, new ssm_state, new
-    conv_state); the states given are not modified."""
-    xz = matmul(x, p["in_proj"], policy)
-    xi, z = xz.chunk(2, dim=-1)
-    xi, conv_state = causal_conv1d(p, xi, conv_state)
-    xi = F.silu(xi)
-    dA, dBx, C = _ssm_coeffs(p, xi, cfg, policy)
-    ssm_state = dA[:, 0] * ssm_state + dBx[:, 0]
-    y = torch.einsum("bdn,bn->bd", ssm_state, upcast(C[:, 0]))
-    y = y[:, None].to(x.dtype) + xi * p["D"]
-    y = y * F.silu(z)
-    return matmul(y, p["out_proj"], policy), ssm_state, conv_state
+    """One-token step: :func:`mamba_columns` at C = 1.  x: (B, 1, d);
+    ssm_state: (B, d_in, N) fp32; conv_state: (B, K-1, d_in).  Returns
+    (out (B, 1, d), new ssm_state, new conv_state); the states given are
+    not modified."""
+    out, ssm_state, conv_state = mamba_columns(
+        p, x.transpose(0, 1), cfg, ssm_state, conv_state, policy=policy)
+    return out.transpose(0, 1), ssm_state, conv_state

@@ -1,7 +1,8 @@
-"""A chunk's columns as one batched body: ``prefill_step`` of the dense and
-MoE GQA families (``models.model.batches_columns``: phi3-mini-3.8b,
-glm4-9b, nemotron-4-340b, pixtral-12b, olmoe-1b-7b, granite-moe-3b-a800m)
-runs its C columns over C x B rows at once.
+"""A chunk's columns as one batched body: ``prefill_step`` of every decoder
+family but MLA (``models.model.batches_columns``: phi3-mini-3.8b, glm4-9b,
+nemotron-4-340b, pixtral-12b, olmoe-1b-7b, granite-moe-3b-a800m,
+falcon-mamba-7b, recurrentgemma-2b) runs its C columns over C x B rows at
+once, only the SSM and RG-LRU recurrences walking the columns at B rows.
 
 * The batched chunk equals token-by-token decode bit for bit — each
   column through ``decode_step`` on a copy of the cache, its active slots'
@@ -15,11 +16,16 @@ runs its C columns over C x B rows at once.
   rounds unlike its many-row one.  An MoE layer's router and expert
   products too (tests/test_torch_moe_rows.py).
 * The step reads nothing back to the host and makes no shape from the data.
+* recurrentgemma's attention layers run the columns at once where the K/V
+  ring is shorter than the window (the whole cache) and one column at a
+  time where it is the window (a later column may wrap onto a row an
+  earlier one reads); an SSM chunk of any width is one body, its conv
+  state gathered at each slot's count.
 * The row-by-row kernels' plain versions and wrappers on the CPU: the
   norm is the model's norm, decode attention the one-column attention's
   arithmetic row by row, neither launching anything.
 
-The families left on the column loop keep their tests in
+MLA (minicpm3), left on the column loop, keeps its tests in
 tests/test_torch_serve_program.py."""
 import pytest
 
@@ -46,11 +52,12 @@ from repro_torch.kernels.rms_norm.ref import rms_norm_ref
 from repro_torch.models import (decode_step, init_cache, init_model_params,
                                 prefill_step, prepare_params)
 from repro_torch.models import layers
-from repro_torch.models.model import batches_columns
+from repro_torch.models.model import _attends_by_column, batches_columns
 from test_torch_serve_program import NoHostRoundTrip
 
 BATCHED = ["phi3-mini-3.8b", "glm4-9b", "nemotron-4-340b", "pixtral-12b",
-           "olmoe-1b-7b", "granite-moe-3b-a800m"]
+           "olmoe-1b-7b", "granite-moe-3b-a800m", "falcon-mamba-7b",
+           "recurrentgemma-2b"]
 TOL = dict(rtol=2e-3, atol=2e-3)
 
 
@@ -65,14 +72,16 @@ def one_thread():
     torch.set_num_threads(threads)
 
 
-def _cache(cfg, dtype, seed):
-    """4 slots of 32 rows at lengths 2, 0, 5, 1, K/V a seeded draw."""
-    cache = init_cache(cfg, 4, 32, dtype, device="cpu")
+def _cache(cfg, dtype, seed, max_len=32):
+    """4 slots of ``max_len`` rows at lengths 2, 0, 5, 1, every state leaf
+    (K/V, SSM, RG-LRU, conv) a seeded draw in the cache's key order."""
+    cache = init_cache(cfg, 4, max_len, dtype, device="cpu")
     rng = np.random.default_rng(seed)
     cache["len"].copy_(torch.tensor([2, 0, 5, 1], dtype=torch.int32))
-    for k in ("k", "v"):
-        cache[k].copy_(torch.from_numpy(
-            rng.standard_normal(cache[k].shape).astype(np.float32) * 0.1))
+    for k, v in cache.items():
+        if k != "len":
+            v.copy_(torch.from_numpy(
+                rng.standard_normal(v.shape).astype(np.float32) * 0.1))
     return cache
 
 
@@ -95,9 +104,9 @@ def _token_prefill(params, cache, toks, counts, cfg, rc):
 
 
 def test_the_batched_families():
-    """The dense, vision and MoE (olmoe, granite) families without MLA
-    batch their columns; SSM, hybrid (its window ring), MLA (minicpm3) and
-    the encoder (hubert) do not."""
+    """The dense, vision, MoE (olmoe, granite), SSM (falcon-mamba) and
+    hybrid (recurrentgemma) families batch their columns; MLA (minicpm3)
+    and the encoder (hubert) do not."""
     got = {name for name in ARCHS if batches_columns(get_reduced(name))}
     assert got == set(BATCHED)
 
@@ -105,7 +114,8 @@ def test_the_batched_families():
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("width", list(range(1, 17)))
 @pytest.mark.parametrize("arch", ["phi3-mini-3.8b", "glm4-9b",
-                                  "olmoe-1b-7b", "granite-moe-3b-a800m"])
+                                  "olmoe-1b-7b", "granite-moe-3b-a800m",
+                                  "falcon-mamba-7b", "recurrentgemma-2b"])
 def test_chunk_equals_token_decode(arch, width, dtype):
     cfg = get_reduced(arch)
     rc = RunConfig(dtype=dtype, param_dtype=dtype, remat=False)
@@ -283,12 +293,14 @@ def test_decode_attention_wrapper_on_the_cpu():
         decode_attention(q, k, v, valid[:, :1])
 
 
-@pytest.mark.parametrize("arch", ["phi3-mini-3.8b", "glm4-9b"])
+@pytest.mark.parametrize("arch", ["phi3-mini-3.8b", "glm4-9b",
+                                  "recurrentgemma-2b"])
 def test_a_chunk_wider_than_the_cache_equals_token_decode(arch):
     """A bucket of 16 columns over caches of 8 rows (a chunk wider than
     ``max_len``: its masked columns' positions wrap onto the rows its
-    active ones write): still token decode's bits, logits and every cache
-    leaf."""
+    active ones write; recurrentgemma's ring of 8 rows, shorter than its
+    window of 16, attends the columns at once): still token decode's
+    bits, logits and every cache leaf."""
     cfg = get_reduced(arch)
     rc = RunConfig(dtype="float32", remat=False)
     params = init_model_params(6, cfg, device="cpu")
@@ -303,3 +315,120 @@ def test_a_chunk_wider_than_the_cache_equals_token_decode(arch):
     assert torch.equal(got, _token_prefill(params, token, toks, n, cfg, rc))
     for k in chunk:
         assert torch.equal(chunk[k], token[k]), k
+
+
+#: each ring branch of recurrentgemma-smoke (window 16): the cache's rows,
+#: whether the attention runs one column at a time, the starting lengths
+#: and two chunks (width, counts)
+RINGS = {"window": (32, True, (2, 0, 13, 1),
+                    ((8, (8, 0, 8, 3)), (6, (1, 6, 5, 0)))),
+         "whole cache": (8, False, (2, 0, 1, 0),
+                         ((8, (3, 0, 4, 2)), (6, (1, 6, 2, 0))))}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("ring", list(RINGS))
+def test_the_hybrid_rings_equal_token_decode(ring, dtype):
+    """recurrentgemma-smoke in both ring branches, every state leaf drawn,
+    logits and every cache leaf token decode's bits over two chunks: caches
+    of 32 rows, a ring of the window, whose attention runs one column at a
+    time (positions up to 25, so a chunk's later rows wrap onto rows its
+    earlier ones read); and caches of 8 rows, a ring shorter than the
+    window (the whole cache, positions below 8 as a served prompt's are),
+    whose attention runs the columns at once."""
+    max_len, by_column, lens, chunks = RINGS[ring]
+    cfg = get_reduced("recurrentgemma-2b")
+    rc = RunConfig(dtype=dtype, param_dtype=dtype, remat=False)
+    params = prepare_params(init_model_params(5, cfg, device="cpu"), cfg,
+                            rc)
+    chunk = _cache(cfg, rc.dtype, 4, max_len)
+    chunk["len"].copy_(torch.tensor(lens, dtype=torch.int32))
+    assert _attends_by_column(cfg, chunk) == by_column
+    token = {k: v.clone() for k, v in chunk.items()}
+    rng = np.random.default_rng(8)
+    for width, counts in chunks:
+        n = np.array(counts, np.int32)
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab, (4, width)))
+        got, _ = prefill_step(params, chunk, {
+            "tokens": toks, "n_tokens": torch.from_numpy(n)}, cfg, rc)
+        assert torch.equal(got, _token_prefill(params, token, toks, n, cfg,
+                                               rc)), counts
+        for k in chunk:
+            assert torch.equal(chunk[k], token[k]), (counts, k)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("width", [24, 40])
+def test_a_wide_ssm_chunk_is_one_body(monkeypatch, width, dtype):
+    """falcon-mamba-smoke, whose cache holds no K/V rows: a chunk of 24 or
+    40 columns runs as one body (each layer's ``in_proj`` one product over
+    all the chunk's rows) and equals token decode bit for bit, logits and
+    every cache leaf, at counts 0, 1, a partial and a whole chunk, then a
+    second chunk."""
+    cfg = get_reduced("falcon-mamba-7b")
+    rc = RunConfig(dtype=dtype, param_dtype=dtype, remat=False)
+    params = prepare_params(init_model_params(6, cfg, device="cpu"), cfg,
+                            rc)
+    chunk = _cache(cfg, rc.dtype, 7)
+    token = {k: v.clone() for k, v in chunk.items()}
+    rng = np.random.default_rng(width)
+    rows, real = [], qm_ops._product
+
+    def recording(x, w, depth_x, depth_w, policy, slab=None):
+        rows.append(x.shape[0])
+        return real(x, w, depth_x, depth_w, policy, slab)
+
+    for counts in ((0, 1, width // 2, width), (width, 3, 0, width - 1)):
+        n = np.array(counts, np.int32)
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab, (4, width)))
+        rows.clear()
+        with monkeypatch.context() as mp:
+            mp.setattr(qm_ops, "_product", recording)
+            got, _ = prefill_step(params, chunk, {
+                "tokens": toks, "n_tokens": torch.from_numpy(n)}, cfg, rc)
+        # 4 products a layer and the head, all but the head over C x B rows
+        assert rows == [4 * width] * (4 * cfg.n_layers) + [4]
+        assert torch.equal(got, _token_prefill(params, token, toks, n, cfg,
+                                               rc)), counts
+        for k in chunk:
+            assert torch.equal(chunk[k], token[k]), (counts, k)
+
+
+@pytest.mark.parametrize("step", ["prefill", "decode"])
+@pytest.mark.parametrize("arch,max_len,chunk_rows,body", [
+    ("falcon-mamba-7b", 32, {32: 8, 4: 1}, 9),
+    # 4 RG-LRU layers of 5 products, 5 FFNs of 3 and 1 attention layer of
+    # 4, and the head: the attention with a ring shorter than the window
+    # over the chunk's rows, else over one column's 4 at a time
+    ("recurrentgemma-2b", 8, {32: 39, 4: 1}, 40),
+    ("recurrentgemma-2b", 32, {32: 35, 4: 33}, 40)])
+def test_the_recurrent_products_run_in_slabs_of_the_slots(
+        monkeypatch, arch, max_len, chunk_rows, body, step):
+    """Each product of a falcon-mamba or recurrentgemma chunk (C x B rows,
+    or B rows for an attention layer run by column) and of a decode step
+    (B rows) is asked for row by row in slabs of B = 4, the head's too."""
+    seen = []
+    real = qm_ops._product
+
+    def recording(x, w, depth_x, depth_w, policy, slab=None):
+        seen.append((x.shape[0], slab))
+        return real(x, w, depth_x, depth_w, policy, slab)
+
+    monkeypatch.setattr(qm_ops, "_product", recording)
+    cfg = get_reduced(arch)
+    rc = RunConfig(dtype="bfloat16", param_dtype="bfloat16", remat=False)
+    params = init_model_params(0, cfg, device="cpu")
+    cache = _cache(cfg, torch.bfloat16, 1, max_len)
+    toks = torch.ones((4, 8), dtype=torch.int64)
+    if step == "prefill":
+        prefill_step(params, cache, {"tokens": toks, "n_tokens": torch.tensor(
+            [8, 8, 3, 0], dtype=torch.int32)}, cfg, rc)
+        want = chunk_rows
+    else:
+        decode_step(params, cache, {"tokens": toks[:, :1]}, cfg, rc)
+        want = {4: body}
+    got = {}
+    for m, _ in seen:
+        got[m] = got.get(m, 0) + 1
+    assert got == want
+    assert all(slab == 4 for _, slab in seen)

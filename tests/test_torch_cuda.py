@@ -40,10 +40,12 @@ embedding alone.  A chunk's columns as one batched body: every op it runs
 row-wise ``rms_norm`` and ``decode_attention`` kernels against their plain
 versions (2e-4, 2e-2), each row or column equal to itself computed alone;
 bf16 ``queue_matmul`` run row by row keeps the thin kernel's bits at any
-M; and a replayed chunk of each batched family equals token prefill bit
-for bit, no product of it on the wide kernel, over a 200-token prompt
-at full width too (queries across several of ``decode_attention``'s
-spans)."""
+M; and a replayed chunk of each batched family (falcon-mamba's and
+recurrentgemma's too, only their recurrences walking the columns, and
+recurrentgemma's attention by column over a ring of its window and at
+once over a shorter one) equals token prefill bit for bit, no product of
+it on the wide kernel, over a 200-token prompt at full width too (queries
+across several of ``decode_attention``'s spans)."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -1470,19 +1472,22 @@ def test_a_host_read_fails_the_capture(card):
 
 #: the families whose chunk runs its columns as one batched body
 BATCHED_ARCHS = ["phi3-mini-3.8b", "glm4-9b", "nemotron-4-340b",
-                 "pixtral-12b", "olmoe-1b-7b", "granite-moe-3b-a800m"]
+                 "pixtral-12b", "olmoe-1b-7b", "granite-moe-3b-a800m",
+                 "falcon-mamba-7b", "recurrentgemma-2b"]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_the_body_ops_keep_a_rows_bits_across_row_counts(card, dtype):
     """Each op of the batched body (``row_bits.BODY_OPS``) over a chunk's
     B x C rows gives every row the bits it gets over its column's B rows
-    alone, at phi3-mini-3.8b's full widths (B 4, C 8), and an MoE layer's
-    expert products and combine at olmoe-1b-7b's."""
+    alone, at phi3-mini-3.8b's full widths (B 4, C 8), an MoE layer's
+    expert products and combine at olmoe-1b-7b's, and the recurrent
+    blocks' conv over columns, coefficients, recurrence steps and SSM
+    readout at falcon-mamba-7b's and recurrentgemma-2b's."""
     from repro_torch.benchmarks import row_bits
     rows = row_bits.candidates(torch.device("cuda"), dtypes=(dtype,))
     body = [r for r in rows if r["op"].startswith(row_bits.BODY_OPS)]
-    assert len(body) == 11
+    assert len(body) == 18
     assert all(r["bit_equal"] for r in body), [
         (r["op"], r["max_abs"]) for r in body if not r["bit_equal"]]
 
@@ -1698,6 +1703,34 @@ def test_a_chunk_wider_than_the_cache_equals_token_prefill(card, dtype):
     ref = {k: v.clone() for k, v in cache.items()}
     prog = _program(prefill_step, params, cache, cfg, rc, 16, 4)
     toks = np.random.default_rng(2).integers(0, cfg.vocab, (4, 16))
+    n = np.array([0, 1, 5, 8], np.int32)
+    got = prog(tokens=toks, n_tokens=n)
+    want = _token_prefill(params, ref, torch.from_numpy(toks).cuda(), n, cfg,
+                          rc)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    for k in ref:
+        assert torch.equal(cache[k], ref[k]), k
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_a_hybrid_chunk_over_a_short_ring_equals_token_prefill(card, dtype):
+    """recurrentgemma-smoke (window 16), a replayed bucket of 16 columns
+    over caches of 8 rows: a ring shorter than the window is the whole
+    cache, so the attention layers take the chunk's columns at once (in
+    two runs of 8) as phase 4's ring of 256 rows against a window of 2048
+    does; logits and every cache leaf equal token prefill's bit for
+    bit."""
+    cfg = get_reduced("recurrentgemma-2b")
+    rc = RunConfig(dtype=dtype, param_dtype=dtype, remat=False)
+    params = prepare_params(init_model_params(0, cfg, device="cuda"), cfg,
+                            rc)
+    cache = init_cache(cfg, 4, 8, rc.dtype, device="cuda")
+    assert not model_mod._attends_by_column(cfg, cache)
+    cache["len"].copy_(torch.tensor([0, 2, 1, 0], dtype=torch.int32))
+    ref = {k: v.clone() for k, v in cache.items()}
+    prog = _program(prefill_step, params, cache, cfg, rc, 16, 4)
+    toks = np.random.default_rng(4).integers(0, cfg.vocab, (4, 16))
     n = np.array([0, 1, 5, 8], np.int32)
     got = prog(tokens=toks, n_tokens=n)
     want = _token_prefill(params, ref, torch.from_numpy(toks).cuda(), n, cfg,

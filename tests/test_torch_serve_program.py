@@ -17,7 +17,12 @@ its window ring (recurrentgemma-smoke) and MLA (minicpm3-smoke).
   reference's scan runs them) equals one column at a time bit for bit.
 * The engine, whose steps are :class:`~repro_torch.serve.graphs.CapturedStep`
   programs (eager here, on the CPU), equals the JAX engine's tokens, steps
-  and ``prefill_compiles``, one program per width."""
+  and ``prefill_compiles``, one program per width.
+
+Every family here but MLA runs a chunk as one batched body, the decode
+step that body at C = 1 (tests/test_torch_chunk_body.py holds it to token
+decode bit for bit); MLA runs the decode body column by column, and these
+tests are the ones that hold its chunked path."""
 import pytest
 
 torch = pytest.importorskip("torch")
