@@ -7,10 +7,10 @@
 Phases, each of which raises on failure (the run then exits non-zero and
 prints no result):
 
-1. build   — compile the nine CUDA sources in the checkout (the five
+1. build   — compile the ten CUDA sources in the checkout (the five
    kernels, ``flash_attention_bwd``, ``ssm_scan_bwd`` and the serve
-   bodies' ``rms_norm`` and ``decode_attention``), one ``nvcc`` each, all
-   at once.
+   bodies' ``rms_norm``, ``decode_attention`` and ``latent_attention``),
+   one ``nvcc`` each, all at once.
 2. kernels — each kernel against its plain PyTorch version on the card at
    the serve paths' shapes, with its device time (``cuda_ms``), its bound
    and the time of one library call that computes the same function where
@@ -47,9 +47,10 @@ prints no result):
    decode products (phi3 over 2 slots, bf16) and serve_batch's (glm4-9b
    over 3 slots, bf16).  Then the batched chunk bodies' layer products
    row by row (``CHUNK_ROWS``: 32 rows in slabs of 4 slots for phi3,
-   pixtral, nemotron, olmoe, falcon-mamba and recurrentgemma, glm4-9b's 24
-   in slabs of 3, reduced phi3's 32 in fp32), every slab's rows equal to a
-   call over the slab alone, and the MoE chunks' expert products row by row
+   pixtral, nemotron, olmoe, falcon-mamba, recurrentgemma and minicpm3,
+   glm4-9b's 24 in slabs of 3, reduced phi3's 32 in fp32), every slab's
+   rows equal to a call over the slab alone, and the MoE chunks' expert
+   products row by row
    (``MOE_ROWS``: olmoe's 32 and 64 rows an expert, granite-moe-3b-a800m's
    32, in slabs of 4, with every expert and routed), each slab equal to a
    call over it alone and the C = 4 launch's bits unchanged row by row; the
@@ -58,7 +59,14 @@ prints no result):
    heads, and phi3's and glm4's at a 4K context) against their plain
    versions, each row or column equal to itself computed alone, beside
    ``F.rms_norm`` and masked SDPA and the floor of one launch (a
-   one-element in-place add).
+   one-element in-place add); then minicpm3's MLA: ``latent_attention``
+   (``LATENT_CASES``: its decode body and chunk, a chunk whose columns
+   clamp at ``max_len - 1``, a 4K context, fp32 and reduced widths)
+   against its plain version, each column equal to itself alone, beside
+   masked SDPA over [latent | rope] keys; and its per-head absorb products
+   (``MLA_ABSORB``: ``moe_gemm`` row by row with the 40 heads as experts,
+   at a decode body's 4 rows and a chunk's 32) against their plain
+   version, each slab equal to itself alone, beside ``torch.bmm``.
 3. parity  — phi3-mini-3.8b, olmoe-1b-7b, falcon-mamba-7b, minicpm3-4b,
    pixtral-12b (with 256 patch rows, over 512 positions) and
    hubert-xlarge (on frames) at full width, depth cut to 2 layers, and
@@ -99,8 +107,7 @@ prints no result):
    olmoe the experts each layer's mask keeps; and of the widest chunk
    program replayed with every count 0 (the cache must stay unchanged),
    its wall, kernels and kernel time a chunk and a prompt token (one
-   batched body for every served model but minicpm3, a decode body a
-   column for it).
+   batched body for every served model).
 4b. policy — the serve path on a calibrated operating point: the port's
    machine model calibrates a smoke grid on the host (``POLICY_CALIBRATION``,
    in-process), ``REPRO_CALIBRATION_DIR`` points at the artifacts, and the
@@ -300,19 +307,24 @@ PATH_KERNELS = {"dense": ("queue_matmul", "flash_attention"),
                 "audio": ("queue_matmul", "flash_attention")}
 #: the kernels the decode and chunk bodies of a family that batches a
 #: chunk's columns add to its path (``models.model.batches_columns``): the
-#: norm, and the attention where the family has GQA layers
+#: norm, and the attention where the family has GQA layers; an MLA layer's
+#: latent attention and its per-head absorb products (``moe_gemm``)
 COLUMN_KERNELS = ("rms_norm", "decode_attention")
+MLA_KERNELS = ("rms_norm", "latent_attention", "moe_gemm")
 
 
 def path_kernels(cfg) -> tuple:
     """The kernels ``cfg``'s serve path runs: its family's, and for a
     family that batches its columns the batched bodies' norm and, but for
-    the SSM family (no attention), their attention."""
+    the SSM family (no attention), their attention (MLA's with its absorb
+    products)."""
     from repro_torch.models.model import batches_columns
     if not batches_columns(cfg):
         return PATH_KERNELS[cfg.family]
     if cfg.family == "ssm":
         return PATH_KERNELS["ssm"] + ("rms_norm",)
+    if cfg.mla:
+        return PATH_KERNELS[cfg.family] + MLA_KERNELS
     return PATH_KERNELS[cfg.family] + COLUMN_KERNELS
 
 
@@ -350,6 +362,11 @@ WHERE = {
     "decode_attention": ("src/repro_torch/kernels/decode_attention/csrc/"
                          "decode_attention.cu",
                          "src/repro/models/attention.py:137"),
+    # no Pallas kernel: the JAX package's MLA absorbed attention is jnp;
+    # the port's serve bodies need one whose query bits ignore the row count
+    "latent_attention": ("src/repro_torch/kernels/latent_attention/csrc/"
+                         "latent_attention.cu",
+                         "src/repro/models/attention.py:306"),
     # no Pallas kernel: the JAX train path differentiates the plain
     # blocked attention with XLA's autodiff
     "flash_attention_bwd": ("src/repro_torch/kernels/flash_attention/csrc/"
@@ -517,7 +534,8 @@ def matmul_shapes(arch):
     ``arch``'s serve path, at full width (or on the ``ModelConfig`` given
     in its place); the router runs in fp32 only.
     MLA's wuk and wuv (the latent to every head's k and v) run in the
-    expanded form of ``forward`` only; its decode absorbs them."""
+    expanded form of ``forward`` only; its decode and chunk bodies absorb
+    them, per head through ``moe_gemm`` (``MLA_ABSORB``)."""
     from repro_torch.configs import get_config
     from repro_torch.models.ssm import ssm_dims
     cfg = get_config(arch) if isinstance(arch, str) else arch
@@ -599,7 +617,8 @@ CHUNK_ROWS = (("phi3-mini-3.8b", False, 32, 4, torch.bfloat16),
               ("phi3-mini-3.8b", True, 32, 2, torch.float32),
               ("olmoe-1b-7b", False, 32, 4, torch.bfloat16),
               ("falcon-mamba-7b", False, 32, 4, torch.bfloat16),
-              ("recurrentgemma-2b", False, 32, 4, torch.bfloat16))
+              ("recurrentgemma-2b", False, 32, 4, torch.bfloat16),
+              ("minicpm3-4b", False, 32, 4, torch.bfloat16))
 #: the generator offset of those products' inputs (see ``OWN_DRAWS``)
 CHUNK_DRAW = 29
 
@@ -728,14 +747,14 @@ def check_queue_matmul(gen, report) -> dict:
                 one(cfg.name, path.split()[0], name, m, k, n, dtype, g)
             free_card()
     # a chunk's batched body (its head runs on the slots' rows only, as
-    # decode's): each layer product row by row, from a generator of its
-    # own, at CHUNK_ROWS
+    # decode's; MLA's wuk/wuv only in forward): each layer product row by
+    # row, from a generator of its own, at CHUNK_ROWS
     from repro_torch.configs import get_config, get_reduced
     g = torch.Generator(device="cuda").manual_seed(SEED + CHUNK_DRAW)
     for arch, reduced, m, slab, dtype in CHUNK_ROWS:
         cfg = (get_reduced if reduced else get_config)(arch)
         for name, k, n, dtypes in matmul_shapes(cfg):
-            if name != "head" and dtype in dtypes:
+            if name not in ("head", "wuk/wuv") and dtype in dtypes:
                 one(cfg.name, "chunk", name, m, k, n, dtype, g, slab)
         free_card()
     return rep
@@ -1798,7 +1817,7 @@ def profile_train_step(step, params, opt, batch, wall: float,
 PROFILE_GROUPS = ("flash_attention_bwd", "flash_attention", "queue_matmul",
                   "moe_gemm", "ssm_scan_bwd", "ssm_scan",
                   "rglru_scan_bwd_kernel", "rglru_scan", "rms_norm",
-                  "decode_attention")
+                  "decode_attention", "latent_attention")
 
 
 def routed_mask(gen, tokens: int, experts: int, k: int) -> torch.Tensor:
@@ -2308,6 +2327,186 @@ def check_decode_attention(gen, report) -> dict:
     return rep
 
 
+#: (case, slots B, columns C, heads H, cache rows T, latent r, rope dr,
+#: dtype, the slots' first-column positions) of phase 2's
+#: ``latent_attention`` cases: minicpm3's decode body and chunk of 8 over
+#: phase 4's 4 slots of 256 rows, a chunk whose columns reach ``max_len``
+#: (each clamped column reads rows [0, T - 1) and its own row), a decode
+#: step at a 4K context (16 groups and the merge), the chunk in fp32 (the
+#: parity runs'), and reduced minicpm3's widths in both dtypes (an 8-byte
+#: rope row in bf16)
+LATENT_CASES = (
+    ("minicpm3", 4, 1, 40, 256, 256, 32, torch.bfloat16, (40, 17, 33, 8)),
+    ("minicpm3", 4, 8, 40, 256, 256, 32, torch.bfloat16, (24, 0, 9, 16)),
+    ("clamped", 4, 8, 40, 256, 256, 32, torch.bfloat16,
+     (250, 255, 252, 100)),
+    ("minicpm3 4k", 4, 1, 40, 4096, 256, 32, torch.bfloat16,
+     (4095, 3000, 2047, 999)),
+    ("fp32", 4, 8, 40, 256, 256, 32, torch.float32, (24, 0, 9, 16)),
+    ("reduced", 2, 8, 4, 16, 16, 4, torch.float32, (3, 12)),
+    ("reduced", 2, 8, 4, 16, 16, 4, torch.bfloat16, (3, 12)))
+#: minicpm3's q/k head dim (nope 64 + rope 32): the scores' 1/sqrt
+LATENT_QK = 96
+
+
+def latent_inputs(gen, b, c, h, t, r, dr, dtype, lens):
+    """q_eff, q_rope, the caches, rows and the self rows of a
+    ``LATENT_CASES`` row, drawn on the card from ``gen``: column c of slot
+    b at position lens[b] + c reads rows [0, min(position, T - 1)); q_eff
+    scaled by ``LONG_Q_SCALE`` where T is over 256."""
+    def rnd(*shape, scale=1.0):
+        return (scale * torch.randn(shape, generator=gen, device="cuda")
+                ).to(dtype)
+    q = rnd(c, b, h, r, scale=LONG_Q_SCALE if t > 256 else 1.0)
+    qr, lat, rope = rnd(c, b, h, dr), rnd(b, t, r), rnd(b, t, dr)
+    own, own_r = rnd(c, b, r), rnd(c, b, dr)
+    rows = (torch.tensor(lens, device="cuda")[None]
+            + torch.arange(c, device="cuda")[:, None]).clamp(max=t - 1)
+    return q, qr, lat, rope, rows.to(torch.int32), own, own_r
+
+
+def latent_library(q, qr, lat, rope, rows, own, own_r):
+    """One library call of the same function: SDPA with q = [q_eff |
+    q_rope] over one K/V head (``enable_gqa``), k = [latent | rope] of the
+    cache rows and then every column's own row, v = the latent, and a
+    boolean mask (column c sees rows [0, rows) and its own row)."""
+    import torch.nn.functional as F
+    c = q.shape[0]
+    t = lat.shape[1]
+    qs = torch.cat([q, qr], dim=-1).permute(1, 2, 0, 3)      # (B, H, C, .)
+    k = torch.cat([torch.cat([lat, rope], dim=-1),
+                   torch.cat([own, own_r], dim=-1).transpose(0, 1)],
+                  dim=1)[:, None]                          # (B, 1, T + C, .)
+    v = torch.cat([lat, own.transpose(0, 1)], dim=1)[:, None]
+    pos = torch.arange(t + c, device=q.device)
+    cols = torch.arange(c, device=q.device)
+    mask = ((pos[None, None] < rows.t()[:, :, None])
+            | (pos[None, None] == t + cols[None, :, None]))[:, None]
+    return lambda: F.scaled_dot_product_attention(
+        qs, k, v, attn_mask=mask, scale=1.0 / math.sqrt(LATENT_QK),
+        enable_gqa=True)
+
+
+def latent_work(q, qr, rows, esize):
+    """(operations, bytes) of the latent attention: each query's rows and
+    its own row, scored over r + dr and summed over r; q_eff, q_rope and
+    the self rows read and the output written once, each slot's cache rows
+    up to its longest column's read once, rows read."""
+    c, b, h, r = q.shape
+    dr = qr.shape[-1]
+    seen = (rows.long() + 1).sum().item()
+    flops = 2.0 * seen * h * (r + dr + r)
+    cache = rows.long().max(dim=0).values.sum().item() * (r + dr)
+    nbytes = ((2 * q.numel() + qr.numel() + c * b * (r + dr) + cache)
+              * esize + rows.numel() * 4)
+    return flops, nbytes
+
+
+def check_latent_attention(gen, report) -> dict:
+    """MLA's attention of the decode and chunk bodies at ``LATENT_CASES``
+    against its plain version, every column's queries equal bit for bit to
+    the column alone (a decode step's call); beside SDPA over the
+    [latent | rope] keys with a boolean mask (one library call, the same
+    function)."""
+    from repro_torch.kernels import latent_attention
+    from repro_torch.kernels.latent_attention.ref import latent_attention_ref
+    rep = None
+    scale = 1.0 / math.sqrt(LATENT_QK)
+    log("[kernels] latent_attention  case  B  C  H  T  r/dr  dtype  "
+        "max_abs_err  ms  plain_ms  library_ms  bound_ms")
+    for case, b, c, h, t, r, dr, dtype, lens in LATENT_CASES:
+        args = latent_inputs(gen, b, c, h, t, r, dr, dtype, lens)
+        q, qr, lat, _, rows, _, _ = args
+        out = latent_attention(*args, scale)
+        err = within(out, latent_attention_ref(*args, scale), TOL[dtype])
+        for j in range(c):
+            one = [a if a is lat or a is args[3] else a[j:j + 1]
+                   for a in args]
+            if not torch.equal(latent_attention(*one, scale),
+                               out[j:j + 1]):
+                raise AssertionError(f"latent_attention: column {j} of {c} "
+                                     f"differs from the column alone "
+                                     f"({case} {dtype})")
+        ms = cuda_ms(lambda: latent_attention(*args, scale))
+        plain = cuda_ms(lambda: latent_attention_ref(*args, scale), iters=5)
+        lib = cuda_ms(latent_library(*args))
+        b_ms, b_by = bound(*latent_work(q, qr, rows, lat.element_size()),
+                           torch.float32)
+        log(f"[kernels] latent_attention {case:>11s} {b:2d} {c:3d} {h:3d} "
+            f"{t:5d} {r:3d}/{dr:<3d} {str(dtype)[6:]:>8s} {err:10.3e} "
+            f"{ms:8.4f} {plain:8.4f} {lib:8.4f} {b_ms:8.4f} ({b_by}; "
+            f"columns equal alone)")
+        row = {"model": case, "B": b, "C": c, "H": h, "T": t, "r": r,
+               "dr": dr, "dtype": str(dtype)[6:], "max_abs_err": err,
+               "ms": ms, "plain_ms": plain, "library_ms": lib,
+               "bound_ms": b_ms, "bound_by": b_by}
+        report.append({"kernel": "latent_attention", **row})
+        if (case, c, dtype) == ("minicpm3", 8, torch.bfloat16):
+            rep = row
+        del args, q, qr, lat, rows, out
+    free_card()
+    return rep
+
+
+#: (product, heads E, rows an expert C, d, f, dtype) of an MLA layer's
+#: per-head absorb products on minicpm3's serve path: q_nope W_uk (64 to
+#: the latent's 256) and o_lat W_uv (256 to v's 64) over a decode body's 4
+#: slots and a chunk's 32 rows, row by row in slabs of 4
+MLA_ABSORB = tuple((name, 40, c, d, f, dtype)
+                   for dtype in (torch.bfloat16, torch.float32)
+                   for c in (4, 32)
+                   for name, d, f in (("q_nope W_uk", 64, 256),
+                                      ("o_lat W_uv", 256, 64)))
+#: the generator offset of those products' inputs (see ``OWN_DRAWS``)
+MLA_ABSORB_DRAW = 37
+
+
+def check_mla_absorb(report) -> None:
+    """``moe_gemm`` row by row (``slab`` 4) at ``MLA_ABSORB``, a per-head x
+    of C rows an expert: held to the plain version, every slab's rows equal
+    to a call over that slab alone (the decode body's); timed beside its
+    bound and ``torch.bmm`` (one library call, the same products)."""
+    from repro_torch.kernels.moe_gemm import ops
+    from repro_torch.kernels.moe_gemm.ref import moe_gemm_ref
+    depth = ops.operating_point().effective_depths()[1]
+    g = torch.Generator(device="cuda").manual_seed(SEED + MLA_ABSORB_DRAW)
+    log(f"[kernels] moe_gemm MLA absorb  product  E  C  d  f  dtype  "
+        f"max_abs_err  ms  plain_ms  library_ms  bound_ms  (depth {depth}, "
+        f"slabs of 4)")
+    for name, e, c, d, f, dtype in MLA_ABSORB:
+        w = (torch.randn((e, d, f), generator=g, device="cuda")
+             / math.sqrt(d)).to(dtype)
+        x = torch.randn((e, c, d), generator=g, device="cuda").to(dtype)
+        out = ops.moe_gemm(x, w, depth=depth, slab=4)
+        err = within(out, moe_gemm_ref(x, w), TOL[dtype])
+        for i in range(0, c, 4):
+            if not torch.equal(ops.moe_gemm(x[:, i:i + 4], w, depth=depth,
+                                            slab=4), out[:, i:i + 4]):
+                raise AssertionError(f"moe_gemm MLA absorb: rows {i}-"
+                                     f"{i + 4} of {c} differ from their slab "
+                                     f"alone at {name} {dtype}")
+        ms = cuda_ms(lambda: ops.moe_gemm(x, w, depth=depth, slab=4))
+        plain = cuda_ms(lambda: moe_gemm_ref(x, w, None, 4), iters=5)
+        lib = cuda_ms(lambda: torch.bmm(x, w))
+        es = x.element_size()
+        b_ms, b_by = bound(2.0 * e * c * d * f,
+                           (e * c * d + e * d * f) * es + e * c * f * 4,
+                           dtype)
+        kind = ops.regime(c, dtype, True)
+        log(f"[kernels] moe_gemm absorb {name:>12s} {e:3d} {c:3d} {d:4d} "
+            f"{f:4d} {str(dtype)[6:]:>8s} {err:10.3e} {ms:8.4f} "
+            f"{plain:8.4f} {lib:8.4f} {b_ms:8.4f} ({b_by}; {kind}; slabs "
+            f"equal alone)")
+        report.append({"kernel": "moe_gemm", "model": "minicpm3-4b",
+                       "product": name, "E": e, "C": c, "d": d, "f": f,
+                       "dtype": str(dtype)[6:], "depth": depth,
+                       "regime": kind, "slab": 4, "max_abs_err": err,
+                       "ms": ms, "plain_ms": plain, "library_ms": lib,
+                       "bound_ms": b_ms, "bound_by": b_by})
+        del w, x, out
+    free_card()
+
+
 # ---------------------------------------------------------------------------
 # phase 3: full width, cut depth, card against CPU
 # ---------------------------------------------------------------------------
@@ -2731,6 +2930,19 @@ def _named(tree, specs, prefix: str = ""):
             yield from _named(tree[k], specs[k], path + "/")
 
 
+def _extra(tree, specs, prefix: str = ""):
+    """(path, bytes) of each leaf of ``tree`` that ``specs`` does not name:
+    the prepared tree's ``head_t`` and an MLA layer's head-major
+    ``wuk_h``/``wuv_h``."""
+    for k, v in tree.items():
+        path = f"{prefix}{k}"
+        if k not in specs:
+            yield path, sum(t.nbytes for t in (
+                v.values() if isinstance(v, dict) else [v]))
+        elif isinstance(v, dict):
+            yield from _extra(v, specs[k], path + "/")
+
+
 def check_serve_state(eng, cfg, rc) -> None:
     """The engine's weights (the leaves ``param_specs`` names) and cache, in
     bytes, must equal the dry run's ``params`` + ``cache`` on a 1 x 1 mesh
@@ -2749,7 +2961,7 @@ def check_serve_state(eng, cfg, rc) -> None:
     want = dryrun.device_state_bytes(
         cfg, shape, dryrun.ONE_CARD,
         dataclasses.replace(rc, param_dtype=rc.dtype))
-    extra = {k: v.nbytes for k, v in eng.params.items() if k not in specs}
+    extra = dict(_extra(eng.params, specs))
     log(f"[serve] {cfg.name} state: weights {held} B + cache {cache} B; the "
         f"dry run's params {want['params']:.0f} B + cache "
         f"{want['cache']:.0f} B on a 1x1 mesh; the engine's leaves beyond "
@@ -2893,10 +3105,8 @@ def profile_chunk(eng, arch: str, n: int) -> None:
     no-op on the cache by construction; a count changes which rows are
     kept, not the work): wall, kernels and kernel time a chunk and a
     prompt token of a full chunk (slots x width of them), and its largest
-    kernels.  A family that batches a chunk's columns (all but MLA) runs
-    one body over the chunk's rows, only the SSM and RG-LRU recurrences
-    walking the columns; MLA one decode body a column."""
-    from repro_torch.models.model import batches_columns
+    kernels.  Every decoder family runs one body over the chunk's rows,
+    only the SSM and RG-LRU recurrences walking the columns."""
     if not eng._prefill_fns:
         return
     width = max(eng._prefill_fns)
@@ -2912,10 +3122,9 @@ def profile_chunk(eng, arch: str, n: int) -> None:
             raise AssertionError(f"{arch}: a chunk of zero counts changed "
                                  f"the cache leaf {k}")
     busy, per = sum(dev.values()), slots * width
-    body = ("one batched body" if batches_columns(eng.cfg)
-            else "a decode body a column")
     log(f"[profile] {arch} replayed chunk of width {width} ({slots} slots, "
-        f"{body}; counts 0, the cache unchanged): a chunk {wall:.2f} ms "
+        f"one batched body; counts 0, the cache unchanged): a chunk "
+        f"{wall:.2f} ms "
         f"wall, {busy:.2f} ms in {kernels:.0f} kernels; a prompt token "
         f"{wall / per:.3f} ms wall, {busy / per:.3f} ms in "
         f"{kernels / per:.1f} kernels")
@@ -3584,7 +3793,10 @@ def main() -> int:
                    ("rglru_scan", check_rglru_scan(gen, report)),
                    ("rms_norm", check_rms_norm(gen, report)),
                    ("decode_attention",
-                    check_decode_attention(gen, report))]
+                    check_decode_attention(gen, report)),
+                   ("latent_attention",
+                    check_latent_attention(gen, report))]
+        check_mla_absorb(report)
         free_card()
         lap("phase kernels")
     if "parity" in phases:

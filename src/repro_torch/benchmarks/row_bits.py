@@ -17,7 +17,11 @@ recurrentgemma-2b's full widths, the recurrent blocks' conv over a chunk's
 columns (``models.layers.conv_columns``, against one column at a time from
 the state the columns before it leave), their coefficients
 (``models.ssm.ssm_coeffs`` with the softplus before it,
-``models.rglru.gate_coeffs``), the recurrence steps and the SSM readout.
+``models.rglru.gate_coeffs``), the recurrence steps and the SSM readout;
+and, at minicpm3-4b's, an MLA layer's latent attention kernel, its two
+per-head absorb products (``moe_gemm`` row by row, the heads as experts)
+and its clamped write of a chunk's latent rows
+(``models.attention._write_clamped_rows``, against one column at a time).
 
   PYTHONPATH=src python -m repro_torch.benchmarks.row_bits [--out PATH]
 
@@ -43,7 +47,8 @@ BODY_OPS = ("queue_matmul row by row", "rms_norm (kernel)", "apply_rope",
             "embedding gather", "decode_attention (kernel)",
             "moe_gemm row by row", "moe combine", "conv over columns",
             "ssm coefficients", "rglru gates", "ssm recurrence step",
-            "rglru recurrence step", "ssm readout")
+            "rglru recurrence step", "ssm readout",
+            "latent_attention (kernel)", "mla absorb", "mla clamped write")
 #: olmoe-1b-7b's MoE widths: experts, top-k, d, the expert's d_ff
 EXPERTS, TOP_K, MOE_D, MOE_F = 64, 8, 2048, 1024
 #: a chunk: B slots of C columns, a cache of T positions
@@ -52,6 +57,8 @@ B, C, T = 4, 8, 256
 #: recurrentgemma-2b's RG-LRU width
 SSM_D, SSM_N, CONV_K = 8192, 16, 4
 LRU_W = 2560
+#: minicpm3-4b's MLA widths: heads, latent, rope key, q/k nope part, v
+MLA_H, MLA_R, MLA_DR, MLA_NOPE, MLA_V = 40, 256, 32, 64, 64
 
 
 def _rows_equal(name: str, dtype: torch.dtype,
@@ -161,6 +168,56 @@ def _recurrent(dtype: torch.dtype, randn, rand) -> List[Dict[str, object]]:
     return out
 
 
+def _mla(dtype: torch.dtype, randn) -> List[Dict[str, object]]:
+    """An MLA layer's ops at minicpm3-4b's full widths over a chunk's
+    B x C rows against B rows: the latent attention kernel (column c's
+    queries read rows [0, min(len + c, T - 1)) and their own new row), the
+    two per-head absorb products row by row, and the clamped write of the
+    columns' latent rows (slots at lengths that reach T - 1, several
+    columns clamping onto it) against one column at a time."""
+    from ..kernels import latent_attention, moe_gemm
+    from ..models.attention import _write_clamped_rows
+    n, H = B * C, MLA_H
+    q = randn(C, B, H, MLA_R).to(dtype)
+    qr = randn(C, B, H, MLA_DR).to(dtype)
+    lat, rope = randn(B, T, MLA_R).to(dtype), randn(B, T, MLA_DR).to(dtype)
+    own, own_r = randn(C, B, MLA_R).to(dtype), randn(C, B, MLA_DR).to(dtype)
+    lens = torch.tensor([5, 17, 250, 200], device=lat.device)
+    pos = lens[None] + torch.arange(C, device=lat.device)[:, None]
+    rows = pos.clamp(max=T - 1)
+    scale = 1.0 / (MLA_NOPE + MLA_DR) ** 0.5
+
+    def attend(r):
+        cs = slice(r.start // B, r.stop // B)
+        return latent_attention(q[cs], qr[cs], lat, rope, rows[cs], own[cs],
+                                own_r[cs], scale).reshape(-1, H, MLA_R)
+
+    out = [_rows_equal("latent_attention (kernel), C queries against 1",
+                       dtype, attend, n, B)]
+    for what, k, m in (("q_nope W_uk", MLA_NOPE, MLA_R),
+                       ("o_lat W_uv", MLA_R, MLA_V)):
+        w = (randn(H, k, m) / k ** 0.5).to(dtype)
+        x = randn(H, n, k).to(dtype)
+        out.append(_rows_equal(
+            f"mla absorb {what} row by row (slab {B}), {n} rows against "
+            f"{B}", dtype,
+            lambda r: moe_gemm(x[:, r], w, slab=B).transpose(0, 1), n, B))
+    active = (torch.arange(C, device=lat.device)[:, None]
+              < torch.tensor([8, 3, 5, 0], device=lat.device)[None])
+    full = lat.clone()
+    _write_clamped_rows(full, pos, own, active)
+    cols = lat.clone()
+    for j in range(C):
+        _write_clamped_rows(cols, pos[j:j + 1], own[j:j + 1],
+                            active[j:j + 1])
+    out.append({"op": "mla clamped write, C columns against 1",
+                "dtype": str(dtype).replace("torch.", ""), "rows": n,
+                "slab": B, "bit_equal": bool(torch.equal(full, cols)),
+                "max_abs": (full.float() - cols.float()).abs().max()
+                .item()})
+    return out
+
+
 def candidates(device: torch.device, seed: int = 0,
                dtypes=(torch.float32, torch.bfloat16)
                ) -> List[Dict[str, object]]:
@@ -266,6 +323,7 @@ def candidates(device: torch.device, seed: int = 0,
             lambda r: combine_rows(y[:, r], wt[r], idx[r]), n, B))
         del y
         out.extend(_recurrent(dtype, randn, rand))
+        out.extend(_mla(dtype, randn))
     return out
 
 

@@ -5,12 +5,13 @@ Sequence-level attention (:func:`gqa_apply`, :func:`mla_apply`) runs the
 port's ``flash_attention`` op: the CUDA kernel on the card, its plain
 version on the CPU.  :func:`flash_attention_ref` is the model-level plain
 version, a blockwise online softmax in PyTorch, ported from the JAX
-package's reference of the same name.  GQA decode, one column or a
-chunk's columns at once (:func:`gqa_columns`), attends through the port's
-``decode_attention`` kernel, whose query rows keep their bits whatever
-rows run with them; MLA's absorbed scores over the latent cache
-(:func:`mla_decode`) stay plain PyTorch, as the JAX package computes them
-outside any kernel.  Every 2-D projection runs through ``queue_matmul``.
+package's reference of the same name.  Decode, one column or a chunk's
+columns at once, attends through kernels whose query rows keep their bits
+whatever rows run with them: GQA (:func:`gqa_columns`) through
+``decode_attention``, MLA's absorbed form over the latent cache
+(:func:`mla_columns`) through ``latent_attention``, its per-head absorb
+products through ``moe_gemm`` with the heads as experts.  Every 2-D
+projection runs through ``queue_matmul``.
 """
 from __future__ import annotations
 
@@ -21,11 +22,14 @@ import torch
 
 from ..config import ModelConfig
 from ..core.policy import ExecutionPolicy
-from ..device import upcast, wide_dtype
+from ..device import wide_dtype
 from ..kernels.decode_attention import decode_attention
 from ..kernels.decode_attention.ref import NEG_INF
 from ..kernels.flash_attention import flash_attention
+from ..kernels.latent_attention import latent_attention
+from ..kernels.rms_norm import rms_norm as norm_rows
 from .layers import ParamSpec, apply_rope, matmul, rms_norm, rope_angles
+from .moe import expert_gemm
 
 
 # ---------------------------------------------------------------------------
@@ -143,23 +147,6 @@ def gqa_apply(p, x: torch.Tensor, cfg: ModelConfig, *,
     o = flash_attention(q, k, v, causal=cfg.causal, window=window,
                         q_offset=q_offset)
     return _out_project(o, p["wo"], policy)
-
-
-def _write_slot_rows(cache: torch.Tensor, slot: torch.Tensor,
-                     new: torch.Tensor,
-                     active: Optional[torch.Tensor]) -> None:
-    """``cache[b, ..., slot[b], :] = new[b]`` in place for every slot b of
-    the (B,) mask ``active`` (all when None), the others' rows written back
-    as they were: a gather, a select and a scatter of B rows, nothing that
-    depends on the data.  ``cache`` is (B, T, D) or (B, H, T, D), ``new``
-    (B, D) or (B, H, D)."""
-    b = torch.arange(cache.shape[0], device=cache.device)
-    at = (b, slot) if cache.ndim == 3 else (b, slice(None), slot)
-    new = new.to(cache.dtype)
-    if active is not None:
-        new = torch.where(active.reshape((-1,) + (1,) * (new.ndim - 1)),
-                          new, cache[at])
-    cache[at] = new
 
 
 def _write_column_rows(cache: torch.Tensor, slot: torch.Tensor,
@@ -294,44 +281,131 @@ def mla_apply(p, x: torch.Tensor, cfg: ModelConfig, *, q_offset: int = 0,
     return _out_project(o, p["wo"], policy)
 
 
+def head_major(p) -> Dict[str, torch.Tensor]:
+    """W_uk and W_uv of MLA layers held head-major, as the absorbed form's
+    per-head products take them: ``wuk_h`` (..., H, nope, r) and ``wuv_h``
+    (..., H, r, v) from ``wuk`` (..., r, H, nope) and ``wuv`` (..., r, H,
+    v), stacked over layers or not; contiguous copies, made once at load
+    (:func:`~repro_torch.models.model.prepare_params`)."""
+    return {"wuk_h": p["wuk"].movedim(-3, -1).contiguous(),
+            "wuv_h": p["wuv"].movedim(-2, -3).contiguous()}
+
+
+def _per_head(x: torch.Tensor, w: torch.Tensor,
+              policy: Optional[ExecutionPolicy], slab: int) -> torch.Tensor:
+    """einsum("cbhk,hkn->cbhn"): x (C, B, H, k) through each head's own
+    (k, n) matrix of the head-major w (H, k, n), in x's dtype.  The heads
+    are ``moe_gemm``'s experts, each product row by row in slabs of
+    ``slab`` rows, so a row keeps the bits of its slab alone."""
+    C, B, H, k = x.shape
+    y = expert_gemm(x.permute(2, 0, 1, 3).reshape(H, C * B, k), w, policy,
+                    None, slab)
+    return y.reshape(H, C, B, -1).permute(1, 2, 0, 3).contiguous()
+
+
+def _write_clamped_rows(cache: torch.Tensor, pos: torch.Tensor,
+                        new: torch.Tensor,
+                        active: Optional[torch.Tensor]) -> None:
+    """The rows C columns of B slots leave in ``cache`` (B, T, D), in place,
+    as their one-column steps in order leave it: column c of slot b, at
+    position ``pos[c, b]``, writes row ``min(pos, T - 1)`` where the (C, B)
+    mask ``active`` (None: all) takes it.  ``new`` is (C, B, D).
+
+    A row below T - 1 is written by one column at most (a scatter whose
+    other entries, the columns at or past T - 1, write that row's value
+    back, so no index gets two values); row T - 1 then takes, by a (B,)
+    select, the last active column's row where that column's position
+    reaches it, and keeps its value otherwise.  Nothing depends on the
+    data."""
+    C, B = pos.shape
+    last = cache.shape[1] - 1
+    b = torch.arange(B, device=cache.device)
+    slot = torch.clamp(pos, max=last)
+    keep = pos < last
+    if active is not None:
+        keep = keep & active
+    at = (b.expand(C, B), slot)
+    cache[at] = torch.where(keep[..., None], new, cache[at])
+    n = (torch.full((B,), C, device=cache.device) if active is None
+         else active.sum(0))
+    j = torch.clamp(n - 1, min=0)
+    reach = (n > 0) & (pos[j, b] >= last)
+    cache[:, last] = torch.where(reach[:, None], new[j, b], cache[:, last])
+
+
+def mla_columns(p, x: torch.Tensor, cfg: ModelConfig,
+                latent_cache: torch.Tensor, rope_cache: torch.Tensor,
+                length: torch.Tensor, active: Optional[torch.Tensor] = None,
+                policy: Optional[ExecutionPolicy] = None) -> torch.Tensor:
+    """C columns of single-token steps of B slots at once, in MLA's
+    absorbed form (the decode step at C = 1): x (C, B, d), column c of slot
+    b at position ``len[b] + c`` (``length`` (B,)); the caches hold only
+    the latent (B, T, r) and the rope key (B, T, rope_dim), written in
+    place (:func:`_write_clamped_rows`: at ``min(position, T - 1)``, the
+    row the reference's ``dynamic_update_slice`` clamps to, for the
+    columns of the (C, B) mask ``active``, default all).  Returns
+    (C, B, d).
+
+    The score of position t is ``q_nope W_uk . latent_t + q_rope .
+    k_rope_t``: column c reads the cache rows [0, min(position, T - 1)) and
+    then its own new row, which is what its decode step reads after
+    writing that row (the rows below T - 1 that earlier columns of the
+    chunk write are written before the attention).  Each op runs row by
+    row (the products
+    in slabs of B rows, the norms through ``rms_norm``, the per-head
+    absorb products through ``moe_gemm``, the attention through
+    ``latent_attention``), so every row gets the bits of the one-column
+    step; RoPE at each column's true position."""
+    m = cfg.mla
+    C, B, _ = x.shape
+    H, nope, r = cfg.n_heads, m.qk_nope_head_dim, m.kv_lora_rank
+    T = latent_cache.shape[1]
+    pos = (length.to(torch.int64)[None]
+           + torch.arange(C, device=x.device)[:, None])
+    cq = norm_rows(matmul(x, p["wdq"], policy, slab=B), p["q_norm"],
+                   cfg.norm_eps)
+    wuq = p["wuq"]
+    q = matmul(cq, wuq.reshape(wuq.shape[0], -1), policy,
+               slab=B).reshape(C, B, H, -1)
+    ckv = matmul(x, p["wdkv"], policy, slab=B)
+    cos, sin = rope_angles(pos, m.qk_rope_head_dim, cfg.rope_theta,
+                           wide_dtype(x.dtype))
+    q_rope = apply_rope(q[..., nope:], cos[:, :, None], sin[:, :, None])
+    lat = norm_rows(ckv[..., :r], p["kv_norm"],
+                    cfg.norm_eps).to(latent_cache.dtype)
+    k_rope = apply_rope(ckv[..., r:], cos, sin).to(rope_cache.dtype)
+    _write_clamped_rows(latent_cache, pos, lat, active)
+    _write_clamped_rows(rope_cache, pos, k_rope, active)
+    w = p if "wuk_h" in p else head_major(p)
+    q_eff = _per_head(q[..., :nope], w["wuk_h"], policy, B)
+    o_lat = latent_attention(q_eff, q_rope, latent_cache, rope_cache,
+                             torch.clamp(pos, max=T - 1), lat, k_rope,
+                             1.0 / math.sqrt(nope + m.qk_rope_head_dim))
+    o = _per_head(o_lat.to(x.dtype), w["wuv_h"], policy, B)
+    wo = p["wo"]
+    return matmul(o.reshape(C, B, -1), wo.reshape(-1, wo.shape[2]), policy,
+                  slab=B)
+
+
 def mla_decode(p, x: torch.Tensor, cfg: ModelConfig,
                latent_cache: torch.Tensor, rope_cache: torch.Tensor,
                length: torch.Tensor, *,
                active: Optional[torch.Tensor] = None,
                policy: Optional[ExecutionPolicy] = None
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The absorbed form, for decode: the caches hold only the latent
-    (B, T, r) and the rope key (B, T, rope_dim); the score of position t
-    is ``q_nope W_uk . latent_t + q_rope . k_rope_t``.  x: (B, 1, d);
-    ``length`` per-sequence (B,).  Returns (out (B, 1, d), latent_cache,
-    rope_cache).
-
-    The caches are written in place, the slots of the (B,) mask
-    ``active`` only (default all; the others' rows are written back
-    unchanged), at ``min(length, T - 1)``: the reference writes with
+    """The absorbed form for one token a slot: :func:`mla_columns` at
+    C = 1.  x: (B, 1, d); ``length`` per-sequence (B,) or a scalar;
+    ``active`` (B,) the slots whose rows are written (default all).
+    Returns (out (B, 1, d), latent_cache, rope_cache), the caches written
+    in place at ``min(length, T - 1)``: the reference writes with
     ``dynamic_update_slice`` at ``length``, which JAX clamps to the last
     row once a slot's length reaches T (the engine advances free slots'
     lengths too), where GQA's ring writes at ``length % T``.  Every
     position up to ``length`` is attended, so past T all T rows are."""
-    m = cfg.mla
     B = x.shape[0]
     length = torch.as_tensor(length, dtype=torch.int64,
                              device=x.device).expand(B)
-    q_nope, q_rope, lat_t, k_rope_t = _mla_qkv(p, x, cfg, length[:, None],
-                                               policy)
-    T = latent_cache.shape[1]
-    slot = torch.clamp(length, max=T - 1)
-    _write_slot_rows(latent_cache, slot, lat_t[:, 0], active)
-    _write_slot_rows(rope_cache, slot, k_rope_t[:, 0], active)
-
-    q_eff = torch.einsum("bhsk,rhk->bhsr", q_nope, p["wuk"])   # (B,H,1,r)
-    lat = upcast(latent_cache)
-    s = (torch.einsum("bhsr,btr->bhst", upcast(q_eff), lat)
-         + torch.einsum("bhsk,btk->bhst", upcast(q_rope),
-                        upcast(rope_cache)))
-    s = s / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
-    mask = torch.arange(T, device=x.device)[None] <= length[:, None]
-    s = torch.where(mask[:, None, None], s, NEG_INF)
-    o_lat = torch.einsum("bhst,btr->bhsr", torch.softmax(s, dim=-1), lat)
-    o = torch.einsum("bhsr,rhk->bhsk", o_lat.to(x.dtype), p["wuv"])
-    return _out_project(o, p["wo"], policy), latent_cache, rope_cache
+    out = mla_columns(p, x.transpose(0, 1), cfg, latent_cache, rope_cache,
+                      length, None if active is None else active[None],
+                      policy)
+    return out.transpose(0, 1), latent_cache, rope_cache

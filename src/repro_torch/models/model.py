@@ -17,8 +17,8 @@ through ``ssm_scan`` and the full-sequence RG-LRU recurrence through
 macro block stacked over ``n_full`` under ``"macros"`` and the unstacked
 tail layers as ``tail_{j}_{kind}``.  An MLA model (minicpm3) runs its
 attention expanded in ``forward`` (through ``flash_attention`` with a v
-head dim below q's) and absorbed in decode, over a cache of latent and
-rope-key rows.  The frontends are stubs, as in the reference: the vision
+head dim below q's) and absorbed in decode and chunks (through
+``latent_attention``), over a cache of latent and rope-key rows.  The frontends are stubs, as in the reference: the vision
 family (pixtral) takes precomputed patch embeddings in place of its first
 ``n_frontend_tokens`` token embeddings, the audio family (hubert, an
 encoder: ``causal=False``) precomputed frame embeddings in place of
@@ -38,17 +38,19 @@ numbers:
 
 * :func:`prepare_params` casts the weights to the compute dtype once, at
   load, where the JAX step casts fp32 leaves inside every jitted call (the
-  values are the same), and holds the head transposed and contiguous
-  (``head_t``, (d, vocab)) so the logits are one ``x @ head_t``;
+  values are the same), holds the head transposed and contiguous
+  (``head_t``, (d, vocab)) so the logits are one ``x @ head_t``, and an
+  MLA layer's W_uk and W_uv head-major beside them (``wuk_h``, ``wuv_h``)
+  for the absorbed form's per-head products;
 * :func:`decode_step` and :func:`prefill_step` update the cache in place
   and return the same dict.
 
 Where the reference's chunked prefill scans its decode body over a chunk's
-columns, every decoder family but MLA (:func:`batches_columns`) runs the
-columns as one body over C x B rows (:func:`_columns_body`), and its decode
-step is that body at C = 1; each op runs row by row and only the SSM and
-RG-LRU recurrences walk the columns, so the result is the reference's, bit
-for bit the token-by-token path's.
+columns, every decoder family (:func:`batches_columns`) runs the columns as
+one body over C x B rows (:func:`_columns_body`), and its decode step is
+that body at C = 1; each op runs row by row and only the SSM and RG-LRU
+recurrences walk the columns, so the result is the reference's, bit for
+bit the token-by-token path's.
 """
 from __future__ import annotations
 
@@ -178,13 +180,16 @@ def prepare_params(params: Pytree, cfg: ModelConfig, rc: RunConfig) -> Pytree:
     fp32 layer leaves (``blocks``, or the hybrid ``macros`` and ``tail_*``),
     ``embed`` and the head cast to ``rc.dtype`` (the cast the JAX step
     applies inside every call; ``final_norm`` stays as given, as there),
-    and the head held transposed and contiguous as ``head_t`` (d, vocab) in
-    place of ``head``."""
+    the head held transposed and contiguous as ``head_t`` (d, vocab) in
+    place of ``head``, and an MLA model's W_uk and W_uv also head-major
+    (:func:`~repro_torch.models.attention.head_major`)."""
     dtype = torch_dtype(rc.dtype)
     out = {k: (_cast(v, dtype) if _is_blocks(k) else v)
            for k, v in params.items() if k != "head"}
     out["embed"] = params["embed"].to(dtype)
     out["head_t"] = _head_t(params, cfg, dtype)
+    if cfg.mla:
+        out["blocks"]["attn"].update(attn.head_major(out["blocks"]["attn"]))
     return out
 
 
@@ -399,38 +404,11 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
                                              torch_dtype(dtype)).items()}
 
 
-def _decode_body(params: Pytree, cache: Pytree, tokens: torch.Tensor,
-                 cfg: ModelConfig, rc: RunConfig,
-                 active: Optional[torch.Tensor]) -> torch.Tensor:
-    """One token for every slot of an MLA model (the family that does not
-    batch a chunk's columns, :func:`batches_columns`): writes the latent
-    and rope rows of the slots of the (B,) mask ``active`` (all slots when
-    None) in place, at ``min(len, max_len - 1)`` as the reference's
-    clamped write puts them, and returns fp32 logits (B, vocab).  ``len``
-    is left to the caller."""
-    dtype = torch_dtype(rc.dtype)
-    x = params["embed"][tokens].to(dtype)
-    for i, (_, bp) in enumerate(_layers(params, cfg, dtype)):
-        hn = rms_norm(x, bp["ln1"], cfg.norm_eps)
-        y, _, _ = attn.mla_decode(bp["attn"], hn, cfg, cache["latent"][i],
-                                  cache["rope"][i], cache["len"],
-                                  active=active, policy=rc.policy)
-        x = x + y
-        hn = rms_norm(x, bp["ln2"], cfg.norm_eps)
-        x = x + ffn_apply(bp["ffn"], hn, cfg.ffn_act, rc.policy)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return upcast(matmul(x[:, 0], _head_t(params, cfg, dtype), rc.policy))
-
-
 def batches_columns(cfg: ModelConfig) -> bool:
     """Whether a chunk runs its columns as one batched body
-    (:func:`_columns_body`): every decoder family but MLA (minicpm3), whose
-    rows are written clamped at ``max_len - 1``, so that several columns
-    past it land on one row, and whose absorbed attention has no row-wise
-    kernel; it runs the decode body column by column.  The encoder has no
-    decode step."""
-    return (cfg.family in ("dense", "vlm", "moe", "ssm", "hybrid")
-            and cfg.mla is None)
+    (:func:`_columns_body`): every decoder family, MLA's (minicpm3)
+    included.  The encoder has no decode step."""
+    return cfg.family in ("dense", "vlm", "moe", "ssm", "hybrid")
 
 
 def _attends_by_column(cfg: ModelConfig, cache: Pytree) -> bool:
@@ -470,13 +448,16 @@ def _columns_body(params: Pytree, cache: Pytree, tokens: torch.Tensor,
     (B, vocab) after each slot's last taken column (a slot with none gets
     its first column's, for the caller to drop); ``len`` is left to the
     caller.  Where the cache holds K/V, C must not pass its T rows, or a
-    masked column could wrap onto a row an active one writes.
+    masked column could wrap onto a row an active one writes; MLA's latent
+    rows clamp at T - 1 and never wrap, so its C is free.
 
     The activations are (C, B, d), so column j's rows are the j-th slab of
     B: every product (an MoE layer's router and experts, a Mamba or RG-LRU
-    block's included) runs in slabs of B rows and every norm, attention
-    (:func:`~repro_torch.models.attention.gqa_columns`; one column at a
-    time where a windowed ring may wrap, :func:`_attends_by_column`),
+    block's, an MLA layer's per-head absorb products included) runs in
+    slabs of B rows and every norm, attention
+    (:func:`~repro_torch.models.attention.gqa_columns`, one column at a
+    time where a windowed ring may wrap, :func:`_attends_by_column`;
+    :func:`~repro_torch.models.attention.mla_columns`),
     expert combine (:func:`~repro_torch.models.moe.combine_rows`), conv
     and coefficient row by row, so a row's bits are those the one-column
     body (the decode step) gives it.  Only the SSM and RG-LRU recurrences
@@ -509,6 +490,10 @@ def _columns_body(params: Pytree, cache: Pytree, tokens: torch.Tensor,
                 bp["rglru"], hn, cfg, cache["h"][i], cache["conv"][i],
                 n_tokens, rc.policy)
             cache["h"][i], cache["conv"][i] = h_s, conv_s
+        elif cfg.mla:
+            y = attn.mla_columns(bp["attn"], hn, cfg, cache["latent"][i],
+                                 cache["rope"][i], cache["len"], active,
+                                 rc.policy)
         else:
             y = _attention_columns(bp["attn"], hn, cfg, cache["k"][i],
                                    cache["v"][i], where, active, by_column,
@@ -534,15 +519,11 @@ def decode_step(params: Pytree, cache: Pytree,
     """One token for every sequence in the batch.
     batch = {"tokens": (B, 1)} -> (logits (B, vocab) fp32, cache).
     The cache is updated in place; ``len`` advances for every slot, free
-    ones included, as in the JAX step.  A family that batches a chunk's
-    columns (:func:`batches_columns`: all but MLA) runs its one-column
-    body, so a chunk and its columns' decode steps give each row the same
-    bits."""
+    ones included, as in the JAX step.  It is the batched body at one
+    column (:func:`_columns_body`), so a chunk and its columns' decode
+    steps give each row the same bits."""
     _check_family(cfg)
-    if batches_columns(cfg):
-        logits = _columns_body(params, cache, batch["tokens"], cfg, rc, None)
-    else:
-        logits = _decode_body(params, cache, batch["tokens"], cfg, rc, None)
+    logits = _columns_body(params, cache, batch["tokens"], cfg, rc, None)
     cache["len"] += 1
     return logits, cache
 
@@ -550,18 +531,6 @@ def decode_step(params: Pytree, cache: Pytree,
 # ---------------------------------------------------------------------------
 # chunked prefill: C prompt tokens per slot per call
 # ---------------------------------------------------------------------------
-
-def _merge_masked(active: torch.Tensor, new: torch.Tensor,
-                  old: torch.Tensor) -> torch.Tensor:
-    """Per-slot select between two cache leaves: batch is axis 0 of the
-    per-sequence ``len`` vector and axis 1 of every stacked leaf."""
-    if new.ndim == 0:
-        return new
-    if new.ndim == 1:
-        return torch.where(active, new, old)
-    shape = (1, active.shape[0]) + (1,) * (new.ndim - 2)
-    return torch.where(active.reshape(shape), new, old)
-
 
 def prefill_step(params: Pytree, cache: Pytree,
                  batch: Dict[str, torch.Tensor], cfg: ModelConfig,
@@ -575,21 +544,17 @@ def prefill_step(params: Pytree, cache: Pytree,
     slot ``i``'s last valid column.
 
     The reference runs ``lax.scan`` over its decode body, one column at a
-    time under the mask ``active = j < n_tokens``.  A family that batches
-    its columns (:func:`batches_columns`: every decoder family but MLA)
-    runs the C columns as one body over C x B rows (:func:`_columns_body`;
-    where the cache holds K/V, a chunk wider than its rows in runs of at
-    most that many columns; an SSM chunk of any width in one), every op row
-    by row and only the recurrences walking the columns, so a row gets the
-    bits its decode step gives it and a chunk reads each weight once, not
-    once a column.  MLA runs the decode body column by column under the
-    same mask: its latent and rope writes select between the new and the
-    old row, an inactive slot's ``len`` stays put (:func:`_merge_masked`,
-    copied into the leaf) and its logits keep their previous value.  Either
-    way the chunked path is bit-exact with token-by-token prefill, nothing
-    is read back to the host and no shape depends on the data, so one call
-    is one CUDA graph (:mod:`repro_torch.serve.graphs`), and a column whose
-    mask is empty is a no-op.
+    time under the mask ``active = j < n_tokens``.  The port runs the C
+    columns as one body over C x B rows (:func:`_columns_body`; where the
+    cache holds K/V, a chunk wider than its rows in runs of at most that
+    many columns; an SSM or MLA chunk of any width in one: neither wraps),
+    every op row by row and only the recurrences walking the columns, so a
+    row gets the bits its decode step gives it and a chunk reads each
+    weight once, not once a column.  The chunked path is bit-exact with
+    token-by-token prefill, nothing is read back to the host and no shape
+    depends on the data, so one call is one CUDA graph
+    (:mod:`repro_torch.serve.graphs`), and a column whose mask is empty is
+    a no-op.
     """
     _check_family(cfg)
     tokens = batch["tokens"]
@@ -597,26 +562,16 @@ def prefill_step(params: Pytree, cache: Pytree,
     B, C = tokens.shape
     logits = torch.zeros((B, cfg.vocab), dtype=torch.float32,
                          device=tokens.device)
-    if batches_columns(cfg):
-        # where there are K/V rows, one body a run of at most T columns
-        # (the cache's rows), so that no masked column wraps onto a row an
-        # active one writes
-        T = cache["k"].shape[3] if "k" in cache else max(C, 1)
-        for start in range(0, C, T):
-            n = torch.clamp(n_tokens - start, 0, T).to(cache["len"].dtype)
-            step_logits = _columns_body(params, cache,
-                                        tokens[:, start:start + T], cfg, rc,
-                                        n)
-            cache["len"] += n
-            logits = torch.where((n > 0)[:, None], step_logits, logits)
-        return logits, cache
-    length = cache["len"]
-    for j in range(C):
-        active = n_tokens > j
-        step_logits = _decode_body(params, cache, tokens[:, j:j + 1], cfg,
-                                   rc, active)
-        length.copy_(_merge_masked(active, length + 1, length))
-        logits = torch.where(active[:, None], step_logits, logits)
+    # where there are K/V rows, one body a run of at most T columns (the
+    # cache's rows), so that no masked column wraps onto a row an active
+    # one writes
+    T = cache["k"].shape[3] if "k" in cache else max(C, 1)
+    for start in range(0, C, T):
+        n = torch.clamp(n_tokens - start, 0, T).to(cache["len"].dtype)
+        step_logits = _columns_body(params, cache,
+                                    tokens[:, start:start + T], cfg, rc, n)
+        cache["len"] += n
+        logits = torch.where((n > 0)[:, None], step_logits, logits)
     return logits, cache
 
 

@@ -76,7 +76,7 @@ def router_probs(p, x: torch.Tensor, cfg: ModelConfig,
     return torch.softmax(vals[..., :k], dim=-1), idx[..., :k]
 
 
-def _expert_gemm(x: torch.Tensor, w: torch.Tensor,
+def expert_gemm(x: torch.Tensor, w: torch.Tensor,
                  policy: Optional[ExecutionPolicy],
                  active: Optional[torch.Tensor],
                  slab: Optional[int] = None) -> torch.Tensor:
@@ -96,15 +96,15 @@ def _expert_ffn(p, buf: torch.Tensor, act: str,
     """The experts' FFN over (E, C, d) rows, or one (C, d) matrix seen by
     every expert, -> (E, C, d) in ``buf.dtype``; an expert outside
     ``active`` (``None``: every expert) gives zeros.  ``slab``: each
-    product row by row (:func:`_expert_gemm`)."""
-    h = _expert_gemm(buf, p["wi"], policy, active, slab)
+    product row by row (:func:`expert_gemm`)."""
+    h = expert_gemm(buf, p["wi"], policy, active, slab)
     if act == "swiglu":
-        h = F.silu(_expert_gemm(buf, p["wg"], policy, active, slab)) * h
+        h = F.silu(expert_gemm(buf, p["wg"], policy, active, slab)) * h
     elif act == "relu2":
         h = torch.square(F.relu(h))
     else:
         h = F.gelu(h, approximate="tanh")
-    return _expert_gemm(h, p["wo"], policy, active, slab)
+    return expert_gemm(h, p["wo"], policy, active, slab)
 
 
 def combine_rows(y: torch.Tensor, w: torch.Tensor,

@@ -10,10 +10,9 @@ position vector, so a readmission never disturbs its neighbours).
 Prompt ingestion is chunked: any step with a prefilling slot runs
 :func:`~repro_torch.models.model.prefill_step`, up to ``prefill_chunk``
 prompt tokens per prefilling slot while decoding neighbours ride along with
-a one-token chunk — bit-exact with the token-by-token path: the dense GQA
-families run a chunk's columns as one body whose every row keeps its decode
-bits, the others the decode body column by column, both under a
-device-side mask.
+a one-token chunk — bit-exact with the token-by-token path: every decoder
+family runs a chunk's columns as one body whose every row keeps its decode
+bits, under a device-side mask.
 Chunk widths are bucketed to powers of two.  ``prefill="token"`` keeps
 one-token steps as the TTFT baseline.
 
@@ -44,7 +43,8 @@ accounting, never the tokens.
 Everything runs on ``device`` (``None`` = the card; a machine without one
 raises unless ``device="cpu"`` is asked for).  The weights are prepared
 once at load (:func:`~repro_torch.models.model.prepare_params`): cast to
-``rc.dtype`` and the head held transposed.
+``rc.dtype``, the head held transposed and an MLA layer's W_uk and W_uv
+head-major.
 """
 from __future__ import annotations
 

@@ -1,8 +1,9 @@
 """A chunk's columns as one batched body: ``prefill_step`` of every decoder
-family but MLA (``models.model.batches_columns``: phi3-mini-3.8b, glm4-9b,
+family (``models.model.batches_columns``: phi3-mini-3.8b, glm4-9b,
 nemotron-4-340b, pixtral-12b, olmoe-1b-7b, granite-moe-3b-a800m,
-falcon-mamba-7b, recurrentgemma-2b) runs its C columns over C x B rows at
-once, only the SSM and RG-LRU recurrences walking the columns at B rows.
+falcon-mamba-7b, recurrentgemma-2b, minicpm3-4b) runs its C columns over
+C x B rows at once, only the SSM and RG-LRU recurrences walking the columns
+at B rows.
 
 * The batched chunk equals token-by-token decode bit for bit — each
   column through ``decode_step`` on a copy of the cache, its active slots'
@@ -21,12 +22,16 @@ once, only the SSM and RG-LRU recurrences walking the columns at B rows.
   time where it is the window (a later column may wrap onto a row an
   earlier one reads); an SSM chunk of any width is one body, its conv
   state gathered at each slot's count.
+* minicpm3's MLA chunk is one body at any width: its latent and rope rows
+  clamp at ``max_len - 1``, so a chunk straddling ``max_len`` writes each
+  row below it once and the last row as the last active column past it
+  leaves it (token decode's bits, and the JAX ``prefill_step``'s within
+  2e-3).
 * The row-by-row kernels' plain versions and wrappers on the CPU: the
   norm is the model's norm, decode attention the one-column attention's
-  arithmetic row by row, neither launching anything.
-
-MLA (minicpm3), left on the column loop, keeps its tests in
-tests/test_torch_serve_program.py."""
+  arithmetic row by row, neither launching anything.  MLA's latent
+  attention and its plan are tested in tests/test_torch_latent_attention.py
+  and tests/test_torch_latent_attention_plan.py."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -57,7 +62,7 @@ from test_torch_serve_program import NoHostRoundTrip
 
 BATCHED = ["phi3-mini-3.8b", "glm4-9b", "nemotron-4-340b", "pixtral-12b",
            "olmoe-1b-7b", "granite-moe-3b-a800m", "falcon-mamba-7b",
-           "recurrentgemma-2b"]
+           "recurrentgemma-2b", "minicpm3-4b"]
 TOL = dict(rtol=2e-3, atol=2e-3)
 
 
@@ -104,9 +109,9 @@ def _token_prefill(params, cache, toks, counts, cfg, rc):
 
 
 def test_the_batched_families():
-    """The dense, vision, MoE (olmoe, granite), SSM (falcon-mamba) and
-    hybrid (recurrentgemma) families batch their columns; MLA (minicpm3)
-    and the encoder (hubert) do not."""
+    """The dense (GQA and MLA: minicpm3), vision, MoE (olmoe, granite), SSM
+    (falcon-mamba) and hybrid (recurrentgemma) families batch their
+    columns; the encoder (hubert) does not."""
     got = {name for name in ARCHS if batches_columns(get_reduced(name))}
     assert got == set(BATCHED)
 
@@ -115,7 +120,8 @@ def test_the_batched_families():
 @pytest.mark.parametrize("width", list(range(1, 17)))
 @pytest.mark.parametrize("arch", ["phi3-mini-3.8b", "glm4-9b",
                                   "olmoe-1b-7b", "granite-moe-3b-a800m",
-                                  "falcon-mamba-7b", "recurrentgemma-2b"])
+                                  "falcon-mamba-7b", "recurrentgemma-2b",
+                                  "minicpm3-4b"])
 def test_chunk_equals_token_decode(arch, width, dtype):
     cfg = get_reduced(arch)
     rc = RunConfig(dtype=dtype, param_dtype=dtype, remat=False)
@@ -189,7 +195,8 @@ def test_batched_chunk_matches_jax(arch):
                 np.testing.assert_allclose(cache_t[k].numpy(), v, **TOL)
 
 
-@pytest.mark.parametrize("arch", ["glm4-9b", "nemotron-4-340b"])
+@pytest.mark.parametrize("arch", ["glm4-9b", "nemotron-4-340b",
+                                  "minicpm3-4b"])
 def test_batched_steps_run_no_data_dependent_op(arch):
     cfg = get_reduced(arch)
     rc = RunConfig(dtype="float32", remat=False)
@@ -432,3 +439,51 @@ def test_the_recurrent_products_run_in_slabs_of_the_slots(
         got[m] = got.get(m, 0) + 1
     assert got == want
     assert all(slab == 4 for _, slab in seen)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_an_mla_chunk_across_max_len_equals_token_decode_and_jax(dtype):
+    """minicpm3-smoke over caches of 8 rows from lengths 5, 0, 7, 3, every
+    leaf drawn: a chunk of counts 0, 1, a partial (4) and a whole chunk
+    (8), then one of 8, 6, 1 and 0, so that several active columns of one
+    slot clamp onto row 7 (slot 2 from its first column, slot 3 after four
+    unique rows), a slot stops short of it and one reaches it only in the
+    second chunk.  Logits and every cache leaf token decode's bits; in
+    fp32 also within 2e-3 of the JAX ``prefill_step`` on bridged weights,
+    lengths equal."""
+    arch = "minicpm3-4b"
+    cfg_j, cfg_t = jax_reduced(arch), get_reduced(arch)
+    rc = RunConfig(dtype=dtype, param_dtype=dtype, remat=False)
+    pj = jax_init_params(jax.random.PRNGKey(3), cfg_j)
+    pt = prepare_params(bridge.from_numpy_tree(_np(pj), "cpu"), cfg_t, rc)
+    chunk = _cache(cfg_t, rc.dtype, 4, max_len=8)
+    chunk["len"].copy_(torch.tensor([5, 0, 7, 3], dtype=torch.int32))
+    token = {k: v.clone() for k, v in chunk.items()}
+    cache_j = {k: jnp.asarray(v.float().numpy() if v.is_floating_point()
+                              else v.numpy().copy())
+               for k, v in chunk.items()}
+    rng = np.random.default_rng(5)
+    for counts in ((0, 1, 4, 8), (8, 6, 1, 0)):
+        n = np.array(counts, np.int32)
+        toks = rng.integers(0, cfg_t.vocab, (4, 8))
+        got, _ = prefill_step(pt, chunk, {
+            "tokens": torch.from_numpy(toks),
+            "n_tokens": torch.from_numpy(n)}, cfg_t, rc)
+        want = _token_prefill(pt, token, torch.from_numpy(toks), n, cfg_t,
+                              rc)
+        assert torch.equal(got, want), counts
+        for k in chunk:
+            assert torch.equal(chunk[k], token[k]), (counts, k)
+        if dtype != "float32":
+            continue
+        lj, cache_j = jax_prefill(pj, cache_j, {
+            "tokens": jnp.asarray(toks, jnp.int32),
+            "n_tokens": jnp.asarray(n)}, cfg_j, JRC(dtype="float32",
+                                                     remat=False))
+        np.testing.assert_allclose(got.numpy(), np.asarray(lj), **TOL)
+        for k, v in _np(cache_j).items():
+            if v.dtype.kind == "i":
+                np.testing.assert_array_equal(chunk[k].numpy(), v)
+            else:
+                np.testing.assert_allclose(chunk[k].numpy(), v, **TOL)
+    assert chunk["len"].tolist() == [13, 7, 12, 11]

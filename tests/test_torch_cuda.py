@@ -37,15 +37,20 @@ outputs, attention and its backward at head dims 80 (non-causal) and
 192, and a full-width hubert-xlarge step that decays its unread
 embedding alone.  A chunk's columns as one batched body: every op it runs
 (``row_bits.BODY_OPS``) gives a row the bits it gets among fewer rows; the
-row-wise ``rms_norm`` and ``decode_attention`` kernels against their plain
-versions (2e-4, 2e-2), each row or column equal to itself computed alone;
+row-wise ``rms_norm``, ``decode_attention`` and ``latent_attention``
+kernels against their plain versions (2e-4, 2e-2), each row or column equal
+to itself computed alone (``latent_attention`` also past ``max_len`` and
+across its 256-position groups);
 bf16 ``queue_matmul`` run row by row keeps the thin kernel's bits at any
 M; and a replayed chunk of each batched family (falcon-mamba's and
 recurrentgemma's too, only their recurrences walking the columns, and
 recurrentgemma's attention by column over a ring of its window and at
 once over a shorter one) equals token prefill bit for bit, no product of
 it on the wide kernel, over a 200-token prompt at full width too (queries
-across several of ``decode_attention``'s spans)."""
+across several of ``decode_attention``'s spans); minicpm3's MLA chunk
+too."""
+import math
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -1473,7 +1478,7 @@ def test_a_host_read_fails_the_capture(card):
 #: the families whose chunk runs its columns as one batched body
 BATCHED_ARCHS = ["phi3-mini-3.8b", "glm4-9b", "nemotron-4-340b",
                  "pixtral-12b", "olmoe-1b-7b", "granite-moe-3b-a800m",
-                 "falcon-mamba-7b", "recurrentgemma-2b"]
+                 "falcon-mamba-7b", "recurrentgemma-2b", "minicpm3-4b"]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1483,11 +1488,13 @@ def test_the_body_ops_keep_a_rows_bits_across_row_counts(card, dtype):
     alone, at phi3-mini-3.8b's full widths (B 4, C 8), an MoE layer's
     expert products and combine at olmoe-1b-7b's, and the recurrent
     blocks' conv over columns, coefficients, recurrence steps and SSM
-    readout at falcon-mamba-7b's and recurrentgemma-2b's."""
+    readout at falcon-mamba-7b's and recurrentgemma-2b's, and an MLA
+    layer's latent attention, absorb products and clamped write at
+    minicpm3-4b's."""
     from repro_torch.benchmarks import row_bits
     rows = row_bits.candidates(torch.device("cuda"), dtypes=(dtype,))
     body = [r for r in rows if r["op"].startswith(row_bits.BODY_OPS)]
-    assert len(body) == 18
+    assert len(body) == 22
     assert all(r["bit_equal"] for r in body), [
         (r["op"], r["max_abs"]) for r in body if not r["bit_equal"]]
 
@@ -1578,6 +1585,68 @@ def test_decode_attention_kernel_against_plain(card, b, c, hq, hkv, t, d,
             out[:, :, h * g:(h + 1) * g])
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,c,h,t,r,dr", [
+    (4, 1, 40, 256, 256, 32),     # minicpm3's decode body
+    (4, 8, 40, 256, 256, 32),     # its chunk
+    (3, 5, 40, 300, 256, 32),     # a cache of two groups (the merge)
+    (4, 1, 40, 4096, 256, 32),    # decode at a 4K context
+    (2, 6, 4, 12, 16, 4)])        # reduced minicpm3 (bf16: 8-byte rope)
+def test_latent_attention_kernel_against_plain(card, b, c, h, t, r, dr,
+                                               dtype):
+    """The kernel within 2e-4 (fp32) or 2e-2 (bf16) of its plain version,
+    each column reading rows [0, min(len + c, T - 1)) and then its own row:
+    rows 0 (the self row alone), inside a span, at T - 1 (the clamped
+    columns past ``max_len``, whose self row stands for row T - 1) and
+    across groups where T > 256; every column's queries equal bit for bit
+    to that column alone (a decode step's call), and every slot's to that
+    slot alone."""
+    from repro_torch.kernels import latent_attention
+    from repro_torch.kernels.latent_attention.ref import latent_attention_ref
+
+    def rnd(*shape, scale=1.0):
+        return (scale * torch.randn(shape, generator=card, device="cuda")
+                ).to(dtype)
+    # past one 256-position group, q x 4, so a lost span or group shows
+    q = rnd(c, b, h, r, scale=4.0 if t > 256 else 1.0)
+    qr, lat, rope = rnd(c, b, h, dr), rnd(b, t, r), rnd(b, t, dr)
+    own, own_r = rnd(c, b, r), rnd(c, b, dr)
+    base = torch.tensor([0, t - 3, 31, t + 9][:b], device="cuda")
+    rows = (base[None] + torch.arange(c, device="cuda")[:, None]).clamp(
+        max=t - 1).to(torch.int32)
+    scale = 1.0 / math.sqrt(64 + dr)
+    before = latent_attention.launches
+    out = latent_attention(q, qr, lat, rope, rows, own, own_r, scale)
+    torch.cuda.synchronize()
+    assert latent_attention.launches == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    _close(out, latent_attention_ref(q, qr, lat, rope, rows, own, own_r,
+                                     scale), TOL[dtype])
+    for j in range(c):
+        assert torch.equal(latent_attention(
+            q[j:j + 1], qr[j:j + 1], lat, rope, rows[j:j + 1],
+            own[j:j + 1], own_r[j:j + 1], scale), out[j:j + 1])
+    for s in range(b):
+        assert torch.equal(latent_attention(
+            q[:, s:s + 1], qr[:, s:s + 1], lat[s:s + 1], rope[s:s + 1],
+            rows[:, s:s + 1], own[:, s:s + 1], own_r[:, s:s + 1], scale),
+            out[:, s:s + 1])
+
+
+def test_latent_attention_refuses_grad_and_mixed_dtypes(card):
+    from repro_torch.kernels import latent_attention
+    def rnd(*shape):
+        return torch.randn(shape, generator=card, device="cuda")
+    q = rnd(1, 2, 4, 16).requires_grad_()
+    rows = torch.zeros((1, 2), dtype=torch.int32, device="cuda")
+    args = (rnd(1, 2, 4, 4), rnd(2, 8, 16), rnd(2, 8, 4), rows,
+            rnd(1, 2, 16), rnd(1, 2, 4), 0.5)
+    with pytest.raises(RuntimeError, match="no backward"):
+        latent_attention(q, *args)
+    with torch.no_grad(), pytest.raises(TypeError, match="one dtype"):
+        latent_attention(q.bfloat16(), *args)
+
+
 def _token_prefill(params, cache, toks, counts, cfg, rc):
     """Each column through ``decode_step`` on a copy of the cache, its
     active slots' rows, lengths and logits kept: token-by-token prefill of
@@ -1605,7 +1674,7 @@ def test_a_replayed_chunk_equals_token_prefill(card, arch, dtype):
     cache: logits and every cache leaf equal bit for bit (counts 0, 1, a
     partial and a whole chunk); and no product of the chunk took the wide
     kernel (each runs row by row, in slabs of the 4 slots; an MoE layer's
-    expert products too)."""
+    expert products and an MLA layer's per-head absorb products too)."""
     cfg = get_reduced(arch)
     assert model_mod.batches_columns(cfg)
     rc = RunConfig(dtype=dtype, param_dtype=dtype, remat=False)
@@ -1643,7 +1712,8 @@ def test_a_replayed_chunk_equals_token_prefill(card, arch, dtype):
                 assert torch.equal(cache[k], ref[k]), (width, call, k)
         assert prog.graph is not None and prog.replays == 2
     assert slabs and all(slabs)
-    assert all(expert_slabs) and bool(expert_slabs) == bool(cfg.moe)
+    assert all(expert_slabs) and bool(expert_slabs) == bool(cfg.moe
+                                                            or cfg.mla)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

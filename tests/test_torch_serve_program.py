@@ -19,10 +19,9 @@ its window ring (recurrentgemma-smoke) and MLA (minicpm3-smoke).
   programs (eager here, on the CPU), equals the JAX engine's tokens, steps
   and ``prefill_compiles``, one program per width.
 
-Every family here but MLA runs a chunk as one batched body, the decode
-step that body at C = 1 (tests/test_torch_chunk_body.py holds it to token
-decode bit for bit); MLA runs the decode body column by column, and these
-tests are the ones that hold its chunked path."""
+Every family here, MLA included, runs a chunk as one batched body, the
+decode step that body at C = 1 (tests/test_torch_chunk_body.py holds it to
+token decode bit for bit, MLA's across ``max_len`` too)."""
 import pytest
 
 torch = pytest.importorskip("torch")
