@@ -62,7 +62,8 @@ prints no result):
    one-element in-place add); then minicpm3's MLA: ``latent_attention``
    (``LATENT_CASES``: its decode body and chunk, a chunk whose columns
    clamp at ``max_len - 1``, a 4K context, fp32 and reduced widths)
-   against its plain version, each column equal to itself alone, beside
+   against its plain version, each column equal to itself alone and heads
+   0-15 and 16-39 launched alone equal to the whole launch's, beside
    masked SDPA over [latent | rope] keys; and its per-head absorb products
    (``MLA_ABSORB``: ``moe_gemm`` row by row with the 40 heads as experts,
    at a decode body's 4 rows and a chunk's 32) against their plain
@@ -2405,9 +2406,12 @@ def latent_work(q, qr, rows, esize):
 def check_latent_attention(gen, report) -> dict:
     """MLA's attention of the decode and chunk bodies at ``LATENT_CASES``
     against its plain version, every column's queries equal bit for bit to
-    the column alone (a decode step's call); beside SDPA over the
-    [latent | rope] keys with a boolean mask (one library call, the same
-    function)."""
+    the column alone (a decode step's call) and the heads below and from 16
+    launched alone equal to the whole launch's (a row's bits ignore its
+    place in a 16-row tile); beside SDPA over the [latent | rope] keys with
+    a boolean mask (one library call, the same function).  The bound is
+    taken at the inputs' dtype's peak: bf16's tensor-core rate for the bf16
+    rows, fp32's CUDA-core rate for the fp32 rows."""
     from repro_torch.kernels import latent_attention
     from repro_torch.kernels.latent_attention.ref import latent_attention_ref
     rep = None
@@ -2427,15 +2431,23 @@ def check_latent_attention(gen, report) -> dict:
                 raise AssertionError(f"latent_attention: column {j} of {c} "
                                      f"differs from the column alone "
                                      f"({case} {dtype})")
+        for lo, hi in ((0, min(16, h)), (min(16, h), h)):
+            if lo < hi and not torch.equal(latent_attention(
+                    q[:, :, lo:hi].contiguous(),
+                    qr[:, :, lo:hi].contiguous(), *args[2:], scale),
+                    out[:, :, lo:hi]):
+                raise AssertionError(f"latent_attention: heads {lo}-{hi - 1}"
+                                     f" differ from the whole launch's "
+                                     f"({case} {dtype})")
         ms = cuda_ms(lambda: latent_attention(*args, scale))
         plain = cuda_ms(lambda: latent_attention_ref(*args, scale), iters=5)
         lib = cuda_ms(latent_library(*args))
         b_ms, b_by = bound(*latent_work(q, qr, rows, lat.element_size()),
-                           torch.float32)
+                           dtype)
         log(f"[kernels] latent_attention {case:>11s} {b:2d} {c:3d} {h:3d} "
             f"{t:5d} {r:3d}/{dr:<3d} {str(dtype)[6:]:>8s} {err:10.3e} "
             f"{ms:8.4f} {plain:8.4f} {lib:8.4f} {b_ms:8.4f} ({b_by}; "
-            f"columns equal alone)")
+            f"columns and heads equal alone)")
         row = {"model": case, "B": b, "C": c, "H": h, "T": t, "r": r,
                "dr": dr, "dtype": str(dtype)[6:], "max_abs_err": err,
                "ms": ms, "plain_ms": plain, "library_ms": lib,

@@ -6,11 +6,10 @@ row-wise kernels against another checkout's, on one card.
 ``DIR`` is the root of another checkout of this repository (a ``git
 archive`` of an earlier commit unpacked under ``build/``, say).  Its
 ``queue_matmul``, ``moe_gemm``, ``flash_attention``, ``rglru_scan``,
-``rms_norm`` and ``decode_attention`` sources are built into
-``DIR/build/kernels/`` and launched through this checkout's wrappers,
-whose C interfaces the two must share, but for ``moe_gemm``'s before it
-ran row by row (:data:`BEFORE_ROWS`), which is called without the
-``rowwise`` argument; none of ``DIR``'s Python runs.
+``rms_norm``, ``decode_attention`` and ``latent_attention`` sources are
+built into ``DIR/build/kernels/`` and launched through this checkout's
+wrappers, whose C interfaces the two must share; none of ``DIR``'s Python
+runs.
 
 - Bits: every fp32 product ``chip_smoke.py``'s phase 2 checks
   (``queue_matmul`` over the served, trained and scored models and the entry
@@ -47,6 +46,11 @@ ran row by row (:data:`BEFORE_ROWS`), which is called without the
   bits agree, their device times in turns beside the library call
   (``F.rms_norm``, masked SDPA) and the bound phase 2 computes; and the
   floor of one launch (a one-element in-place add) timed the same way.
+- ``latent_attention`` at every ``LATENT_CASES`` row of phase 2, on its
+  inputs: each build's max abs distance from the plain version, whether
+  their bits agree (the fp32 rows must: their path is unchanged), their
+  device times in turns beside masked SDPA and the bound phase 2 computes
+  (at the inputs' dtype's peak).
 
 Prints one line a case and, with ``--out``, writes the rows as JSON with
 the card's name and power limit.  Needs a CUDA card.
@@ -55,7 +59,6 @@ from __future__ import annotations
 
 import argparse
 import contextlib
-import ctypes
 import importlib.util
 import json
 import math
@@ -70,6 +73,8 @@ import torch
 from ..kernels.decode_attention import ops as da_ops
 from ..kernels.decode_attention.ref import decode_attention_rows_ref
 from ..kernels.flash_attention import ops as fa_ops
+from ..kernels.latent_attention import ops as la_ops
+from ..kernels.latent_attention.ref import latent_attention_ref
 from ..kernels.moe_gemm import ops as mg_ops
 from ..kernels.queue_matmul import ops as qm_ops
 from ..kernels.rglru_scan import ops as rg_ops
@@ -83,13 +88,8 @@ ROOT = Path(__file__).resolve().parents[3]
 #: the wrapper module of each kernel, whose ``_library`` is swapped
 WRAPPERS = {"queue_matmul": qm_ops, "moe_gemm": mg_ops,
             "flash_attention": fa_ops, "rglru_scan": rg_ops,
-            "rms_norm": rn_ops, "decode_attention": da_ops}
-#: ``moe_gemm_launch``'s argument types before the thin kernel ran row by
-#: row: (x, w, out, active; E, M, N, K; x's expert stride; depth, dtype,
-#: split; stream), no ``rowwise``
-BEFORE_ROWS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
-               + [ctypes.c_longlong] + [ctypes.c_int] * 3
-               + [ctypes.c_void_p])
+            "rms_norm": rn_ops, "decode_attention": da_ops,
+            "latent_attention": la_ops}
 #: olmoe-1b-7b's expert products (E, d, f, x shared by every expert) and
 #: a chunk's (columns, slots): phase 4's chunks of 8 over 4 slots
 MOE_PRODUCTS = ((64, 2048, 1024, True), (64, 1024, 2048, False))
@@ -114,40 +114,7 @@ def other_libraries(other: Path) -> Dict[str, object]:
             libs[name] = ops._library.__wrapped__()
         finally:
             ops._build = own
-    libs["moe_gemm"] = moe_library(libs["moe_gemm"])
     return libs
-
-
-def moe_library(lib):
-    """The other build's ``moe_gemm`` as this checkout's wrapper calls it:
-    a build that exports ``moe_gemm_thin_tiles`` shares its C interface;
-    one without it predates the row-by-row launch (:class:`_BeforeRows`)."""
-    raw = getattr(lib, "_lib", lib)
-    return lib if hasattr(raw, "moe_gemm_thin_tiles") else _BeforeRows(lib)
-
-
-class _BeforeRows:
-    """A ``moe_gemm`` build whose launch takes no ``rowwise``: called
-    without it (its C <= 16 launch is the same), and a row-by-row launch
-    of more than 16 rows an expert is refused, since that build would run
-    its wide kernel."""
-
-    def __init__(self, lib):
-        self._lib = lib
-        self.moe_gemm_launch_raw = getattr(lib, "_lib", lib)[
-            "moe_gemm_launch"]                  # a fresh function object
-        self.moe_gemm_launch_raw.argtypes = BEFORE_ROWS
-        self.moe_gemm_launch_raw.restype = ctypes.c_int
-
-    def moe_gemm_launch(self, *args):
-        *head, rowwise, stream = args
-        if rowwise and head[5] > 16:
-            raise ValueError("the other moe_gemm build runs no product of "
-                             "more than 16 rows an expert row by row")
-        return self.moe_gemm_launch_raw(*head, stream)
-
-    def __getattr__(self, name):
-        return getattr(self._lib, name)
 
 
 class _Lenient:
@@ -187,11 +154,12 @@ def turns(fn_other, fn_this, iters: int, timer=event_ms):
     return (a1 + a2) / 2, (b1 + b2) / 2
 
 
-def bound_ms(flops: float, nbytes: float) -> float:
-    """The least time of fp32 work on an H100: its operations at the FMA
-    rate or its bytes at the HBM rate, whichever is longer."""
-    return max(flops / PEAK_FLOPS_BY_DTYPE[torch.float32],
-               nbytes / HBM_BW) * 1e3
+def bound_ms(flops: float, nbytes: float,
+             dtype: torch.dtype = torch.float32) -> float:
+    """The least time of the work on an H100: its operations at the peak
+    rate of ``dtype`` (fp32: the FMA rate; bf16: the tensor cores') or its
+    bytes at the HBM rate, whichever is longer."""
+    return max(flops / PEAK_FLOPS_BY_DTYPE[dtype], nbytes / HBM_BW) * 1e3
 
 
 def fp64_distance(x, w, out) -> float:
@@ -366,6 +334,40 @@ def row_kernels_ab(cs, libs, g, report) -> None:
         report(row)
         del q, k, v, ref, outs
         torch.cuda.empty_cache()
+
+
+def latent_ab(cs, lib, g, report) -> int:
+    """``latent_attention`` at every ``LATENT_CASES`` row through both
+    builds: distances from the plain version, bits, times in turns beside
+    SDPA and the bound.  Returns the fp32 rows whose bits differ."""
+    scale = 1.0 / math.sqrt(cs.LATENT_QK)
+    differ = 0
+    for case, b, c, h, t, r, dr, dtype, lens in cs.LATENT_CASES:
+        args = cs.latent_inputs(g, b, c, h, t, r, dr, dtype, lens)
+        q, qr, lat, _, rows, _, _ = args
+
+        def other():
+            with launching("latent_attention", lib):
+                return la_ops.latent_attention(*args, scale)
+
+        def this():
+            return la_ops.latent_attention(*args, scale)
+        ref = latent_attention_ref(*args, scale)
+        outs = other(), this()
+        row = {"kernel": "latent_attention", "case": f"{case} {b},{c},{h},"
+               f"{t},{r}/{dr} {str(dtype)[6:]}",
+               "other_err": _err(outs[0], ref), "this_err": _err(outs[1], ref),
+               "equal": bool(torch.equal(*outs))}
+        differ += dtype == torch.float32 and not row["equal"]
+        row["other_ms"], row["this_ms"] = turns(other, this, 20)
+        row["library_ms"] = event_ms(cs.latent_library(*args), 20)
+        row["bound_ms"] = bound_ms(
+            *cs.latent_work(q, qr, rows, lat.element_size()), dtype)
+        row["this_of_bound"] = row["bound_ms"] / row["this_ms"]
+        report(row)
+        del args, q, qr, lat, rows, ref, outs
+        torch.cuda.empty_cache()
+    return differ
 
 
 def moe_rows_ab(cs, lib, g, report) -> int:
@@ -554,6 +556,10 @@ def main(argv=None) -> int:
     print(f"[ab] {scans} of {forward} rglru_scan forward outputs differ in "
           f"bits", flush=True)
     row_kernels_ab(cs, libs, g, report)
+    latent = latent_ab(cs, libs["latent_attention"], g, report)
+    fp32 = sum(case[7] == torch.float32 for case in cs.LATENT_CASES)
+    print(f"[ab] {latent} of {fp32} fp32 latent_attention rows differ in "
+          f"bits", flush=True)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps({"card": smi, "rows": rows},

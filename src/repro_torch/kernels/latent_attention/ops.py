@@ -3,12 +3,14 @@
 MLA's absorbed attention in the serve path's decode and chunk bodies
 (:func:`repro_torch.models.attention.mla_columns`): C columns of queries
 over B slots, each query's H heads against the first ``rows`` rows of its
-slot's latent and rope caches and then its column's own new row, in spans
-folded in span order (``csrc/latent_attention.cu``; a second, merge launch
-when the cache is longer than one 256-position group).  A row's
-decomposition is fixed by (r, dr, dtype) alone (``plan.py``), so a query's
-bits never depend on how many columns, heads or slots run with it.  Its
-plain version is :func:`.ref.latent_attention_ref`.
+slot's latent and rope caches and then its column's own new row
+(``csrc/latent_attention.cu``: bf16 on the tensor cores, a block's query
+rows in 16-row tiles over [latent | rope] tiles they share; fp32 on CUDA
+cores; a second, merge launch when the cache is longer than one
+256-position group).  A row's decomposition is fixed by (r, dr, dtype)
+alone (``plan.py``), so a query's bits never depend on how many columns,
+heads or slots run with it.  Its plain version is
+:func:`.ref.latent_attention_ref`.
 
 Where it runs: a CPU or meta tensor goes to the plain version; a CUDA
 tensor launches the kernel on the current stream, or raises.

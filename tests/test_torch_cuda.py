@@ -39,8 +39,8 @@ embedding alone.  A chunk's columns as one batched body: every op it runs
 (``row_bits.BODY_OPS``) gives a row the bits it gets among fewer rows; the
 row-wise ``rms_norm``, ``decode_attention`` and ``latent_attention``
 kernels against their plain versions (2e-4, 2e-2), each row or column equal
-to itself computed alone (``latent_attention`` also past ``max_len`` and
-across its 256-position groups);
+to itself computed alone (``latent_attention`` also past ``max_len``,
+across its 256-position groups, by heads, and over a longer cache);
 bf16 ``queue_matmul`` run row by row keeps the thin kernel's bits at any
 M; and a replayed chunk of each batched family (falcon-mamba's and
 recurrentgemma's too, only their recurrences walking the columns, and
@@ -1591,6 +1591,8 @@ def test_decode_attention_kernel_against_plain(card, b, c, hq, hkv, t, d,
     (4, 8, 40, 256, 256, 32),     # its chunk
     (3, 5, 40, 300, 256, 32),     # a cache of two groups (the merge)
     (4, 1, 40, 4096, 256, 32),    # decode at a 4K context
+    (16, 8, 40, 256, 256, 32),    # 16 slots' chunks: two 16-row tiles a
+                                  # block in bf16, one a column alone
     (2, 6, 4, 12, 16, 4)])        # reduced minicpm3 (bf16: 8-byte rope)
 def test_latent_attention_kernel_against_plain(card, b, c, h, t, r, dr,
                                                dtype):
@@ -1599,8 +1601,9 @@ def test_latent_attention_kernel_against_plain(card, b, c, h, t, r, dr,
     rows 0 (the self row alone), inside a span, at T - 1 (the clamped
     columns past ``max_len``, whose self row stands for row T - 1) and
     across groups where T > 256; every column's queries equal bit for bit
-    to that column alone (a decode step's call), and every slot's to that
-    slot alone."""
+    to that column alone (a decode step's call), every slot's to that
+    slot alone, heads 0-15 and 16-39 launched alone to the whole launch's,
+    and the same rows over a cache of T + 64 rows to the T launch's."""
     from repro_torch.kernels import latent_attention
     from repro_torch.kernels.latent_attention.ref import latent_attention_ref
 
@@ -1611,7 +1614,7 @@ def test_latent_attention_kernel_against_plain(card, b, c, h, t, r, dr,
     q = rnd(c, b, h, r, scale=4.0 if t > 256 else 1.0)
     qr, lat, rope = rnd(c, b, h, dr), rnd(b, t, r), rnd(b, t, dr)
     own, own_r = rnd(c, b, r), rnd(c, b, dr)
-    base = torch.tensor([0, t - 3, 31, t + 9][:b], device="cuda")
+    base = torch.tensor(([0, t - 3, 31, t + 9] * 4)[:b], device="cuda")
     rows = (base[None] + torch.arange(c, device="cuda")[:, None]).clamp(
         max=t - 1).to(torch.int32)
     scale = 1.0 / math.sqrt(64 + dr)
@@ -1631,6 +1634,15 @@ def test_latent_attention_kernel_against_plain(card, b, c, h, t, r, dr,
             q[:, s:s + 1], qr[:, s:s + 1], lat[s:s + 1], rope[s:s + 1],
             rows[:, s:s + 1], own[:, s:s + 1], own_r[:, s:s + 1], scale),
             out[:, s:s + 1])
+    for lo, hi in ((0, min(16, h)), (min(16, h), h)):
+        if lo < hi:
+            assert torch.equal(latent_attention(
+                q[:, :, lo:hi].contiguous(), qr[:, :, lo:hi].contiguous(),
+                lat, rope, rows, own, own_r, scale), out[:, :, lo:hi])
+    longer = [torch.cat([x, rnd(b, 64, x.shape[-1])], dim=1)
+              for x in (lat, rope)]
+    assert torch.equal(latent_attention(q, qr, *longer, rows, own, own_r,
+                                        scale), out)
 
 
 def test_latent_attention_refuses_grad_and_mixed_dtypes(card):

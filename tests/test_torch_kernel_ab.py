@@ -1,11 +1,10 @@
 """``repro_torch.benchmarks.kernel_ab`` without a card: the fp32 products
 it compares are those ``chip_smoke.py``'s phase 2 checks, each once, the
 shapes it times are among them, its ``rglru_scan`` cases are phase 2's and
-phase 5 (a)'s, its ``rms_norm`` and ``decode_attention`` rows are phase
-2's on phase 2's inputs and bounds (whose 4K rows' tolerance sees a lost
-group or span position), an earlier ``moe_gemm`` build is called through
-the interface it has, its chunk is phase 4's, and it refuses to run
-without a card."""
+phase 5 (a)'s, its ``rms_norm``, ``decode_attention`` and
+``latent_attention`` rows are phase 2's on phase 2's inputs and bounds
+(whose 4K rows' tolerance sees a lost group or span position), its
+``moe_gemm`` chunk is phase 4's, and it refuses to run without a card."""
 import sys
 from pathlib import Path
 
@@ -151,49 +150,34 @@ def test_the_long_attention_rows_see_a_lost_group_or_span(smoke, row):
     assert not passes(_attention(q, k, v, seen & (pos % 64 != 63)))
 
 
-def test_an_earlier_moe_gemm_build_is_called_without_rowwise():
-    """A build that exports ``moe_gemm_thin_tiles`` shares this checkout's
-    C interface; one without it predates the row-by-row launch: its launch
-    is typed without ``rowwise`` (x, w, out, active, four ints, the expert
-    stride, three ints, the stream) and called without it, and a row-by-row
-    launch past 16 rows an expert, which it would run on its wide kernel,
-    is refused."""
-    import ctypes
-    import types
-
-    calls = []
-
-    class Launch:
-        def __call__(self, *args):
-            calls.append(args)
-            return 0
-
-    class Before:
-        def __init__(self):
-            self.fn = Launch()
-
-        def __getitem__(self, name):
-            assert name == "moe_gemm_launch"
-            return self.fn
-
-        def moe_gemm_error_string(self, err):
-            return b"error"
-
-    lib = kernel_ab.moe_library(Before())
-    assert isinstance(lib, kernel_ab._BeforeRows)
-    fn = lib.moe_gemm_launch_raw
-    assert fn.argtypes == [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
-        ctypes.c_longlong] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    assert fn.restype is ctypes.c_int
-    head = (1, 2, 3, None, 64, 4, 1024, 2048, 0, 2, 1, 1)
-    assert lib.moe_gemm_launch(*head, 1, 99) == 0
-    assert lib.moe_gemm_launch(*head, 0, 99) == 0
-    assert calls == [head + (99,)] * 2
-    with pytest.raises(ValueError, match="row by row"):
-        lib.moe_gemm_launch(*head[:5], 32, *head[6:], 1, 99)
-    assert lib.moe_gemm_error_string(0) == b"error"
-    rows = types.SimpleNamespace(moe_gemm_thin_tiles=lambda m, d: 1)
-    assert kernel_ab.moe_library(rows) is rows
+def test_the_latent_rows_are_phase_2s_latent_cases(smoke):
+    """``latent_attention`` is compared at every ``LATENT_CASES`` row, on
+    the inputs, library call and work phase 2 draws and counts (the same
+    functions of chip_smoke.py), its bound at the inputs' dtype's peak as
+    phase 2 takes it: bf16's tensor-core rate for the bf16 rows (the
+    bytes, at minicpm3's widths), fp32's FMA rate for the fp32 ones."""
+    import inspect
+    from repro_torch.roofline import HBM_BW, PEAK_FLOPS_BY_DTYPE
+    assert "latent_attention" in kernel_ab.WRAPPERS
+    phase2 = _names_in(smoke, "check_latent_attention")
+    assert {"LATENT_CASES", "latent_inputs", "latent_library",
+            "latent_work", "dtype"} <= phase2
+    src = inspect.getsource(kernel_ab.latent_ab)
+    for name in ("LATENT_CASES", "latent_inputs", "latent_library",
+                 "latent_work", "LATENT_QK"):
+        assert f"cs.{name}" in src
+    cases = {case[0] for case in smoke.LATENT_CASES}
+    assert {"minicpm3", "clamped", "minicpm3 4k", "fp32",
+            "reduced"} <= cases
+    dtypes = {case[7] for case in smoke.LATENT_CASES}
+    assert dtypes == {torch.float32, torch.bfloat16}
+    for flops, nbytes in [(1e9, 1e6), (1e6, 1e9)]:
+        for dtype in dtypes:
+            want = max(flops / PEAK_FLOPS_BY_DTYPE[dtype],
+                       nbytes / HBM_BW) * 1e3
+            assert kernel_ab.bound_ms(flops, nbytes, dtype) == want
+    assert kernel_ab.bound_ms(1e9, 1e6) == kernel_ab.bound_ms(
+        1e9, 1e6, torch.float32)
 
 
 def test_the_moe_rows_are_phase_4s_chunk(smoke):
